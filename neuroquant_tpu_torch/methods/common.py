@@ -1,0 +1,125 @@
+"""Evaluation machinery shared by the CLI stages (the evaluation part of
+``neuroquant_tpu/methods/common.py``): whole-clip PSNR/MS-SSIM in frame
+order with the reference's ``Eval at Step`` log lines, and decode FPS."""
+
+from __future__ import annotations
+
+import logging
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from neuroquant_tpu_torch.metrics import msssim_fn_single, psnr_fn_single
+from neuroquant_tpu_torch.schedules import data_split
+
+METRIC_NAMES = ["pred_seen_psnr", "pred_seen_ssim",
+                "pred_unseen_psnr", "pred_unseen_ssim"]
+
+
+@torch.no_grad()
+def measure_decode_fps(model, embeds, batch_size: int = 1,
+                       n_iters: int = 400, reps: int = 4) -> float:
+    """Decode throughput over `n_iters` sequential decodes of rotating frame
+    embeddings, best of `reps` timed windows after one warm-up window. On
+    the GPU the window is timed with CUDA events and ends in a
+    synchronize; on the CPU with the host clock."""
+    n = embeds.shape[0]
+    idx = np.arange(n_iters * batch_size) % n
+    batches = [embeds[torch.as_tensor(idx[i * batch_size:(i + 1) * batch_size],
+                                      device=embeds.device)]
+               for i in range(n_iters)]
+    cuda = embeds.device.type == "cuda"
+
+    def window() -> float:
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for e in batches:
+            model.decode(e)
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / 1e3
+        return time.perf_counter() - t0
+
+    window()                                  # warm-up (first launches)
+    best = min(window() for _ in range(reps))
+    return n_iters * batch_size / best
+
+
+@torch.no_grad()
+def evaluate(model, dataset, args, cfg, eval_fps: bool = False):
+    """Full-clip eval in frame order: encode, decode and score each batch.
+    Returns (results_list, (h, w), embeddings in frame order). Decode FPS
+    is measured on the collected embeddings, as in the JAX package."""
+    frames = dataset.frames
+    n = len(dataset)
+    bs = cfg["batch_size"]
+    val_ind = set(args.val_ind_list)
+    n_batches = (n + bs - 1) // bs
+    ps, ss, embeds = [], [], []
+    for i in range(n_batches):
+        img = frames[i * bs:min((i + 1) * bs, n)]
+        emb = model.encode(img)
+        out = model.decode(emb)
+        ps.append(psnr_fn_single(out, img))
+        ss.append(msssim_fn_single(out, img))
+        embeds.append(emb)
+    ps = torch.cat(ps).cpu().numpy()
+    ss = torch.cat(ss).cpu().numpy()
+    all_embeds = torch.cat(embeds)
+    fps = measure_decode_fps(model, all_embeds, bs, n_iters=min(400, 4 * n))
+
+    metric_list = [[] for _ in METRIC_NAMES]
+    for frame_id in range(n):
+        start = 2 if frame_id in val_ind else 0
+        metric_list[start + 0].append(ps[frame_id])
+        metric_list[start + 1].append(ss[frame_id])
+
+    seen_mask = np.array([f not in val_ind for f in range(n)])
+    for i in list(range(0, n_batches, args.print_freq)) + [n_batches - 1]:
+        upto = min((i + 1) * bs, n)
+        m = seen_mask[:upto]
+        p = ps[:upto][m].mean() if m.any() else 0.0
+        s = ss[:upto][m].mean() if m.any() else 0.0
+        logging.info("[{}], Eval at Step [{}/{}], FPS {}, PSNR {}, MS-SSIM {}"
+                     .format(datetime.now().strftime("%Y/%m/%d %H:%M:%S"),
+                             i + 1, n_batches, round(fps, 1),
+                             round(float(p), 2), round(float(s), 4)))
+
+    results = [np.mean(v) if len(v) else np.zeros(1) for v in metric_list]
+    args.fps = fps
+    if eval_fps:
+        logging.info("[eval_fps] {} decode throughput: {} FPS (batch {})"
+                     .format(device_name(all_embeds.device), round(fps, 1),
+                             bs))
+    return results, (cfg["crop_h"], cfg["crop_w"]), all_embeds
+
+
+def device_name(device) -> str:
+    if torch.device(device).type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+def split_dataset(args, dataset):
+    args.final_size = dataset.final_size
+    args.full_data_length = len(dataset)
+    split = [int(x) for x in args.data_split.split("_")]
+    train_ind, args.val_ind_list = data_split(
+        list(range(args.full_data_length)), split, False, 0)
+    return train_ind
+
+
+def best_metrics_str(results, best=None):
+    out, best = "", best or [0.0] * len(METRIC_NAMES)
+    for i, (name, value) in enumerate(zip(METRIC_NAMES, results)):
+        best[i] = max(best[i], float(np.max(value)))
+        digits = 2 if "psnr" in name else 4
+        out += f"best_{name}: {round(best[i], digits)} | "
+    return out, best

@@ -1,0 +1,93 @@
+"""Evaluate a calibrated model: quantized artifact -> fake-quantized decoder
+-> PSNR / MS-SSIM / decode FPS (the counterpart of
+``neuroquant_tpu/methods/eval_quantized.py``).
+
+It reads the artifact pickle that ``calibrate_network`` writes: the model's
+reference-layout ``state_dict`` (numpy), the ``quant_spec`` dict and the
+``quant_state`` (numpy, HWIO shapes), plus ``arch`` and ``cfg``.
+
+Run:
+  python -m neuroquant_tpu_torch.methods.eval_quantized --artifact <...pth> \
+      --data_path <frame dir> [--eval_fps] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import pickle
+import sys
+
+from neuroquant_tpu_torch.data import VideoDataSet
+from neuroquant_tpu_torch.methods import common
+from neuroquant_tpu_torch.models import build_model
+from neuroquant_tpu_torch.quantization.qmodel import quantize_params
+from neuroquant_tpu_torch.quantization.spec import QuantSpec
+from neuroquant_tpu_torch.utils.convert import (
+    quant_state_from_numpy, state_dict_from_numpy)
+from neuroquant_tpu_torch.utils.device import resolve_device
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser()
+    p.add_argument("--artifact", type=str, required=True)
+    p.add_argument("--data_path", type=str, required=True)
+    p.add_argument("--from_bitstream", type=str, default=None,
+                   help="reconstruct weights from this .nqtb stream instead "
+                        "of the saved QuantState (not ported yet)")
+    p.add_argument("--data_split", type=str, default="1_1_1")
+    p.add_argument("-p", "--print-freq", default=50, type=int)
+    p.add_argument("--eval_fps", action="store_true", default=False,
+                   help="also log the decode FPS")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def spec_from_artifact(artifact) -> QuantSpec:
+    qs = artifact["quant_spec"]
+    return QuantSpec(
+        layer_names=tuple(qs["layer_names"]),
+        layer_paths=tuple(tuple(p) for p in qs["layer_paths"]),
+        n_bits=tuple(qs["n_bits"]), channel_wise=qs["channel_wise"],
+        scale_method=qs["scale_method"], hadamard=qs["hadamard"],
+        sym=qs["sym"])
+
+
+def main(argv):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    if args.from_bitstream:
+        raise NotImplementedError(
+            "--from_bitstream: the NQTB codec is ROADMAP queue A item 7")
+    logging.basicConfig(stream=sys.stdout, level=logging.INFO)
+
+    with open(args.artifact, "rb") as f:
+        artifact = pickle.load(f)
+    arch, cfg = artifact["arch"], artifact["cfg"]
+
+    dataset = VideoDataSet(cfg, args.data_path, device=device)
+    common.split_dataset(args, dataset)
+
+    model = build_model(arch, cfg, device=device)
+    model.load_state_dict(state_dict_from_numpy(artifact["state_dict"],
+                                                device), strict=True)
+    spec = spec_from_artifact(artifact)
+    state = quant_state_from_numpy(artifact["quant_state"], device)
+    # any-layer alpha => adaround mode; quantize_params resolves the
+    # per-layer mode from alpha presence (mixed-rounding states)
+    mode = ("adaround" if any("w_alpha" in s for s in state.values())
+            else "uaq")
+    model.load_state_dict(quantize_params(model.state_dict(), spec, state,
+                                          mode=mode, soft=False))
+    model.eval()
+
+    results, _, _ = common.evaluate(model, dataset, args, cfg,
+                                    eval_fps=args.eval_fps)
+    s, _ = common.best_metrics_str(results)
+    logging.info("Quantized eval: %s", s)
+    return results
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,177 @@
+"""HNeRV: ConvNeXt content encoder -> tiny embedding -> conv/pixel-shuffle
+decoder (the counterpart of ``neuroquant_tpu/models/hnerv.py``; NHWC)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from neuroquant_tpu_torch.models.layers import (
+    Conv2d, ConvNeXt, NeRVBlock, collect_tail_params, out_img,
+    run_prefix_blocks)
+from neuroquant_tpu_torch.ops.packed_decode import resolve_pack_start
+from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
+from neuroquant_tpu_torch.ops.tail_fused import (
+    prepare_tail, resolve_impl, run_fused_tail_frames)
+
+
+@dataclasses.dataclass(frozen=True)
+class HNeRVConfig:
+    crop_h: int
+    crop_w: int
+    stage_block: int
+    enc_strides: Tuple[int, ...]
+    enc_channel: Tuple[int, ...]
+    dec_in_channel: int
+    dec_kernels: Tuple[int, ...]
+    dec_strides: Tuple[int, ...]
+    channel_reduce: float
+    channel_lbound: int
+    dec_norm: str
+    dec_acts: str
+    out_bias: str
+    packed_tail: str = "auto"   # 'auto' | 'off' | explicit block index
+    fused_tail: str = "auto"    # 'off' decodes unpacked; else the kernels
+    fused_prefix: str = "auto"  # 'off' keeps the last prefix block a conv
+
+    @classmethod
+    def from_cfg(cls, cfg: dict) -> "HNeRVConfig":
+        assert list(cfg["enc_strides"]) == list(cfg["dec_strides"]), \
+            "HNeRV requires enc_strides == dec_strides"
+        return cls(
+            crop_h=cfg["crop_h"], crop_w=cfg["crop_w"],
+            stage_block=int(cfg["stage_block"]),
+            enc_strides=tuple(cfg["enc_strides"]),
+            enc_channel=tuple(cfg["enc_channel"]),
+            dec_in_channel=int(cfg["dec_in_channel"]),
+            dec_kernels=tuple(cfg["dec_kernels"]),
+            dec_strides=tuple(cfg["dec_strides"]),
+            channel_reduce=float(cfg["channel_reduce"]),
+            channel_lbound=int(cfg["channel_lbound"]),
+            dec_norm=cfg["dec_norm"], dec_acts=cfg["dec_acts"],
+            out_bias=str(cfg["out_bias"]),
+            packed_tail=str(cfg.get("packed_tail", "auto")),
+            fused_tail=str(cfg.get("fused_tail", "auto")),
+            fused_prefix=str(cfg.get("fused_prefix", "auto")),
+        )
+
+    @property
+    def fc_h(self) -> int:
+        return int(np.prod(self.enc_strides)) // int(np.prod(self.dec_strides))
+
+    fc_w = fc_h
+
+    def decoder_channels(self):
+        chans, in_c = [], self.dec_in_channel
+        for _ in self.dec_strides:
+            out_c = int(max(round(in_c / self.channel_reduce),
+                            self.channel_lbound))
+            chans.append(out_c)
+            in_c = out_c
+        return chans
+
+    @property
+    def embed_hw(self) -> Tuple[int, int]:
+        s = int(np.prod(self.enc_strides))
+        return self.crop_h // s, self.crop_w // s
+
+
+class HNeRV(nn.Module):
+    def __init__(self, cfg: HNeRVConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        self.encoder = ConvNeXt(c.stage_block, c.enc_strides, c.enc_channel)
+        chans = c.decoder_channels()
+        decoder = [Conv2d(c.enc_channel[-1], c.dec_in_channel, 1)]
+        for ks, stride, cin, cout in zip(c.dec_kernels, c.dec_strides,
+                                         [c.dec_in_channel] + chans[:-1],
+                                         chans):
+            decoder.append(NeRVBlock(cin, cout, ks, stride, norm=c.dec_norm,
+                                     act=c.dec_acts))
+        self.decoder = nn.ModuleList(decoder)
+        self.head_layer = Conv2d(chans[-1], 3, 3, padding=1)
+        self.pack_start = resolve_pack_start(
+            c.packed_tail, c.dec_kernels, c.dec_strides, c.dec_norm,
+            [c.dec_in_channel] + chans[:-1], chans, c.crop_h, c.crop_w)
+        self._packed = {}   # _kernel_weights: key -> (weight version, wts)
+
+    @property
+    def blocks(self):
+        return list(self.decoder)[1:]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        """The JAX package's init: torch's default U(+-1/sqrt(fan_in)) for
+        the decoder convs, truncated N(0, 0.02) and zero biases in the
+        encoder (LayerNorms stay at ones/zeros, gamma at 1e-6)."""
+        for m in self.decoder.modules():
+            if isinstance(m, Conv2d):
+                m.reset_parameters(generator)
+        self.head_layer.reset_parameters(generator)
+        for m in self.encoder.modules():
+            if isinstance(m, (Conv2d, nn.Linear)):
+                nn.init.trunc_normal_(m.weight, std=0.02, a=-2.0, b=2.0,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+
+    def encode(self, img):
+        """NHWC frames -> (B, crop_h/prod(s), crop_w/prod(s), enc_channel[-1])."""
+        return self.encoder(img)
+
+    def _fused_impl(self):
+        if self.pack_start is None or self.cfg.dec_acts != "gelu":
+            return None
+        return resolve_impl(self.cfg.fused_tail)
+
+    def _kernel_weights(self, key, build):
+        """``build()``: the fused prefix's or tail's weights packed for the
+        kernels, kept across decodes until the decoder's weights change.
+        ``load_state_dict`` and every in-place update bump a parameter's
+        version counter, and a moved or replaced parameter has a new
+        address; either rebuilds. With gradients on it always rebuilds, so
+        no kept tensor carries a graph."""
+        if torch.is_grad_enabled():
+            return build()
+        params = (*self.decoder.parameters(), *self.head_layer.parameters())
+        version = tuple((p.data_ptr(), p._version) for p in params)
+        hit = self._packed.get(key)
+        if hit is None or hit[0] != version:
+            hit = self._packed[key] = (version, build())
+        return hit[1]
+
+    def _prefix(self, img_embed, impl):
+        """decoder0 + blocks[:pack_start] -> the tail-entry NHWC activation."""
+        c = self.cfg
+        x = pixel_shuffle(self.decoder[0](img_embed), (c.fc_h, c.fc_w))
+        return run_prefix_blocks(self.blocks, self.pack_start, x, impl,
+                                 fused_prefix=c.fused_prefix,
+                                 dec_norm=c.dec_norm,
+                                 memo=self._kernel_weights)
+
+    def decode(self, img_embed):
+        """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).
+
+        The kernel path runs the high-resolution tail packed from the pack
+        start on, channels-first, on the CUDA kernels (ops/tail_fused.py),
+        with the last prefix block fused too. With ``packed_tail: off`` or
+        ``fused_tail: off`` the plain unpacked conv/shuffle chain runs."""
+        c = self.cfg
+        impl = self._fused_impl()
+        if impl is not None:
+            x = self._prefix(img_embed, impl)
+            h, w = int(x.shape[1]), int(x.shape[2])
+            wts = self._kernel_weights(("tail", h, w), lambda: prepare_tail(
+                h, w, *collect_tail_params(self.blocks, self.head_layer,
+                                           self.pack_start)))
+            return run_fused_tail_frames(x, wts, c.out_bias)
+        x = pixel_shuffle(self.decoder[0](img_embed), (c.fc_h, c.fc_w))
+        for blk in self.blocks:
+            x = blk(x)
+        return out_img(self.head_layer(x), c.out_bias)
+
+    def forward(self, img):
+        return self.decode(self.encode(img))

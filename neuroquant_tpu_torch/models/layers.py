@@ -1,0 +1,211 @@
+"""Model primitives for HNeRV on NHWC tensors, with the reference's torch
+parameter names (the HNeRV part of ``neuroquant_tpu/models/layers.py``).
+
+Parameters keep torch's layouts (OIHW conv weights, (out, in) Linear
+weights), so a reference ``.pth`` or a checkpoint written by the JAX
+``save_pth`` loads with ``strict=True``. Activations stay NHWC as in the
+JAX package: a conv permutes to NCHW, which for an NHWC-contiguous tensor is
+PyTorch's channels-last layout, and back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
+from neuroquant_tpu_torch.ops.tail_fused import (  # noqa: F401 (out_img)
+    out_img, prefix_cf_to_nhwc, prepare_prefix_block,
+    run_fused_prefix_block)
+
+
+class Conv2d(nn.Module):
+    """NHWC conv with an OIHW ``weight`` and torch's default init."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        nn.init.uniform_(self.weight, -bound, bound, generator=generator)
+        if self.bias is not None:
+            nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+
+    def hwio(self):
+        """The kernel as an HWIO view (the JAX layout)."""
+        return self.weight.permute(2, 3, 1, 0)
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, self.padding, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class PixelShuffle(nn.Module):
+    """``nn.PixelShuffle`` channel semantics on NHWC tensors."""
+
+    def __init__(self, r):
+        super().__init__()
+        self.r = r
+
+    def forward(self, x):
+        return pixel_shuffle(x, self.r)
+
+
+class UpsampleConv(nn.Sequential):
+    """Conv to C_out*r*r channels, then PixelShuffle(r): the reference's
+    ``nn.Sequential(Conv2d, PixelShuffle)``, hence the key ``conv.0``."""
+
+    def __init__(self, cin: int, out_channel: int, kernel_size: int, r: int,
+                 bias: bool = True):
+        super().__init__(
+            Conv2d(cin, out_channel * r * r, kernel_size,
+                   padding=(kernel_size - 1) // 2, bias=bias),
+            PixelShuffle(r))
+
+
+def activation(act_type: str):
+    """Activation by name; 'gelu' is the exact-erf GELU."""
+    table = {
+        "relu": F.relu,
+        "leaky": lambda x: F.leaky_relu(x, 0.01),
+        "leaky01": lambda x: F.leaky_relu(x, 0.1),
+        "relu6": F.relu6,
+        "gelu": F.gelu,
+        "sin": torch.sin,
+        "swish": F.silu,
+        "softplus": F.softplus,
+        "hardswish": F.hardswish,
+    }
+    if act_type not in table:
+        raise KeyError(f"Unknown activation function {act_type}.")
+    return table[act_type]
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the channel (last) axis, eps 1e-6."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+
+
+class NeRVBlock(nn.Module):
+    """Conv(cin, cout*s*s, k, pad=(k-1)//2) -> PixelShuffle(s) -> act. Only
+    ``norm='none'``, the setting of every shipped config, is ported."""
+
+    def __init__(self, cin: int, out_channel: int, kernel_size: int,
+                 stride: int, norm: str = "none", act: str = "gelu"):
+        super().__init__()
+        if norm != "none":
+            raise NotImplementedError(
+                f"dec_norm={norm!r}: only 'none' is ported")
+        self.out_channel, self.kernel_size, self.stride = (
+            out_channel, kernel_size, stride)
+        self.conv = UpsampleConv(cin, out_channel, kernel_size, stride)
+        self.act_fn = activation(act)
+
+    def conv_params(self):
+        """(HWIO kernel, bias) of the block's conv."""
+        return self.conv[0].hwio(), self.conv[0].bias
+
+    def forward(self, x):
+        return self.act_fn(self.conv(x))
+
+
+class ConvNeXtBlock(nn.Module):
+    """dwconv 7x7 -> LN -> Linear 4x -> GELU -> Linear -> gamma -> residual."""
+
+    def __init__(self, dim: int, layer_scale_init_value: float = 1e-6):
+        super().__init__()
+        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = LayerNorm(dim)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init_value))
+
+    def forward(self, x):
+        y = self.pwconv2(F.gelu(self.pwconv1(self.norm(self.dwconv(x)))))
+        return x + self.gamma * y
+
+
+class ConvNeXt(nn.Module):
+    """Stage pyramid: (downsample conv + LN) then stage_blocks ConvNeXt
+    blocks per stage; returns the last stage."""
+
+    def __init__(self, stage_blocks: int, strds: Sequence[int],
+                 dims: Sequence[int], in_chans: int = 3):
+        super().__init__()
+        down = []
+        for i, (s, d) in enumerate(zip(strds, dims)):
+            if i == 0:
+                down.append(nn.Sequential(Conv2d(in_chans, d, s, stride=s),
+                                          LayerNorm(d)))
+            else:
+                down.append(nn.Sequential(LayerNorm(dims[i - 1]),
+                                          Conv2d(dims[i - 1], d, s, stride=s)))
+        self.downsample_layers = nn.ModuleList(down)
+        self.stages = nn.ModuleList(
+            nn.Sequential(*[ConvNeXtBlock(d) for _ in range(stage_blocks)])
+            for d in dims)
+
+    def forward(self, x):
+        for down, stage in zip(self.downsample_layers, self.stages):
+            x = stage(down(x))
+        return x
+
+
+def _build(key, build):
+    return build()
+
+
+def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
+                      dec_norm: str, memo=_build):
+    """Run the decode prefix blocks[:t] on NHWC x. With the fused tail the
+    LAST prefix block, nearly all of the prefix's FLOPs, runs its conv as
+    a 1-layer channels-first plan on the tail kernels (pack_cf +
+    tail_conv_cf); its PixelShuffle becomes one relabel of that output.
+    ``memo(key, build)`` returns ``build()``, the block's packed weights,
+    or a copy kept from an earlier call (``HNeRV._kernel_weights``).
+
+    The JAX package also gates this on a minimum grid (``PREFIX_MIN_GRID``,
+    a TPU per-call overhead knob); the port fuses at any grid size."""
+    last = t - 1
+    fused = (str(fused_prefix) != "off" and last >= 0 and impl is not None
+             and dec_norm == "none" and blocks[last].kernel_size % 2 == 1)
+    for j in range(last if fused else t):
+        x = blocks[j](x)
+    if fused:
+        blk = blocks[last]
+        h, w = int(x.shape[1]), int(x.shape[2])
+        wts = memo(("prefix", h, w), lambda: prepare_prefix_block(
+            h, w, *blk.conv_params(), blk.stride))
+        z = run_fused_prefix_block(x, wts)
+        x = blk.act_fn(prefix_cf_to_nhwc(z, wts.plan, blk.stride,
+                                         blk.out_channel))
+    return x
+
+
+def collect_tail_params(blocks, head_layer, pack_start: int):
+    """The raw (HWIO kernel, bias, stride) of the tail blocks from
+    pack_start on, and the head's (HWIO kernel, bias)."""
+    out = [(*blocks[j].conv_params(), blocks[j].stride)
+           for j in range(pack_start, len(blocks))]
+    return out, (head_layer.hwio(), head_layer.bias)

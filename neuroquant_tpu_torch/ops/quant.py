@@ -1,0 +1,143 @@
+"""Fake-quantization forward math: uniform affine quantizers, scale
+initialization and hard AdaRound, as plain functions on tensors.
+
+The counterpart of ``neuroquant_tpu/ops/quant.py`` for the serving slice:
+forward only (the straight-through gradients, ``adaround_reg`` and the QAT
+quantizers come with the calibration slice). The per-channel scale search
+runs batched over rows where the JAX version vmaps over C_out.
+"""
+
+from __future__ import annotations
+
+import torch
+
+GAMMA, ZETA = -0.1, 1.1      # AdaRound rectified-sigmoid constants
+EPS = 1e-8
+
+# A range divides into 2^b - 1 steps as a multiply by the fp32 reciprocal:
+# the jitted JAX scale init computes it so (XLA turns a division by a
+# constant into one), and a zero point that lands on x.5 rounds on that
+# last bit.
+
+
+def _step(span, n_bits: int):
+    return torch.clamp(span * (1.0 / (2 ** n_bits - 1)), min=EPS)
+
+
+def uaq_fake_quant(x, delta, zero_point, n_bits: int):
+    """Asymmetric uniform affine fake-quant (forward)."""
+    x_int = torch.round(x / delta) + zero_point
+    x_quant = torch.clamp(x_int, 0, 2 ** n_bits - 1)
+    return (x_quant - zero_point) * delta
+
+
+def uaq_int_codes(x, delta, zero_point, n_bits: int):
+    """Integer codes (what the entropy coder consumes)."""
+    x_int = torch.round(x / delta) + zero_point
+    return torch.clamp(x_int, 0, 2 ** n_bits - 1).to(torch.int32)
+
+
+def _quantize_with_range(x, new_max, new_min, n_bits: int):
+    """Candidate quantization used by the mse/l1/l2 searches."""
+    delta = _step(new_max - new_min, n_bits)
+    zp = torch.round(-new_min / delta)
+    x_quant = torch.clamp(torch.round(x / delta) + zp, 0, 2 ** n_bits - 1)
+    return (x_quant - zp) * delta
+
+
+def _range_to_scale(x_min, x_max, n_bits: int, sym: bool):
+    if sym:
+        x_absmax = torch.maximum(x_min.abs(), x_max)
+        x_min = torch.where(x_min < 0, -x_absmax, torch.zeros_like(x_min))
+        x_max = x_absmax
+    delta = _step(x_max - x_min, n_bits)
+    return delta, torch.round(-x_min / delta)
+
+
+def _init_scale_rows(x, n_bits: int, method: str, sym: bool):
+    """Scale/zero-point for each row of a (R, N) tensor: (R,), (R,)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if "max" in method:
+        x_min = torch.minimum(x.amin(dim=-1), zero)
+        x_max = torch.maximum(x.amax(dim=-1), zero)
+        return _range_to_scale(x_min, x_max, n_bits, sym)
+    if method == "gaussian":
+        mu = x.mean(dim=-1)
+        # quirk kept from the reference: the variance, not the standard
+        # deviation, sets the +-6 range (population variance, as jnp.var)
+        sigma = x.var(dim=-1, unbiased=False)
+        x_min = torch.minimum(mu - 6 * sigma, zero)
+        x_max = torch.maximum(mu + 6 * sigma, zero)
+        return _range_to_scale(x_min, x_max, n_bits, sym)
+    if method in ("mse", "l1", "l2"):
+        x_max, x_min = x.amax(dim=-1), x.amin(dim=-1)
+        shrink = 1.0 - 0.05 * torch.arange(10, dtype=x.dtype, device=x.device)
+        cand_max = x_max[:, None] * shrink                      # (R, 10)
+        cand_min = x_min[:, None] * shrink
+        xq = _quantize_with_range(x[:, None, :], cand_max[..., None],
+                                  cand_min[..., None], n_bits)  # (R, 10, N)
+        err = x[:, None, :] - xq
+        if method == "mse":
+            scores = (err.abs() ** 3.5).mean(dim=-1)
+        elif method == "l2":
+            scores = (err ** 2).mean(dim=-1)
+        else:
+            scores = err.abs().mean(dim=-1)
+        best = torch.argmin(scores, dim=-1, keepdim=True)
+        nmax = cand_max.gather(1, best)[:, 0]
+        nmin = cand_min.gather(1, best)[:, 0]
+        delta = _step(nmax - nmin, n_bits)
+        return delta, torch.round(-nmin / delta)
+    raise NotImplementedError(f"scale method {method!r}")
+
+
+def _init_scale_flat(x, n_bits: int, method: str, sym: bool):
+    """Scale/zero-point (0-d tensors) for one flat quantization group."""
+    delta, zp = _init_scale_rows(x.reshape(1, -1), n_bits, method, sym)
+    return delta[0], zp[0]
+
+
+def init_weight_scale(w_hwio, n_bits: int, channel_wise: bool, method: str,
+                      sym: bool = False):
+    """Scale init for an HWIO conv weight: (delta, zp) of shape
+    (1, 1, 1, C_out) when channel_wise, else 0-d."""
+    if channel_wise:
+        cout = w_hwio.shape[-1]
+        per_ch = w_hwio.reshape(-1, cout).T               # (C_out, KH*KW*C_in)
+        delta, zp = _init_scale_rows(per_ch, n_bits, method, sym)
+        return delta.reshape(1, 1, 1, cout), zp.reshape(1, 1, 1, cout)
+    return _init_scale_flat(w_hwio, n_bits, method, sym)
+
+
+def init_bias_scale(b, n_bits: int, method: str, sym: bool = False):
+    """A bias always gets a single scale, even channel_wise."""
+    return _init_scale_flat(b, n_bits, method, sym)
+
+
+def f16_round(x):
+    """float32 -> float16 -> float32, the reference's ``.half().float()`` on
+    delta/zero_point at the AdaRound hand-off."""
+    return x.to(torch.float16).to(torch.float32)
+
+
+def adaround_soft_targets(alpha):
+    """h(alpha) = clip(sigmoid(alpha)*(zeta-gamma)+gamma, 0, 1)."""
+    return torch.clamp(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA, 0.0, 1.0)
+
+
+def adaround_fake_quant(x, delta, zero_point, alpha, n_bits: int,
+                        soft: bool = True):
+    """AdaRound forward: floor(x/delta) + h(alpha) (soft) or + [alpha >= 0]."""
+    x_floor = torch.floor(x / delta)
+    if soft:
+        x_int = x_floor + adaround_soft_targets(alpha)
+    else:
+        x_int = x_floor + (alpha >= 0).to(x.dtype)
+    x_quant = torch.clamp(x_int + zero_point, 0, 2 ** n_bits - 1)
+    return (x_quant - zero_point) * delta
+
+
+def adaround_int_codes(x, delta, zero_point, alpha, n_bits: int):
+    """Hard-rounded integer codes."""
+    x_int = torch.floor(x / delta) + (alpha >= 0).to(x.dtype)
+    return torch.clamp(x_int + zero_point, 0, 2 ** n_bits - 1).to(torch.int32)
