@@ -1,4 +1,4 @@
-"""NeuroQuant on PyTorch and CUDA: the serving slice of NeuroQuant-TPU.
+"""NeuroQuant on PyTorch and CUDA: a port of NeuroQuant-TPU, slice by slice.
 
 A port of the JAX package ``neuroquant_tpu`` to PyTorch, with the decoder
 tail's TPU kernels rewritten as hand-written CUDA kernels for NVIDIA Hopper
@@ -7,7 +7,9 @@ here has a counterpart there; tensors keep the JAX layouts (NHWC frames and
 activations, channels-first flat ``(B, C8, Mp)`` tail activations, HWIO
 quantization state).
 
-This slice covers quantized HNeRV decoding (``methods.eval_quantized``).
+It covers HNeRV's network-wise calibration (``methods.calibrate_network``,
+forward and backward through the fused tail's kernels) and quantized
+decoding (``methods.eval_quantized``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper runs its plain PyTorch version.
 

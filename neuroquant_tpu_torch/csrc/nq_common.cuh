@@ -20,3 +20,11 @@ __device__ __forceinline__ float nq_erf(float x) {
 __device__ __forceinline__ float nq_gelu(float x) {
   return 0.5f * x * (1.0f + nq_erf(x * 0.7071067811865476f));
 }
+
+// d/dz [z * Phi(z)] = Phi(z) + z * phi(z), in the order of `_gelu_grad` in
+// neuroquant_tpu/ops/tail_fused.py: the backward's GELU' epilogue.
+__device__ __forceinline__ float nq_gelu_grad(float z) {
+  const float phi = expf(-0.5f * z * z) * 0.3989422804014327f;
+  const float cdf = 0.5f * (1.0f + nq_erf(z * 0.7071067811865476f));
+  return cdf + z * phi;
+}

@@ -1,13 +1,17 @@
 // tail_conv_cf: one conv layer of the channels-first decoder tail.
 //
 // Replaces the TPU kernel neuroquant_tpu/ops/tail_fused.py:1133
-// `_fwd_kernel` (launched by `_conv_cf_one`), forward decode only: the
-// `emit='z'|'y'` and `act_in` cases of `_tail_fwd_impl`.
+// `_fwd_kernel` (launched by `_conv_cf_one`): the forward's `emit='z'|'y'`
+// and `act_in` cases of `_tail_fwd_impl`, and the backward's dx pass with
+// the `out_mul` epilogue (`_tail_apply_bwd`).
 //
-//   out[b, co, m] = e( mask[m] * (sum_k W[k, co] * a(x[b, chan[k], m + shift[k]]) + bias[co]) )
+//   out[b, co, m] = e( mask[m] * (sum_k W[k, co] * a(x[b, chan[k], m + shift[k]]) + bias[co])
+//                      * GELU'(out_mul[b, co, m]) )
 //
-// with a = GELU when act_in (else identity), e = GELU when emit_y, GELU by
-// the Abramowitz & Stegun 7.1.26 erf that the JAX tail uses. x is
+// with a = GELU when act_in (else identity), e = GELU when emit_y, the
+// GELU' factor only when out_mul is given (a template parameter, so the
+// decode's instantiation is the one without it); GELU and GELU' by the
+// Abramowitz & Stegun 7.1.26 erf that the JAX tail uses. x is
 // (B, cin, Mp) fp32 channels-first flat with a zero border; positions
 // outside [0, Mp) read zero. The K axis is a host-built list of rows
 // (flat shift, input channel): the dense taps of an f=1 layer, or the
@@ -28,8 +32,13 @@
 // input values (coalesced along positions, GELU applied once per staged
 // value) in shared memory, then each thread accumulates a 4x8 register
 // tile with float4 shared-memory reads, 32 FMAs per 3 loads. The epilogue
-// adds the bias, applies the border mask computed from the flat index, the
-// output GELU, and writes float4 rows. Nothing is double-buffered yet.
+// adds the bias, multiplies by GELU'(out_mul) for the dx pass, applies the
+// border mask computed from the flat index, the output GELU, and writes
+// float4 rows. Nothing is double-buffered yet.
+//
+// The dx pass runs on the transposed layer (channels swapped, taps
+// mirrored, the convT's union blocks): it is the same function on another
+// K list, so the same kernel.
 
 #include <cuda_runtime.h>
 
@@ -42,9 +51,11 @@ constexpr int BN = 128;   // flat positions per block
 constexpr int BK = 16;    // K rows per shared-memory stage
 constexpr int THREADS = 256;
 
+template <bool kOutMul>
 __global__ void __launch_bounds__(THREADS)
 tail_conv_cf_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias,
+                    const float* __restrict__ out_mul,
                     const int* __restrict__ kshift,
                     const int* __restrict__ kchan, float* __restrict__ out,
                     int cin, int cout, int mp, int kpad, int h, int wd,
@@ -112,6 +123,8 @@ tail_conv_cf_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (co >= cout) continue;
     const float bb = bias != nullptr ? bias[co] : 0.f;
     float* orow = out + ((size_t)b * cout + co) * mp;
+    const float* mrow = kOutMul ? out_mul + ((size_t)b * cout + co) * mp
+                                : nullptr;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int mb = m0 + half * 64 + tx * 4;
@@ -122,7 +135,9 @@ tail_conv_cf_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int row = m / wp, col = m - (m / wp) * wp;
         const bool inside = m < hp * wp && row >= pad && row < pad + h &&
                             col >= pad && col < pad + wd;
-        const float z = (acc[i][half * 4 + j] + bb) * (inside ? 1.f : 0.f);
+        float z = acc[i][half * 4 + j] + bb;
+        if (kOutMul && m < mp) z *= nq_gelu_grad(mrow[m]);
+        z *= inside ? 1.f : 0.f;
         r[j] = emit_y ? nq_gelu(z) : z;
       }
       if (mb + 3 < mp) {
@@ -139,17 +154,22 @@ tail_conv_cf_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace
 
 extern "C" int nq_tail_conv_cf(const float* x, const float* w,
-                               const float* bias, const int* kshift,
-                               const int* kchan, float* out, int batch,
-                               int cin, int cout, int mp, int kpad, int h,
-                               int wd, int pad, int act_in, int emit_y,
-                               void* stream) {
+                               const float* bias, const float* out_mul,
+                               const int* kshift, const int* kchan,
+                               float* out, int batch, int cin, int cout,
+                               int mp, int kpad, int h, int wd, int pad,
+                               int act_in, int emit_y, void* stream) {
   if (kpad % BK != 0 || mp % BN != 0 || batch < 1 || cout < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(mp / BN, (cout + BM - 1) / BM, batch);
-  tail_conv_cf_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, w, bias, kshift, kchan, out, cin, cout, mp, kpad, h, wd, pad,
-      act_in, emit_y);
+  if (out_mul != nullptr)
+    tail_conv_cf_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        x, w, bias, out_mul, kshift, kchan, out, cin, cout, mp, kpad, h, wd,
+        pad, act_in, emit_y);
+  else
+    tail_conv_cf_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        x, w, bias, nullptr, kshift, kchan, out, cin, cout, mp, kpad, h, wd,
+        pad, act_in, emit_y);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
-"""Evaluation machinery shared by the CLI stages (the evaluation part of
-``neuroquant_tpu/methods/common.py``): whole-clip PSNR/MS-SSIM in frame
-order with the reference's ``Eval at Step`` log lines, and decode FPS."""
+"""Machinery shared by the CLI stages (the counterpart of
+``neuroquant_tpu/methods/common.py``, without stage 1's parts): run set-up
+and seeding, checkpoint loading, whole-clip PSNR/MS-SSIM in frame order
+with the reference's ``Eval at Step`` log lines, and decode FPS."""
 
 from __future__ import annotations
 
 import logging
+import os
+import random
 import time
 from datetime import datetime
 
@@ -105,6 +108,47 @@ def device_name(device) -> str:
     if torch.device(device).type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def seed_all(seed: int = 903):
+    """Seed Python, numpy and torch; returns a torch.Generator on `seed`
+    (the JAX function returns a PRNGKey)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def setup_run(args, cfg, device=None):
+    """Build the model (weights from ``args.seed``), count its parameters
+    and append the reference's ``Encoder_..M_Decoder_..M_Total_..M``
+    directory to ``args.outf``."""
+    from neuroquant_tpu_torch.models import build_model, param_counts
+
+    model = build_model(args.arch, cfg, device=device, seed=args.seed)
+    final_size = cfg["crop_h"] * cfg["crop_w"]
+    enc_p, dec_p, tot_p = param_counts(args.arch, cfg, model, final_size,
+                                       args.full_data_length)
+    args.encoder_param, args.decoder_param, args.total_param = (
+        enc_p, dec_p, tot_p)
+    args.outf = os.path.join(
+        args.outf, f"Encoder_{round(enc_p, 2)}M_Decoder_{round(dec_p, 2)}M"
+                   f"_Total_{round(tot_p, 2)}M")
+    return model
+
+
+def load_pth(path: str, model) -> None:
+    """Load a reference-layout stage-1 checkpoint (a torch state dict, as
+    the reference and the JAX ``save_pth`` write it) into `model`. Keys the
+    file lacks keep their values, as the JAX ``load_pth`` does."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd, strict=False)
+
+
+def exp_id(args, cfg) -> str:
+    return (f"{args.vid}_e{cfg['epoch']}_b{cfg['batch_size']}"
+            f"_lr{cfg['learning_rate']}_{cfg['loss']}")
 
 
 def split_dataset(args, dataset):

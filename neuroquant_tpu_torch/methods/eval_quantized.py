@@ -18,10 +18,15 @@ import logging
 import pickle
 import sys
 
+import numpy as np
+import torch
+
 from neuroquant_tpu_torch.data import VideoDataSet
 from neuroquant_tpu_torch.methods import common
 from neuroquant_tpu_torch.models import build_model
-from neuroquant_tpu_torch.quantization.qmodel import quantize_params
+from neuroquant_tpu_torch.ops.hadamard import fwht
+from neuroquant_tpu_torch.quantization.qmodel import (
+    _get, _set, quantize_params)
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.convert import (
     quant_state_from_numpy, state_dict_from_numpy)
@@ -52,6 +57,32 @@ def spec_from_artifact(artifact) -> QuantSpec:
         n_bits=tuple(qs["n_bits"]), channel_wise=qs["channel_wise"],
         scale_method=qs["scale_method"], hadamard=qs["hadamard"],
         sym=qs["sym"])
+
+
+def _on(v, device):
+    """A code or scale (tensor or numpy) as an fp32 tensor on `device`."""
+    if not torch.is_tensor(v):
+        v = torch.as_tensor(np.asarray(v))
+    return v.to(device=device, dtype=torch.float32)
+
+
+def params_from_codes(params, spec: QuantSpec, codes: dict):
+    """A state dict with every quantized layer's weights rebuilt from its
+    integer codes and scales alone: (code - zp) * delta, inverse FWHT and
+    C_in crop when ``spec.hadamard``."""
+    out = params
+    for name, path in zip(spec.layer_names, spec.layer_paths):
+        c = codes[name]
+        w, _ = _get(params, path)
+        dev = w.device
+        w_deq = (_on(c["w"], dev) - _on(c["w_zp"], dev)) * _on(c["w_delta"],
+                                                               dev)
+        if spec.hadamard:
+            w_deq = fwht(w_deq, axis=2)[:, :, :w.shape[2], :]
+        b_deq = (_on(c["b"], dev) - _on(c["b_zp"], dev)) * _on(c["b_delta"],
+                                                               dev)
+        out = _set(out, path, w_deq, b_deq)
+    return out
 
 
 def main(argv):

@@ -16,7 +16,7 @@ from neuroquant_tpu_torch.models.layers import (
 from neuroquant_tpu_torch.ops.packed_decode import resolve_pack_start
 from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from neuroquant_tpu_torch.ops.tail_fused import (
-    prepare_tail, resolve_impl, run_fused_tail_frames)
+    prepare_tail, resolve_impl, run_fused_tail_cf, run_fused_tail_frames)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +152,27 @@ class HNeRV(nn.Module):
                                  dec_norm=c.dec_norm,
                                  memo=self._kernel_weights)
 
+    def _tail_weights(self, x):
+        h, w = int(x.shape[1]), int(x.shape[2])
+        return self._kernel_weights(("tail", h, w), lambda: prepare_tail(
+            h, w, *collect_tail_params(self.blocks, self.head_layer,
+                                       self.pack_start)))
+
+    def decode_cf(self, img_embed):
+        """Decode to the packed channels-first head output with `out_bias`
+        applied, (B, ch8, Mp): the calibration loss runs in this domain
+        against ``tail_fused.pack_targets``-packed frames (the
+        depth-to-space is a permutation, so a sum of elementwise losses is
+        the same), without the unpack. Always on the fused tail: the kernels
+        are the port's one implementation of it (the JAX package takes its
+        jnp twin where its kernels are off)."""
+        if self.pack_start is None or self.cfg.dec_acts != "gelu":
+            raise ValueError("decode_cf requires a packed GELU tail (use "
+                             "decode instead)")
+        x = self._prefix(img_embed, "fused")
+        z, _, _, _ = run_fused_tail_cf(x, self._tail_weights(x))
+        return out_img(z, self.cfg.out_bias)
+
     def decode(self, img_embed):
         """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).
 
@@ -163,11 +184,7 @@ class HNeRV(nn.Module):
         impl = self._fused_impl()
         if impl is not None:
             x = self._prefix(img_embed, impl)
-            h, w = int(x.shape[1]), int(x.shape[2])
-            wts = self._kernel_weights(("tail", h, w), lambda: prepare_tail(
-                h, w, *collect_tail_params(self.blocks, self.head_layer,
-                                           self.pack_start)))
-            return run_fused_tail_frames(x, wts, c.out_bias)
+            return run_fused_tail_frames(x, self._tail_weights(x), c.out_bias)
         x = pixel_shuffle(self.decoder[0](img_embed), (c.fc_h, c.fc_w))
         for blk in self.blocks:
             x = blk(x)

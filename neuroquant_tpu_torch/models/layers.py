@@ -184,6 +184,8 @@ def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
     tail_conv_cf); its PixelShuffle becomes one relabel of that output.
     ``memo(key, build)`` returns ``build()``, the block's packed weights,
     or a copy kept from an earlier call (``HNeRV._kernel_weights``).
+    Gradients pass: the fused block runs through the tail's and
+    ``pack_cf``'s autograd Functions, the relabel back is plain torch.
 
     The JAX package also gates this on a minimum grid (``PREFIX_MIN_GRID``,
     a TPU per-call overhead knob); the port fuses at any grid size."""

@@ -224,26 +224,61 @@ def _pack_index(k: int, r: int, cin: int, cout: int, in_perm_key,
     return np.where(packed == 0, k * k * cin * cout, packed - 1)
 
 
+@lru_cache(maxsize=64)
+def _pack_index_t(key) -> np.ndarray:
+    """Transpose of :func:`_pack_index` as a gather index: row j lists the
+    flat packed slots that read entry j of the original kernel, padded with
+    one past the packed end (a zero slot)."""
+    k, _, cin, cout = key[:4]
+    idx = _pack_index(*key).reshape(-1)
+    n = k * k * cin * cout
+    counts = np.bincount(idx, minlength=n + 1)[:n]
+    order = np.argsort(idx, kind="stable")[:int(counts.sum())]
+    col = np.arange(order.size) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    inv = np.full((n, int(counts.max())), idx.size, np.int64)
+    inv[np.repeat(np.arange(n), counts), col] = order
+    return inv
+
+
+@lru_cache(maxsize=64)
+def _pack_index_on(key, device: str, transpose: bool = False):
+    return torch.as_tensor(_pack_index_t(key) if transpose
+                           else _pack_index(*key), device=device)
+
+
+class _PackKernel(torch.autograd.Function):
+    """The packing gather, with a gather as its backward (the JAX
+    ``_pack_kernel_transpose``): autograd would take ``flat[idx]`` back by a
+    scatter-add whose sort serializes on the zero slot, read by most packed
+    entries."""
+
+    @staticmethod
+    def forward(ctx, w_hwio, key):
+        ctx.key, ctx.shape = key, w_hwio.shape
+        idx = _pack_index_on(key, str(w_hwio.device))
+        return torch.cat([w_hwio.reshape(-1), w_hwio.new_zeros(1)])[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = _pack_index_on(ctx.key, str(g.device), transpose=True)
+        gf = torch.cat([g.reshape(-1), g.new_zeros(1)])
+        return gf[inv].sum(dim=1).reshape(ctx.shape), None
+
+
 def pack_conv_kernel(w_hwio, r: int, in_perm=None, out_perm=None):
     """Repack an odd-k stride-1 conv kernel (k, k, Cin, Cout) into the
     (kp, kp, r^2*Cin, r^2*Cout) kernel acting on r-packed tensors.
 
     numpy in, numpy out (plan-time structure); a torch tensor is packed by
-    one gather on its own device, bit-identical to the numpy path."""
+    one gather on its own device, bit-identical to the numpy path, and its
+    gradient goes back by another gather."""
     if isinstance(w_hwio, np.ndarray):
         return _pack_impl(w_hwio, r, in_perm, out_perm)
     k, _, cin, cout = (int(v) for v in w_hwio.shape)
     key = lambda p: None if p is None else tuple(int(v) for v in p)  # noqa
-    idx = _pack_index_on(k, r, cin, cout, key(in_perm), key(out_perm),
-                         str(w_hwio.device))
-    flat = torch.cat([w_hwio.reshape(-1), w_hwio.new_zeros(1)])
-    return flat[idx]
-
-
-@lru_cache(maxsize=64)
-def _pack_index_on(k, r, cin, cout, in_perm_key, out_perm_key, device):
-    return torch.as_tensor(_pack_index(k, r, cin, cout, in_perm_key,
-                                       out_perm_key), device=device)
+    return _PackKernel.apply(w_hwio, (k, r, cin, cout, key(in_perm),
+                                      key(out_perm)))
 
 
 @lru_cache(maxsize=128)

@@ -1,10 +1,15 @@
-"""Fake-quantization forward math: uniform affine quantizers, scale
-initialization and hard AdaRound, as plain functions on tensors.
+"""Fake-quantization math: straight-through rounding, uniform affine
+quantizers, scale initialization and AdaRound, as plain functions on
+tensors (the counterpart of ``neuroquant_tpu/ops/quant.py``; the QAT
+quantizers are not ported yet). The per-channel scale search runs batched
+over rows where the JAX version vmaps over C_out.
 
-The counterpart of ``neuroquant_tpu/ops/quant.py`` for the serving slice:
-forward only (the straight-through gradients, ``adaround_reg`` and the QAT
-quantizers come with the calibration slice). The per-channel scale search
-runs batched over rows where the JAX version vmaps over C_out.
+Gradients follow JAX's autodiff of the same expressions: rounding passes
+the gradient straight through, and a clip passes half of it at a value
+exactly on a bound (``jnp.clip`` is a max and a min, which split a tie),
+where ``torch.clamp`` would pass all of it. Quantized values sit on the
+bounds often (the extreme weights under max scales), so the phase-1 scale
+gradients depend on it.
 """
 
 from __future__ import annotations
@@ -13,6 +18,21 @@ import torch
 
 GAMMA, ZETA = -0.1, 1.1      # AdaRound rectified-sigmoid constants
 EPS = 1e-8
+
+
+def round_ste(x):
+    """Round to nearest even, with the gradient passed straight through."""
+    return x + (torch.round(x) - x).detach()
+
+
+def floor_ste(x):
+    return x + (torch.floor(x) - x).detach()
+
+
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip``: clamp's values, half the gradient on a bound."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 # A range divides into 2^b - 1 steps as a multiply by the fp32 reciprocal:
 # the jitted JAX scale init computes it so (XLA turns a division by a
@@ -25,9 +45,11 @@ def _step(span, n_bits: int):
 
 
 def uaq_fake_quant(x, delta, zero_point, n_bits: int):
-    """Asymmetric uniform affine fake-quant (forward)."""
-    x_int = torch.round(x / delta) + zero_point
-    x_quant = torch.clamp(x_int, 0, 2 ** n_bits - 1)
+    """Asymmetric uniform affine fake-quant. The gradient reaches x through
+    the straight-through round and delta through both the scaling and the
+    dequantization."""
+    x_int = round_ste(x / delta) + zero_point
+    x_quant = _clip(x_int, 0.0, 2.0 ** n_bits - 1)
     return (x_quant - zero_point) * delta
 
 
@@ -120,20 +142,28 @@ def f16_round(x):
     return x.to(torch.float16).to(torch.float32)
 
 
+def adaround_init_alpha(x, delta):
+    """alpha such that h(alpha) == x/delta - floor(x/delta)."""
+    rest = x / delta - torch.floor(x / delta)
+    return -torch.log((ZETA - GAMMA) / (rest - GAMMA) - 1.0)
+
+
 def adaround_soft_targets(alpha):
     """h(alpha) = clip(sigmoid(alpha)*(zeta-gamma)+gamma, 0, 1)."""
-    return torch.clamp(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA, 0.0, 1.0)
+    return _clip(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA, 0.0, 1.0)
 
 
 def adaround_fake_quant(x, delta, zero_point, alpha, n_bits: int,
                         soft: bool = True):
-    """AdaRound forward: floor(x/delta) + h(alpha) (soft) or + [alpha >= 0]."""
+    """AdaRound: floor(x/delta) + h(alpha) (soft) or + [alpha >= 0]. The
+    floor passes no gradient; alpha gets it through h, delta through the
+    dequantization."""
     x_floor = torch.floor(x / delta)
     if soft:
         x_int = x_floor + adaround_soft_targets(alpha)
     else:
         x_int = x_floor + (alpha >= 0).to(x.dtype)
-    x_quant = torch.clamp(x_int + zero_point, 0, 2 ** n_bits - 1)
+    x_quant = _clip(x_int + zero_point, 0.0, 2.0 ** n_bits - 1)
     return (x_quant - zero_point) * delta
 
 
@@ -141,3 +171,9 @@ def adaround_int_codes(x, delta, zero_point, alpha, n_bits: int):
     """Hard-rounded integer codes."""
     x_int = torch.floor(x / delta) + (alpha >= 0).to(x.dtype)
     return torch.clamp(x_int + zero_point, 0, 2 ** n_bits - 1).to(torch.int32)
+
+
+def adaround_reg(alpha, b):
+    """Rounding regularizer sum(1 - |2h(alpha) - 1|^b)."""
+    h = adaround_soft_targets(alpha)
+    return (1.0 - torch.abs(2.0 * h - 1.0) ** b).sum()

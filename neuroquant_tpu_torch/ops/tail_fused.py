@@ -1,35 +1,49 @@
 """Channels-first execution of the packed decoder tail on CUDA kernels.
 
-The counterpart of ``neuroquant_tpu/ops/tail_fused.py`` for decoding.
-Activations live channels-first and spatially flattened, (B, C8, Mp) with
-Mp = (H+2P) * (W+2P) rows-major including a P-wide zero border, padded up
-to a whole number of ``plan.tm`` positions. A conv tap (ty, tx) is then a
-constant flat shift (ty-off)*Wp + (tx-off); borders are re-zeroed after
-every layer (the semantics of 'same' zero padding) and channel counts pad
-to multiples of 8 with zero weights, so the padding is inert.
+The counterpart of ``neuroquant_tpu/ops/tail_fused.py``. Activations live
+channels-first and spatially flattened, (B, C8, Mp) with Mp = (H+2P) *
+(W+2P) rows-major including a P-wide zero border, padded up to a whole
+number of ``plan.tm`` positions. A conv tap (ty, tx) is then a constant
+flat shift (ty-off)*Wp + (tx-off); borders are re-zeroed after every layer
+(the semantics of 'same' zero padding) and channel counts pad to multiples
+of 8 with zero weights, so the padding is inert.
 
-Three kernels (``csrc/``) run a decode's high-resolution work:
+Five kernels (``csrc/``) run the tail's high-resolution work:
 
-  ``tail_conv_cf``   one conv layer:  z = mask * (conv(gelu?(x), kk) + b),
-                     emitting z or gelu(z)   (TPU: ``_fwd_kernel``)
-  ``pack_cf``        NHWC -> (B, C8, Mp) with zero border and pads
-                     (TPU: ``_pack_cf_kernel`` + ``pack_cf``'s pad glue)
-  ``unpack_frames``  head output -> out_img -> depth-to-space -> NHWC frames
-                     (TPU: ``_unpack_kernel`` / ``_unpack_kernel5``)
+  ``tail_conv_cf``     one conv layer:
+                       z = mask * (conv(gelu?(x), kk) + b) * gelu'(m)?,
+                       emitting z or gelu(z); with the GELU' factor it is
+                       the backward's dx pass   (TPU: ``_fwd_kernel``)
+  ``tail_conv_dw_cf``  one layer's dW and db    (TPU: ``_dw_kernel``)
+  ``pack_cf``          NHWC -> (B, C8, Mp) with zero border and pads
+                       (TPU: ``_pack_cf_kernel`` + ``pack_cf``'s pad glue)
+  ``unpack_cf``        (B, C8, Mp) -> NHWC interior, ``pack_cf``'s backward
+                       (TPU: ``_unpack_cf_kernel``)
+  ``unpack_frames``    head output -> out_img -> depth-to-space -> NHWC
+                       frames (TPU: ``_unpack_kernel`` / ``_unpack_kernel5``)
 
 Each wrapper takes its plain PyTorch version (``conv_cf_ref``,
-``pack_cf_ref``, ``unpack_frames_ref``) for a tensor on the CPU and its
-kernel for a tensor on the GPU; a kernel that cannot build or launch
-raises. ``KERNEL_LAUNCHES`` counts the kernel launches.
+``conv_cf_dw_ref``, ``pack_cf_ref``, ``unpack_cf_ref``,
+``unpack_frames_ref``) for a tensor on the CPU and its kernel for a tensor
+on the GPU; a kernel that cannot build or launch raises.
+``KERNEL_LAUNCHES`` counts the kernel launches.
+
+Gradients: ``tail_apply``, ``pack_cf`` and ``unpack_frames`` are
+``torch.autograd.Function``s when an input requires a gradient. The tail's
+backward is the JAX ``_tail_apply_bwd``: dW/db from ``tail_conv_dw_cf``,
+dx from ``tail_conv_cf`` on the tap-reversed, channel-swapped kernel with
+the GELU' epilogue; ``pack_cf``'s backward is ``unpack_cf``;
+``unpack_frames``'s is the VJP of its plain version, as in JAX.
 
 Left out as TPU scheduling: the execution modes and their cost model
 (``ExecCfg``, ``_exec_cfg``, ``_SWEEP_PINS*``, ``NQ_TAIL_MODE``), the VMEM
-budget and cout-row split (``_VMEM_BUDGET``, ``_split_parts``), the halo
-DMA streaming, and the bf16 operand cast (``_mxu_cast``,
-``_entry_and_cast``): the kernels take fp32 operands and accumulate in fp32.
-What is kept from the modes is the union-sparse K axis of a layer packed
-with f >= 2 (``_union_blocks``): it skips the kernel's structurally zero
-blocks, 4x fewer MACs at the HNeRV Bunny head.
+budget and cout-row split (``_VMEM_BUDGET``, ``_split_parts``,
+``_bwd_needs_split``), the halo DMA streaming, and the bf16 operand cast
+(``_mxu_cast``, ``_entry_and_cast``): the kernels take fp32 operands and
+accumulate in fp32. What is kept from the modes is the union-sparse K axis
+of a layer packed with f >= 2 (``_union_blocks``): it skips the kernel's
+structurally zero blocks, 4x fewer MACs at the HNeRV Bunny head, in the
+forward, dx and dW alike.
 """
 
 from __future__ import annotations
@@ -44,11 +58,12 @@ import torch.nn.functional as F
 
 from neuroquant_tpu_torch.ops.packed_decode import (
     compose_shuffle_perm, depth_to_space, identity_perm, pack_conv_kernel,
-    packed_kernel_geometry, packed_sparse_taps,
+    packed_kernel_geometry, packed_sparse_taps, space_to_depth,
 )
 
 # kernel launches per wrapper, since the last reset_launch_counts()
-KERNEL_LAUNCHES = {"tail_conv_cf": 0, "pack_cf": 0, "unpack_frames": 0}
+KERNEL_LAUNCHES = {"tail_conv_cf": 0, "tail_conv_dw_cf": 0, "pack_cf": 0,
+                   "unpack_cf": 0, "unpack_frames": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +90,18 @@ def _gelu(x):
     """GELU through :func:`_erf`; within ~1.5e-7 of the exact-erf GELU."""
     xf = x.float()
     return (0.5 * xf * (1.0 + _erf(xf * 0.7071067811865476))).to(x.dtype)
+
+
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _gelu_grad(z):
+    """d/dz [z * Phi(z)] = Phi(z) + z * phi(z), Phi through :func:`_erf`
+    (the JAX tail's GELU', evaluated in fp32)."""
+    zf = z.float()
+    phi = torch.exp(-0.5 * zf * zf) * _INV_SQRT_2PI
+    cdf = 0.5 * (1.0 + _erf(zf * 0.7071067811865476))
+    return cdf + zf * phi
 
 
 # --------------------------------------------------------------------------
@@ -105,6 +132,14 @@ class TailLayer:
     @property
     def taps(self) -> int:
         return self.side * self.side
+
+    def transposed(self) -> "TailLayer":
+        """Geometry of the convT (dx) pass: channels swapped, tap offset
+        mirrored (tap reversal <=> negated shifts), the convT's zero
+        structure as its own."""
+        return TailLayer(cin=self.cout, cout=self.cin, side=self.side,
+                         off=self.side - 1 - self.off, gelu_in=False,
+                         sparse=self.sparse_t, sparse_t=self.sparse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,16 +247,14 @@ def _route(x, name: str) -> bool:
 
 
 # --------------------------------------------------------------------------
-# Kernel 1: pack_cf
+# Kernels 1 and 2: pack_cf and its backward, unpack_cf
 # --------------------------------------------------------------------------
 def pack_cf_ref(x, plan: TailPlan):
     """Plain version of :func:`pack_cf` (the JAX ``nhwc_to_cf``)."""
     return nhwc_to_cf(x, plan)
 
 
-def pack_cf(x, plan: TailPlan):
-    """NHWC (B, h, w, C) fp32 -> channels-first (B, C8, Mp) with the border
-    ring, channel pad and flat tail pad written as zeros, in one pass."""
+def _pack_cf_kernel(x, plan: TailPlan):
     if not _route(x, "pack_cf"):
         return pack_cf_ref(x, plan)
     from neuroquant_tpu_torch.ops import _cuda
@@ -234,8 +267,56 @@ def pack_cf(x, plan: TailPlan):
     return out
 
 
+def unpack_cf_ref(g, plan: TailPlan, c: int):
+    """Plain version of :func:`unpack_cf` (the JAX ``pack_cf`` backward)."""
+    return cf_to_nhwc(g, plan, c).contiguous()
+
+
+def unpack_cf(g, plan: TailPlan, c: int):
+    """Channels-first (B, C8, Mp) -> NHWC (B, h, w, c): the interior, the
+    channel pad dropped, in one pass. The transpose of :func:`pack_cf`."""
+    if not _route(g, "unpack_cf"):
+        return unpack_cf_ref(g, plan, c)
+    from neuroquant_tpu_torch.ops import _cuda
+
+    b, c8, _ = g.shape
+    if c > c8:
+        raise ValueError(f"unpack_cf: {c} channels from {c8} rows")
+    _check(g, "unpack_cf g", (b, c8, plan.mp))
+    out = torch.empty((b, plan.h, plan.w, c), dtype=g.dtype, device=g.device)
+    _launch("unpack_cf", _cuda.lib().nq_unpack_cf, g.data_ptr(),
+            out.data_ptr(), b, plan.h, plan.w, c, c8, plan.pad, plan.mp)
+    return out
+
+
+class _PackCF(torch.autograd.Function):
+    """pack_cf is linear; its backward is the transpose, unpack_cf."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.c = plan, x.shape[-1]
+        return _pack_cf_kernel(x, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unpack_cf(g.contiguous(), ctx.plan, ctx.c), None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def pack_cf(x, plan: TailPlan):
+    """NHWC (B, h, w, C) fp32 -> channels-first (B, C8, Mp) with the border
+    ring, channel pad and flat tail pad written as zeros, in one pass."""
+    if _needs_grad(x):
+        return _PackCF.apply(x, plan)
+    return _pack_cf_kernel(x, plan)
+
+
 # --------------------------------------------------------------------------
-# Kernel 2: tail_conv_cf
+# Kernels 3 and 4: tail_conv_cf and tail_conv_dw_cf
 # --------------------------------------------------------------------------
 K_TILE = 16     # the conv kernel's K step; the K list pads to a multiple
 
@@ -296,24 +377,38 @@ def conv_w_operand(kk, plan: TailPlan, layer: TailLayer):
     return _w_operand(kk, wrow).contiguous()
 
 
+def _im2col(x, plan: TailPlan, blocks):
+    """(B, K, Mp): row k is channel chan[k] of x shifted by shift[k], zero
+    outside [0, Mp)."""
+    g = max(abs(s) for s, _, _, _ in blocks)
+    xt = F.pad(x, (g, g))
+    return torch.cat([xt[:, lo:lo + n, g + s:g + s + plan.mp]
+                      for s, _, lo, n in blocks], dim=1)
+
+
+def _wrows(blocks, cin: int, device):
+    """Row of the flat (taps*cin, cout) kernel that each K row reads."""
+    return torch.as_tensor(np.concatenate(
+        [t * cin + np.arange(lo, lo + n) for _, t, lo, n in blocks]),
+        device=device)
+
+
 def conv_cf_ref(x, kk, bias, plan: TailPlan, layer: TailLayer,
-                emit: str = "z", act_in: bool = False, blocks=None):
+                emit: str = "z", act_in: bool = False, blocks=None,
+                out_mul=None):
     """Plain version of :func:`conv_cf` (the JAX ``_conv_cf_jnp``): im2col
     over the K blocks (dense taps by default) and one matmul."""
     if act_in:
         x = _gelu(x)
     if blocks is None:
         blocks = _k_blocks(plan, layer, union=False)
-    g = max(abs(s) for s, _, _, _ in blocks)
-    xt = F.pad(x, (g, g))
-    pats = torch.cat([xt[:, lo:lo + n, g + s:g + s + plan.mp]
-                      for s, _, lo, n in blocks], dim=1)     # (B, K, Mp)
-    wrow = torch.as_tensor(np.concatenate(
-        [t * layer.cin + np.arange(lo, lo + n) for _, t, lo, n in blocks]),
-        device=x.device)
+    pats = _im2col(x, plan, blocks)                          # (B, K, Mp)
+    wrow = _wrows(blocks, layer.cin, x.device)
     acc = torch.matmul(_w_operand(kk, wrow).T.float(), pats.float())
     if bias is not None:
         acc = acc + bias.float()[None]
+    if out_mul is not None:
+        acc = acc * _gelu_grad(out_mul)
     acc = acc * border_mask(plan, torch.float32, device=x.device)
     if emit == "y":
         return _gelu(acc).to(x.dtype)
@@ -323,15 +418,18 @@ def conv_cf_ref(x, kk, bias, plan: TailPlan, layer: TailLayer,
 
 
 def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
-            emit: str = "z", act_in: bool = False, w_op=None):
+            emit: str = "z", act_in: bool = False, w_op=None, out_mul=None):
     """One channels-first conv layer: x (B, cin, Mp) -> the masked
     pre-activation 'z' (B, cout, Mp) or its activation 'y' = gelu(z).
     act_in applies GELU to the input as it is read. kk is the canonical
     (side, side, cin, cout) kernel, bias (cout, 1) or None; w_op, if
-    given, is ``conv_w_operand(kk, plan, layer)`` made beforehand."""
+    given, is ``conv_w_operand(kk, plan, layer)`` made beforehand.
+    out_mul (B, cout, Mp), the backward's dx epilogue, multiplies z by
+    GELU'(out_mul) before the border mask (the JAX order)."""
     blocks = _k_blocks(plan, layer)
     if not _route(x, "tail_conv_cf"):
-        return conv_cf_ref(x, kk, bias, plan, layer, emit, act_in, blocks)
+        return conv_cf_ref(x, kk, bias, plan, layer, emit, act_in, blocks,
+                           out_mul)
     from neuroquant_tpu_torch.ops import _cuda
 
     if emit not in ("z", "y"):
@@ -342,6 +440,8 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
                                    layer.cout))
     if bias is not None:
         _check(bias, "tail_conv_cf bias", (layer.cout, 1))
+    if out_mul is not None:
+        _check(out_mul, "tail_conv_cf out_mul", (b, layer.cout, plan.mp))
     if plan.mp % 128:
         raise ValueError(f"tail_conv_cf: Mp={plan.mp} is not a multiple "
                          f"of 128")
@@ -354,10 +454,102 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
                       device=x.device)
     _launch("tail_conv_cf", _cuda.lib().nq_tail_conv_cf, x.data_ptr(),
             w_op.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            0 if out_mul is None else out_mul.data_ptr(),
             kshift.data_ptr(), kchan.data_ptr(), out.data_ptr(), b,
             layer.cin, layer.cout, plan.mp, int(kshift.shape[0]), plan.h,
             plan.w, plan.pad, int(act_in), int(emit == "y"))
     return out
+
+
+def _scatter_dw(dw, wrow, layer: TailLayer):
+    """(K rows, cout) dW in the K-row layout -> the canonical (side, side,
+    cin, cout) kernel's gradient: each K row lands on the kernel row it
+    reads, padded K rows on a dropped extra row. The rows of a union block
+    that an output group does not read land on canonical positions that
+    are structurally zero, which the packing gather's backward never reads
+    (the argument of the JAX ``_op_to_kk_grad``)."""
+    n = layer.taps * layer.cin
+    dkk = dw.new_zeros((n + 1, dw.shape[1])).index_add_(0, wrow, dw)
+    return dkk[:n].reshape(layer.side, layer.side, layer.cin, dw.shape[1])
+
+
+def conv_cf_dw_ref(x, g, plan: TailPlan, layer: TailLayer,
+                   act_in: bool = False, blocks=None):
+    """Plain version of :func:`conv_cf_dw`: im2col over the K blocks (dense
+    taps by default, the JAX ``_conv_cf_dw_jnp``) and one matmul."""
+    if act_in:
+        x = _gelu(x)
+    if blocks is None:
+        blocks = _k_blocks(plan, layer, union=False)
+    pats = _im2col(x, plan, blocks).float()                  # (B, K, Mp)
+    dw = torch.einsum("bkm,bcm->kc", pats, g.float())
+    db = g.float().sum(dim=(0, 2)).reshape(-1, 1)
+    return _scatter_dw(dw, _wrows(blocks, layer.cin, x.device), layer), db
+
+
+@lru_cache(maxsize=64)
+def _dw_rows_on(blocks, cin: int, taps: int, device: str):
+    """The dW kernel's rows: the conv's K list plus one row of ones (chan
+    -2), whose sum over positions is db."""
+    shift, chan, wrow = _k_rows(blocks, cin, taps)
+    return (torch.as_tensor(np.append(shift, 0).astype(np.int32),
+                            device=device),
+            torch.as_tensor(np.append(chan, -2).astype(np.int32),
+                            device=device),
+            torch.as_tensor(wrow, device=device))
+
+
+DW_TILE = 64        # the dW kernel's output tile: 64 K rows x 64 channels
+DW_STEP = 32        # positions per shared-memory stage; chunks align to it
+_DW_BLOCKS = 528    # aim for ~4 waves of blocks over the H100's 132 SMs
+
+
+def _dw_split(nk: int, cout: int, positions: int) -> Tuple[int, int]:
+    """(splits, chunk): the B*Mp positions cut into `splits` chunks of
+    `chunk` positions (a multiple of DW_STEP), one per block of the grid's
+    third axis, so that a layer with few output tiles still fills the
+    card."""
+    tiles = -(-nk // DW_TILE) * -(-cout // DW_TILE)
+    splits = max(1, min(-(-_DW_BLOCKS // tiles), positions // 1024))
+    chunk = -(-positions // splits)
+    chunk = -(-chunk // DW_STEP) * DW_STEP
+    return -(-positions // chunk), chunk
+
+
+def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
+               act_in: bool = False):
+    """dW and db of one layer: x its input (B, cin, Mp), g the cotangent of
+    its output (B, cout, Mp), border-masked -> (dkk (side, side, cin, cout),
+    db (cout, 1)), fp32. act_in applies GELU to x as it is read (the
+    residuals are pre-activations). The sum runs over the layer's K list
+    (union-sparse for f >= 2), as the forward does, and is scattered back
+    to the canonical kernel (:func:`_scatter_dw`)."""
+    blocks = _k_blocks(plan, layer)
+    if not _route(x, "tail_conv_dw_cf"):
+        return conv_cf_dw_ref(x, g, plan, layer, act_in, blocks)
+    from neuroquant_tpu_torch.ops import _cuda
+
+    b = x.shape[0]
+    _check(x, "tail_conv_dw_cf x", (b, layer.cin, plan.mp))
+    _check(g, "tail_conv_dw_cf g", (b, layer.cout, plan.mp))
+    if plan.mp % DW_STEP:
+        raise ValueError(f"tail_conv_dw_cf: Mp={plan.mp} is not a multiple "
+                         f"of {DW_STEP}")
+    kshift, kchan, wrow = _dw_rows_on(blocks, layer.cin, layer.taps,
+                                      str(x.device))
+    nk = int(kshift.shape[0])
+    splits, chunk = _dw_split(nk, layer.cout, b * plan.mp)
+    # per-split partial sums, added in a fixed order by the second pass:
+    # the result is the same from run to run
+    part = torch.empty((splits, nk, layer.cout), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((nk, layer.cout), dtype=torch.float32, device=x.device)
+    _launch("tail_conv_dw_cf", _cuda.lib().nq_tail_conv_dw_cf, x.data_ptr(),
+            g.data_ptr(), kshift.data_ptr(), kchan.data_ptr(),
+            part.data_ptr(), out.data_ptr(), b, layer.cin, layer.cout,
+            plan.mp, nk, splits, chunk, int(act_in))
+    return (_scatter_dw(out[:nk - 1], wrow, layer),
+            out[nk - 1].reshape(layer.cout, 1))
 
 
 def conv_cf_flops(plan: TailPlan, layer: TailLayer, batch: int = 1,
@@ -375,15 +567,76 @@ def conv_cf_flops(plan: TailPlan, layer: TailLayer, batch: int = 1,
 
 
 # --------------------------------------------------------------------------
-# Fused tail forward
+# Fused tail, forward and backward
 # --------------------------------------------------------------------------
+def _kk_transpose(kk):
+    """Canonical kernel of the convT (dx) pass: both tap axes reversed, the
+    channel axes swapped."""
+    return kk.flip(0, 1).permute(0, 1, 3, 2)
+
+
+class _TailApply(torch.autograd.Function):
+    """``tail_apply`` with its gradient: the JAX ``_tail_apply_fwd`` /
+    ``_tail_apply_bwd``.
+
+    The forward keeps residuals: every layer emits its pre-activation z,
+    and the next layer applies GELU to it as it reads it (act_in). The
+    backward masks the cotangent once and walks the layers from the last:
+    dW/db from the saved input (GELU applied as it is read), then dx by the
+    same conv kernel on ``_kk_transpose(kk)`` and ``layer.transposed()``,
+    with GELU'(the saved input) as the epilogue where the layer applied
+    GELU to its input. Gradients are for the canonical kernels: each
+    reaches its kk once, and autograd takes it through the packing gather
+    back to the raw weights."""
+
+    @staticmethod
+    def forward(ctx, plan, w_ops, n, x_cf, *params):
+        kks, biases = params[:n], params[n:]
+        h, residuals = x_cf, [x_cf]
+        for li, layer in enumerate(plan.layers):
+            h = conv_cf(h, kks[li], biases[li], plan, layer, emit="z",
+                        act_in=layer.gelu_in,
+                        w_op=None if w_ops is None else w_ops[li])
+            if li < n - 1:
+                residuals.append(h)
+        ctx.save_for_backward(*residuals, *kks)
+        ctx.plan, ctx.n = plan, n
+        ctx.has_bias = tuple(bb is not None for bb in biases)
+        return h
+
+    @staticmethod
+    def backward(ctx, g_out):
+        plan, n = ctx.plan, ctx.n
+        saved = ctx.saved_tensors
+        residuals, kks = saved[:n], saved[n:]
+        g = (g_out * border_mask(plan, g_out.dtype,
+                                 device=g_out.device)).contiguous()
+        dkks, dbs = [None] * n, [None] * n
+        for li in range(n - 1, -1, -1):
+            layer, x_in = plan.layers[li], residuals[li]
+            dkks[li], db = conv_cf_dw(x_in, g, plan, layer,
+                                      act_in=layer.gelu_in)
+            dbs[li] = db if ctx.has_bias[li] else None
+            if li == 0 and not ctx.needs_input_grad[3]:
+                g = None
+                break
+            g = conv_cf(g, _kk_transpose(kks[li]).contiguous(), None, plan,
+                        layer.transposed(),
+                        out_mul=x_in if layer.gelu_in else None)
+        return (None, None, None, g, *dkks, *dbs)
+
+
 def tail_apply(plan: TailPlan, x_cf, kks, biases, w_ops=None):
     """Run the fused tail: x_cf (B, C0_8, Mp) -> pre-activation head output
-    (B, C_last_8, Mp) with zero borders. Every layer followed by a GELU
-    emits gelu(z), what the next one consumes; the head emits z. (The
-    act_in form, z kept and GELU applied as the next layer reads, is the
-    one a backward pass needs.) w_ops: per layer, the prepared
-    ``conv_w_operand``, or None to gather them here."""
+    (B, C_last_8, Mp) with zero borders. w_ops: per layer, the prepared
+    ``conv_w_operand``, or None to gather them here.
+
+    With no gradient wanted (decode), every layer followed by a GELU emits
+    gelu(z), what the next one consumes; the head emits z. When an input
+    requires a gradient it runs as :class:`_TailApply`, which keeps the
+    pre-activations for its backward."""
+    if _needs_grad(x_cf, *kks, *biases):
+        return _TailApply.apply(plan, w_ops, len(kks), x_cf, *kks, *biases)
     h = x_cf
     for li, layer in enumerate(plan.layers):
         last = li == len(plan.layers) - 1
@@ -517,7 +770,7 @@ def plan_and_pack(h: int, w: int, blocks, head, tm: int = 0):
 
 
 # --------------------------------------------------------------------------
-# Kernel 3: unpack_frames
+# Kernel 5: unpack_frames
 # --------------------------------------------------------------------------
 _OUT_MODES = {"sigmoid": 0, "tanh": 1}
 
@@ -537,9 +790,7 @@ def unpack_frames_ref(z, plan: TailPlan, f: int, ch: int, out_bias: str):
     return depth_to_space(out_img(cf_to_nhwc(z, plan, ch), out_bias), f)
 
 
-def unpack_frames(z, plan: TailPlan, f: int, ch: int, out_bias: str):
-    """Head output z (B, Cp, Mp) -> frames (B, h*f, w*f, ch/f^2): interior
-    slice, out_img, depth-to-space, in one pass."""
+def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str):
     if not _route(z, "unpack_frames"):
         return unpack_frames_ref(z, plan, f, ch, out_bias)
     from neuroquant_tpu_torch.ops import _cuda
@@ -558,6 +809,34 @@ def unpack_frames(z, plan: TailPlan, f: int, ch: int, out_bias: str):
             out.data_ptr(), b, cp, plan.mp, plan.h, plan.w, plan.pad, f, c,
             mode, offset)
     return out
+
+
+class _UnpackFrames(torch.autograd.Function):
+    """unpack_frames with the VJP of its plain version as its backward
+    (the JAX ``_unpack_frames_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, z, plan, f, ch, out_bias):
+        ctx.save_for_backward(z)
+        ctx.args = (plan, f, ch, out_bias)
+        return _unpack_frames_kernel(z, plan, f, ch, out_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_()
+            (dz,) = torch.autograd.grad(unpack_frames_ref(zz, *ctx.args),
+                                        zz, g)
+        return dz, None, None, None, None
+
+
+def unpack_frames(z, plan: TailPlan, f: int, ch: int, out_bias: str):
+    """Head output z (B, Cp, Mp) -> frames (B, h*f, w*f, ch/f^2): interior
+    slice, out_img, depth-to-space, in one pass."""
+    if _needs_grad(z):
+        return _UnpackFrames.apply(z, plan, f, ch, out_bias)
+    return _unpack_frames_kernel(z, plan, f, ch, out_bias)
 
 
 # --------------------------------------------------------------------------
@@ -590,10 +869,14 @@ class TailWeights(NamedTuple):
 
 
 def _with_w_ops(plan, kks, biases, f, ch) -> TailWeights:
+    """The weights with their conv operands gathered (on the GPU; the
+    plain versions gather their own). The operands carry no graph: a
+    gradient reaches the weights through ``kks``."""
     w_ops = None
     if kks[0].device.type == "cuda":
-        w_ops = tuple(conv_w_operand(kk, plan, layer)
-                      for kk, layer in zip(kks, plan.layers))
+        with torch.no_grad():
+            w_ops = tuple(conv_w_operand(kk, plan, layer)
+                          for kk, layer in zip(kks, plan.layers))
     return TailWeights(plan, tuple(kks), tuple(biases), f, ch, w_ops)
 
 
@@ -610,6 +893,23 @@ def run_fused_tail_frames(x, wts: TailWeights, out_bias: str):
     z = tail_apply(wts.plan, pack_cf(x.contiguous(), wts.plan), wts.kks,
                    wts.biases, wts.w_ops)
     return unpack_frames(z, wts.plan, wts.f, wts.ch, out_bias)
+
+
+def run_fused_tail_cf(x, wts: TailWeights):
+    """Like :func:`run_fused_tail_frames` but stays channels-first: returns
+    (z_cf (B, ch8, Mp), plan, ch, f), so that a loss can be computed in the
+    packed flat domain against :func:`pack_targets` (the depth-to-space is
+    a permutation, so a sum of elementwise losses does not change)."""
+    z = tail_apply(wts.plan, pack_cf(x.contiguous(), wts.plan), wts.kks,
+                   wts.biases, wts.w_ops)
+    return z, wts.plan, wts.ch, wts.f
+
+
+def pack_targets(frames, plan: TailPlan, f: int):
+    """Ground-truth frames (N, H, W, C) -> (N, ch8, Mp), the layout of the
+    fused head output (identity groups, zero borders). Set-up work, once
+    per clip, so plain tensor ops."""
+    return nhwc_to_cf(space_to_depth(frames, f), plan)
 
 
 @lru_cache(maxsize=64)

@@ -1,4 +1,8 @@
 from neuroquant_tpu_torch.quantization.spec import QuantSpec, make_spec  # noqa: F401
 from neuroquant_tpu_torch.quantization.qmodel import (  # noqa: F401
-    init_quant_state, quantize_params,
+    adaround_upgrade, average_bits, collect_int_codes, init_quant_state,
+    quantize_params, round_loss,
+)
+from neuroquant_tpu_torch.quantization.calibrate import (  # noqa: F401
+    LinearTempDecay, model_reconstruction,
 )

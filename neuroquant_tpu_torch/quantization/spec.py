@@ -20,6 +20,9 @@ class QuantSpec:
     scale_method: str = "max"
     hadamard: bool = False
     sym: bool = False
+    # weight fake-quant implementation: 'jnp', the plain tensor chain (the
+    # JAX package's default); 'pallas', its fused kernel, is not ported
+    fq_impl: str = "jnp"
 
     def __post_init__(self):
         if not (len(self.layer_names) == len(self.layer_paths)
@@ -29,6 +32,12 @@ class QuantSpec:
         for b in self.n_bits:
             if not 2 <= b <= 8:
                 raise ValueError(f"bitwidth not supported: {b}")
+        if self.fq_impl == "pallas":
+            raise NotImplementedError(
+                "fq_impl='pallas': the fused Hadamard fake-quant kernel is "
+                "ROADMAP queue A item 11")
+        if self.fq_impl != "jnp":
+            raise ValueError(f"fq_impl={self.fq_impl!r} (use 'jnp')")
 
     def with_bits(self, bits) -> "QuantSpec":
         bits = tuple(int(b) for b in bits)
@@ -44,10 +53,10 @@ class QuantSpec:
 
 def make_spec(arch: str, cfg: dict, n_bits: int = 8, channel_wise: bool = True,
               scale_method: str = "max", hadamard: bool = False,
-              sym: bool = False) -> QuantSpec:
+              sym: bool = False, fq_impl: str = "jnp") -> QuantSpec:
     """Spec over the arch's quantizable conv layers in traversal order."""
     paths = tuple(tuple(p) for p in quant_layer_paths(arch, cfg))
     return QuantSpec(layer_names=tuple("/".join(p) for p in paths),
                      layer_paths=paths, n_bits=(n_bits,) * len(paths),
                      channel_wise=channel_wise, scale_method=scale_method,
-                     hadamard=hadamard, sym=sym)
+                     hadamard=hadamard, sym=sym, fq_impl=fq_impl)

@@ -6,9 +6,11 @@ a machine without them:
 
   python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
-Tolerances: the conv sums fp32 products in another order than the plain
-version's matmul, 1e-4 relative to the output's largest value; the layout
-kernels copy, so they are exact; out_img 1e-6."""
+Tolerances: the conv, its dx pass and the dW kernel sum fp32 products in
+another order than the plain version's matmul, 1e-4 relative to the
+output's largest value (gradients through a whole tail 1e-4 relative to
+the largest gradient); the layout kernels copy, so they are exact;
+out_img 1e-6."""
 
 import numpy as np
 import pytest
@@ -133,6 +135,163 @@ def test_decode_goes_through_the_kernels(dev):
         assert all(wts.w_ops is not None for _, wts in kern._packed.values())
         assert torch.equal(kern.decode(emb), got)        # packed weights kept
     n_layers = len(kern.blocks) - kern.pack_start + 1
-    assert counts == {"tail_conv_cf": n_layers + 1, "pack_cf": 2,
-                      "unpack_frames": 1}
+    assert counts == {"tail_conv_cf": n_layers + 1, "tail_conv_dw_cf": 0,
+                      "pack_cf": 2, "unpack_cf": 0, "unpack_frames": 1}
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("li", [0, 1, 2], ids=["f1", "f2", "head_f4"])
+def test_tail_conv_cf_dx_pass(dev, small, li):
+    """The backward's dx launch: the transposed layer (mirrored taps, the
+    convT's union blocks) with the GELU'(out_mul) epilogue."""
+    plan, kks, _, _, _ = small
+    lt = plan.layers[li].transposed()
+    g = _cf(plan, lt.cin, dev, 10 + li)
+    out_mul = _cf(plan, lt.cout, dev, 20 + li)
+    kt = tf._kk_transpose(kks[li]).contiguous()
+    tf.reset_launch_counts()
+    got = tf.conv_cf(g, kt, None, plan, lt, out_mul=out_mul)
+    want = tf.conv_cf_ref(g, kt, None, plan, lt, out_mul=out_mul)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 1
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("li", [0, 1, 2], ids=["f1", "f2", "head_f4"])
+@pytest.mark.parametrize("act_in", [False, True])
+def test_tail_conv_dw_cf(dev, small, li, act_in):
+    plan, _, _, _, _ = small
+    layer = plan.layers[li]
+    x = _cf(plan, layer.cin, dev, 30 + li)
+    g = _cf(plan, layer.cout, dev, 40 + li)
+    tf.reset_launch_counts()
+    dkk, db = tf.conv_cf_dw(x, g, plan, layer, act_in)
+    want_kk, want_b = tf.conv_cf_dw_ref(x, g, plan, layer, act_in,
+                                        tf._k_blocks(plan, layer))
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["tail_conv_dw_cf"] == 1
+    assert dkk.shape == (layer.side, layer.side, layer.cin, layer.cout)
+    for got, want in ((dkk, want_kk), (db, want_b)):
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    again = tf.conv_cf_dw(x, g, plan, layer, act_in)
+    assert torch.equal(again[0], dkk)        # fixed-order split sums
+
+
+@pytest.mark.parametrize("c", [5, 8, 13])
+def test_unpack_cf(dev, small, c):
+    plan = small[0]
+    gen = torch.Generator(device=dev).manual_seed(c)
+    g = torch.randn((2, tf._r8(c), plan.mp), generator=gen, device=dev)
+    got = tf.unpack_cf(g, plan, c)
+    assert got.shape == (2, plan.h, plan.w, c)
+    assert torch.equal(got, tf.unpack_cf_ref(g, plan, c))
+
+
+def test_unpack_frames_width_tiled(dev):
+    """A plan whose JAX unpack takes the width-tiled _unpack_kernel5."""
+    plan, f = tf.plan_geometry(4, 480, [(3, 17, 224, 4)], (3, 14, 3))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z = torch.randn((2, plan.layers[-1].cout, plan.mp), generator=gen,
+                    device=dev)
+    got = tf.unpack_frames(z, plan, f, 48, "tanh")
+    want = tf.unpack_frames_ref(z, plan, f, 48, "tanh")
+    assert got.shape == (2, 16, 1920, 3)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_tail_backward_matches_plain_autograd(dev, small):
+    """Gradients of the tail Function (dx and dW kernels) against autograd
+    through the plain conv chain (dense taps), on the card. The Function's
+    dx is zero on the border, as its input is, and a packed layer's dW is
+    its union-block gradient, so dx is compared inside the border and dW
+    where the packed kernel can be nonzero."""
+    plan, kks, bms, _, _ = small
+    x0 = _cf(plan, plan.layers[0].cin, dev, 50)
+    wt = _cf(plan, plan.layers[-1].cout, dev, 51)
+
+    def grads(run):
+        x = x0.clone().requires_grad_()
+        ks = [k.clone().requires_grad_() for k in kks]
+        bs = [b.clone().requires_grad_() for b in bms]
+        (run(x, ks, bs) * wt).sum().backward()
+        return [x.grad] + [k.grad for k in ks] + [b.grad for b in bs]
+
+    def plain(x, ks, bs):
+        h = x
+        for li, layer in enumerate(plan.layers):
+            h = tf.conv_cf_ref(h, ks[li], bs[li], plan, layer, "z",
+                               act_in=layer.gelu_in)
+        return h
+
+    tf.reset_launch_counts()
+    got = grads(lambda x, ks, bs: tf.tail_apply(plan, x, ks, bs))
+    torch.cuda.synchronize()
+    n = len(plan.layers)
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 2 * n
+    assert tf.KERNEL_LAUNCHES["tail_conv_dw_cf"] == n
+    live = [k != 0 for k in tf.plan_and_pack(
+        16, 24, [(torch.ones(k, k, c, crr, device=dev), None, r)
+                 for k, c, crr, r in BLOCKS],
+        (torch.ones(HEAD[0], HEAD[0], *HEAD[1:], device=dev), None),
+        tm=128)[1]]
+    where = [tf.border_mask(plan, device=dev)] + live + [1.0] * n
+    for g, w, m in zip(got, grads(plain), where):
+        assert float(((g - w) * m).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_calibration_step_runs_on_the_kernels(dev, monkeypatch):
+    """One calibration step of the tiny HNeRV on the card: every tail conv,
+    its dx and dW, the tail entries and their backward launch kernels, and
+    no plain version is reached; the gradients equal the plain unpacked
+    decoder's (cuDNN, NHWC loss) within 1e-4 of the largest."""
+    from neuroquant_tpu_torch.models import build_model, tail_plan_for
+    from neuroquant_tpu_torch.quantization import (
+        init_quant_state, make_spec)
+    from neuroquant_tpu_torch.quantization.calibrate import make_loss
+
+    kern = build_model("hnerv", TINY_HNERV, device=dev)
+    plain = build_model("hnerv", dict(TINY_HNERV, packed_tail="off"),
+                        device=dev)
+    plain.load_state_dict(kern.state_dict())
+    params = {k: v.detach().clone() for k, v in kern.state_dict().items()}
+    spec = make_spec("hnerv", TINY_HNERV, hadamard=True).with_bits(
+        (6, 5, 4, 5, 6))
+    state = init_quant_state(params, spec)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    frames = torch.rand((2, 80, 160, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        emb = kern.encode(frames)
+    plan, f, ch = tail_plan_for("hnerv", TINY_HNERV)
+    cf_pack = {"gt": tf.pack_targets(frames, plan, f),
+               "mask": tf.border_mask(plan, ch=ch, device=dev),
+               "denom": 80 * 160}
+
+    def step(model, pack):
+        st = {ln: {k: v.clone().requires_grad_(k == "w_delta")
+                   for k, v in s.items()} for ln, s in state.items()}
+        loss = make_loss(model, params, spec, "uaq", cf_pack=pack)
+        total, _ = loss(st, pack["gt"] if pack else frames, emb, 1)
+        total.backward()
+        return float(total), [st[ln]["w_delta"].grad for ln in st]
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    with monkeypatch.context() as m:
+        for name in ("conv_cf_ref", "conv_cf_dw_ref", "pack_cf_ref",
+                     "unpack_cf_ref", "cf_to_nhwc", "unpack_frames_ref"):
+            m.setattr(tf, name, refuse)
+        tf.reset_launch_counts()
+        loss_k, grads_k = step(kern, cf_pack)
+        torch.cuda.synchronize()
+        counts = dict(tf.KERNEL_LAUNCHES)
+    loss_p, grads_p = step(plain, None)
+    n = len(plan.layers) + 1                 # the tail and the prefix block
+    assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
+                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 0}
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    top = max(float(g.abs().max()) for g in grads_p)
+    for a, b in zip(grads_k, grads_p):
+        assert float((a - b).abs().max()) <= 1e-4 * top

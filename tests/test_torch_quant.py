@@ -152,3 +152,153 @@ class TestQuantizeParams:
         np.testing.assert_array_equal(
             TQ.f16_round(torch.from_numpy(x)).numpy(),
             np.asarray(JQ.f16_round(jnp.asarray(x))))
+
+
+class TestGradients:
+    """The calibration's gradients: STE rounding, the clip's half gradient
+    on a bound, AdaRound's soft targets and regularizer, against
+    ``jax.grad`` of the JAX functions. 1e-4 relative to the largest
+    gradient: a per-layer delta's gradient is a sum over every weight with
+    cancellations, taken in another order."""
+
+    @staticmethod
+    def _close(got, want):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-4 * max(1.0, np.abs(want).max()))
+
+    @pytest.mark.parametrize("channel_wise", [True, False])
+    def test_uaq_ste(self, channel_wise):
+        rng = np.random.RandomState(4)
+        x = rng.randn(3, 3, 8, 6).astype(np.float32)
+        shape = (1, 1, 1, 6) if channel_wise else ()
+        d, zp = TQ.init_weight_scale(torch.from_numpy(x), 4, channel_wise,
+                                     "max")
+        d, zp = d.numpy(), zp.numpy()
+        wt = rng.randn(*x.shape).astype(np.float32)
+        jf = lambda x_, d_: (JQ.uaq_fake_quant(x_, d_, zp, 4) * wt).sum()  # noqa
+        jgx, jgd = jax.grad(jf, argnums=(0, 1))(jnp.asarray(x),
+                                                 jnp.asarray(d))
+        xt = torch.from_numpy(x).requires_grad_()
+        dt = torch.from_numpy(d.reshape(shape)).requires_grad_()
+        out = TQ.uaq_fake_quant(xt, dt, torch.from_numpy(zp), 4)
+        (out * torch.from_numpy(wt)).sum().backward()
+        # forward values are those of the plain round
+        np.testing.assert_array_equal(
+            out.detach().numpy(),
+            np.asarray(JQ.uaq_fake_quant(jnp.asarray(x), jnp.asarray(d),
+                                         jnp.asarray(zp), 4)))
+        self._close(xt.grad, jgx)
+        self._close(dt.grad, jgd)
+
+    def test_clip_passes_half_on_a_bound(self):
+        x = torch.tensor([-1.0, 0.0, 1.0, 3.0, 4.0], requires_grad=True)
+        TQ._clip(x, 0.0, 3.0).sum().backward()
+        jg = jax.grad(lambda v: jnp.clip(v, 0.0, 3.0).sum())(
+            jnp.asarray(x.detach().numpy()))
+        np.testing.assert_array_equal(x.grad.numpy(), np.asarray(jg))
+
+    def test_adaround_soft_and_reg(self):
+        rng = np.random.RandomState(5)
+        x = rng.randn(3, 3, 8, 6).astype(np.float32)
+        d = np.full((1, 1, 1, 6), 0.2, np.float32)
+        zp = np.full((1, 1, 1, 6), 8.0, np.float32)
+        a = rng.randn(*x.shape).astype(np.float32) * 2
+        wt = rng.randn(*x.shape).astype(np.float32)
+
+        def jf(a_, d_):
+            q = JQ.adaround_fake_quant(jnp.asarray(x), d_, zp, a_, 4)
+            return (q * wt).sum() + 0.01 * JQ.adaround_reg(a_, 6.5)
+
+        jga, jgd = jax.grad(jf, argnums=(0, 1))(jnp.asarray(a),
+                                                 jnp.asarray(d))
+        at = torch.from_numpy(a).requires_grad_()
+        dt = torch.from_numpy(d).requires_grad_()
+        q = TQ.adaround_fake_quant(torch.from_numpy(x), dt,
+                                   torch.from_numpy(zp), at, 4)
+        ((q * torch.from_numpy(wt)).sum()
+         + 0.01 * TQ.adaround_reg(at, 6.5)).backward()
+        self._close(at.grad, jga)
+        self._close(dt.grad, jgd)
+        np.testing.assert_allclose(
+            TQ.adaround_init_alpha(torch.from_numpy(x),
+                                   torch.from_numpy(d)).numpy(),
+            np.asarray(JQ.adaround_init_alpha(jnp.asarray(x),
+                                              jnp.asarray(d))),
+            rtol=1e-5, atol=1e-5)
+
+
+class TestCalibrationState:
+    @pytest.mark.parametrize("only", [None, "mixed"])
+    def test_adaround_upgrade(self, params, tiny_hnerv_cfg, only):
+        p, sd = params
+        jspec, tspec = _specs(tiny_hnerv_cfg, hadamard=True)
+        names = (None if only is None
+                 else (jspec.layer_names[1], jspec.layer_names[3]))
+        js = jqm.init_quant_state(p, jspec)
+        want = jqm.adaround_upgrade(p, jspec, js, only=names)
+        got = tqm.adaround_upgrade(
+            sd, tspec, quant_state_from_numpy(_np_state(js)), only=names)
+        assert set(got) == set(want)
+        for name in want:
+            assert set(got[name]) == set(want[name]), name
+            for leaf, w in want[name].items():
+                w = np.asarray(w)
+                g = got[name][leaf].numpy()
+                if leaf.endswith("alpha"):
+                    # -log of a ratio: 1e-5 of the residue's resolution
+                    np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                               err_msg=f"{name}/{leaf}")
+                else:
+                    np.testing.assert_array_equal(g, w,
+                                                  err_msg=f"{name}/{leaf}")
+
+    def test_round_loss(self, params, tiny_hnerv_cfg):
+        p, sd = params
+        jspec, tspec = _specs(tiny_hnerv_cfg, hadamard=True)
+        js, ts = _states(p, sd, jspec, tspec, "mixed")
+        for b in (20.0, 7.25, 2.0):
+            want = float(jqm.round_loss(js, jspec, b, 0.01))
+            got = float(tqm.round_loss(ts, tspec, b, 0.01))
+            assert got == pytest.approx(want, rel=1e-5)
+
+    @pytest.mark.parametrize("mode", ["uaq", "adaround", "mixed"])
+    def test_collect_int_codes_exact(self, params, tiny_hnerv_cfg, mode):
+        p, sd = params
+        jspec, tspec = _specs(tiny_hnerv_cfg, hadamard=True)
+        js, ts = _states(p, sd, jspec, tspec, mode)
+        qmode = "uaq" if mode == "uaq" else "adaround"
+        want = jqm.collect_int_codes(p, jspec, js, mode=qmode)
+        got = tqm.collect_int_codes(sd, tspec, ts, mode=qmode)
+        for name in jspec.layer_names:
+            for leaf in ("w", "b", "w_delta", "w_zp", "b_delta", "b_zp"):
+                np.testing.assert_array_equal(
+                    got[name][leaf].numpy(), np.asarray(want[name][leaf]),
+                    err_msg=f"{name}/{leaf}")
+            assert got[name]["w"].dtype == torch.int32
+            assert got[name]["bits"] == want[name]["bits"]
+
+    def test_average_bits_exact(self, params, tiny_hnerv_cfg):
+        p, sd = params
+        jspec, tspec = _specs(tiny_hnerv_cfg)
+        assert tqm.average_bits(sd, tspec) == jqm.average_bits(p, jspec)
+
+    def test_quantize_params_is_differentiable(self, params, tiny_hnerv_cfg):
+        """Gradients reach the deltas; a state that wants none builds no
+        graph (the decode-time call)."""
+        p, sd = params
+        _, tspec = _specs(tiny_hnerv_cfg, hadamard=True)
+        ts = tqm.init_quant_state(sd, tspec)
+        out = tqm.quantize_params(sd, tspec, ts)
+        assert all(not v.requires_grad for v in out.values())
+        name = tspec.layer_names[2]
+        ts[name]["w_delta"].requires_grad_()
+        out = tqm.quantize_params(sd, tspec, ts)
+        w = next(v for k, v in out.items() if v.requires_grad
+                 and k.endswith("weight"))
+        w.sum().backward()
+        assert ts[name]["w_delta"].grad is not None
+
+    def test_fq_impl_pallas_names_its_item(self, tiny_hnerv_cfg):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            make_spec("hnerv", tiny_hnerv_cfg, fq_impl="pallas")

@@ -205,6 +205,23 @@ class TestLayoutKernels:
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
+    def test_unpack_frames_width_tiled(self):
+        """At f=4 and w=480 the JAX unpack takes its width-tiled kernel
+        (``_unpack_kernel5``, 240-wide tiles, interpret mode here); the
+        port's one kernel and plain version compute the same function."""
+        geoms = ([(3, 17, 224, 4)], (3, 14, 3))
+        jplan, f = jtf.plan_geometry(4, 480, *geoms)
+        tplan, _ = ttf.plan_geometry(4, 480, *geoms)
+        assert jtf._unpack_wt(jplan, f) == 240 < jplan.w
+        z = np.random.RandomState(7).randn(B, 48, tplan.mp).astype(np.float32)
+        want = np.asarray(jtf.unpack_frames(jnp.asarray(z), jplan, f, 48,
+                                            "tanh", jnp.float32))
+        got = ttf.unpack_frames(torch.from_numpy(z), tplan, f, 48,
+                                "tanh").numpy()
+        assert got.shape == want.shape == (B, 16, 1920, 3)
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 class TestWrappers:
     def test_cpu_uses_plain_version_and_counts_nothing(self, small_case):
         _, _, _, tplan, tkks, tbms, xs = small_case
@@ -214,8 +231,10 @@ class TestWrappers:
         ref = ttf.conv_cf_ref(x, tkks[0], tbms[0], tplan, tplan.layers[0],
                               "y")
         assert torch.equal(out, ref)
-        assert ttf.KERNEL_LAUNCHES == {"tail_conv_cf": 0, "pack_cf": 0,
-                                       "unpack_frames": 0}
+        assert set(ttf.KERNEL_LAUNCHES) == {
+            "tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
+            "unpack_frames"}
+        assert not any(ttf.KERNEL_LAUNCHES.values())
 
     def test_other_devices_raise(self, small_case):
         _, _, _, tplan, tkks, tbms, xs = small_case
