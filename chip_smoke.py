@@ -21,17 +21,34 @@ Phases (any failure exits non-zero):
      1280x720 PNG frames, with --eval_fps
   6. calibration step -- one phase-2 step's loss and gradients, kernel
      path against the plain unpacked path; its launches; its forward,
-     backward and optimizer times; a profiler window
+     backward and optimizer times; a profiler window; then the same step
+     with fq_impl='pallas' (the fake-quant kernel) against fq_impl='jnp' on
+     the same kernel tail: loss, gradients, 7 fq_ada launches, its times
   7. calibrate -- ``neuroquant_tpu_torch.methods.calibrate_network.main``
      at Bunny-3M on the 8 frames from a .pth of the seeded weights, batch 2,
      80 steps (1 phase-1 and 19 phase-2 epochs): every step's launches (8
      tail_conv_cf, 4 tail_conv_dw_cf, 2 pack_cf, 2 unpack_cf), finite
      state, both guards, and the artifact read back by eval_quantized
+  8. fake-quant kernels -- fq_uaq and fq_ada (soft and
+     hard) at the seven Bunny-3M weight shapes against the plain chain on
+     the card: 1e-6 of the output's largest value and no flipped rounding
+     decision; one shape without the transform and one with per-layer
+     scales; per-launch times and the whole ``quantize_params`` call on
+     both fq_impls, forward alone and forward plus backward
+  9. calibrate, --fq_impl pallas -- phase 7 again on the fake-quant kernel:
+     7 fq_uaq (phase 1) or fq_ada (phase 2) launches per step beside the
+     8 / 4 / 2 / 2, the four PSNR blocks within 0.02 dB of phase 7's
+ 10. bitstream -- ``compress.main`` on that artifact, then
+     ``eval_quantized.main --from_bitstream``: the stream decodes to the
+     artifact's codes, PSNR within 0.01 dB of the artifact's state eval,
+     decode launches 4 / 2 / 1; stream bytes, bpp, the native coder's times
 
 The second-to-last line is one JSON object per kernel: its launches over
-the calibrate_network run, its largest error against the plain version,
-and its times and bound summed over one decode's launches (the decode's
-kernels) or one calibration step's (tail_conv_dw_cf, unpack_cf); per-launch
+the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
+the fake-quant entries), its largest error against the plain version, and
+its times and bound summed over one decode's launches (the decode's
+kernels), one calibration step's (tail_conv_dw_cf, unpack_cf) or one
+``quantize_params`` call's seven layers (fq_uaq, fq_ada); per-launch
 figures under "per_launch". The last line is {"ok": true, "device": ...}.
 """
 
@@ -64,7 +81,18 @@ CALIB_ITERS = 80     # batch 2 over 8 frames: 1 phase-1 and 19 phase-2 epochs
 # prefix block and the tail's three layers), their 4 dW passes, the two
 # entries' pack_cf and its backward; the packed loss needs no unpack
 PER_STEP = {"tail_conv_cf": 8, "tail_conv_dw_cf": 4, "pack_cf": 2,
-            "unpack_cf": 2, "unpack_frames": 0}
+            "unpack_cf": 2, "unpack_frames": 0, "fq_uaq": 0, "fq_ada": 0}
+# with fq_impl='pallas' a step's quantize_params adds one fake-quant launch
+# per quantized layer: fq_uaq in phase 1, fq_ada in phase 2
+FQ_LAYERS = len(PRECISION)
+# the fake-quant kernel against the plain chain, of the output's largest
+# value: its butterfly and quantizer repeat the plain chain's fp32
+# operations in their order (the soft form's expf against torch's sigmoid)
+FQ_TOL = 1e-6
+FQ_LOSS_TOL = 1e-6   # a step's loss, fq_impl pallas against jnp, relative
+FQ_GRAD_TOL = 1e-5   # its gradients, of each leaf's largest
+PSNR_TOL = 0.02      # dB between the two calibrate runs' eval blocks
+STREAM_PSNR_TOL = 0.01   # dB, the stream's eval against the state's
 # one step's gradients, kernel path vs the plain unpacked path (cuDNN): fp32
 # sums over ~1e5 positions in other orders through 7 layers; of each
 # leaf's largest |gradient|
@@ -94,6 +122,28 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, n: int = 5):
+    """Device time of one call of `fn`, summed over the kernels it
+    launches (torch.profiler, CUPTI): what the card spends when the host
+    does not hold it back. None when the trace has no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
 
 
 def _bound(nbytes: float, flops: float):
@@ -321,7 +371,8 @@ def _decode_phase(torch, tf, cfg, sd, model):
         assert err <= DECODE_TOL, err
         assert counts == {"tail_conv_cf": 16, "tail_conv_dw_cf": 0,
                           "pack_cf": 8, "unpack_cf": 0,
-                          "unpack_frames": 4}, counts
+                          "unpack_frames": 4, "fq_uaq": 0,
+                          "fq_ada": 0}, counts
         e1 = embeds[:1]
         k_ms = _time_ms(lambda: model.decode(e1), iters=20)
         p_ms = _time_ms(lambda: plain.decode(e1), iters=20)
@@ -451,7 +502,9 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
     of its terms, so the same value and gradients; the step's launches; and
     the step's time split into forward, backward and optimizer, with a
     profiler window for the kernel time by name and the device's busy
-    share."""
+    share. Then the same step with fq_impl='pallas': the fake-quant kernel
+    forward and the plain chain's VJP backward give the 'jnp' step's loss
+    and gradients on the same kernel tail, with 7 fq_ada launches more."""
     from neuroquant_tpu_torch.data import VideoDataSet
     from neuroquant_tpu_torch.models import build_model, tail_plan_for
     from neuroquant_tpu_torch.quantization import (
@@ -468,6 +521,8 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
     params = {k: v.detach().clone() for k, v in kern.state_dict().items()}
     spec = make_spec("hnerv", cfg, channel_wise=True, scale_method="max",
                      hadamard=True).with_bits(PRECISION)
+    spec_fq = make_spec("hnerv", cfg, channel_wise=True, scale_method="max",
+                        hadamard=True, fq_impl="pallas").with_bits(PRECISION)
     state = adaround_upgrade(params, spec, init_quant_state(params, spec))
     frames = VideoDataSet(cfg, frames_dir, device=dev).frames[:CALIB_BATCH]
     with torch.no_grad():
@@ -481,7 +536,7 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
         return {ln: {k: v.clone().requires_grad_(k.endswith("alpha"))
                      for k, v in s.items()} for ln, s in state.items()}
 
-    def step(model, pk):
+    def step(model, pk, spec=spec):
         st = fresh()
         loss = make_loss(model, params, spec, "adaround", 2.0, pk)
         total, _ = loss(st, pk["gt"] if pk else frames, emb, 1)
@@ -507,41 +562,70 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
     assert rel_loss <= LOSS_TOL, (loss_k, loss_p)
     assert worst <= GRAD_TOL, worst
 
-    # the step's time: forward, backward, Adam over the alphas
-    st = fresh()
-    leaves = [v for s in st.values() for v in s.values() if v.requires_grad]
-    opt = torch.optim.Adam(leaves, lr=0.003, eps=1e-8)
-    loss = make_loss(kern, params, spec, "adaround", 2.0, pack)
+    tf.reset_launch_counts()
+    loss_f, grads_f = step(kern, pack, spec_fq)
+    counts_f = dict(tf.KERNEL_LAUNCHES)
+    rel_f = abs(loss_f - loss_k) / abs(loss_k)
+    worst_f = max(float((grads_f[key] - grads_k[key]).abs().max())
+                  / max(float(grads_k[key].abs().max()), 1e-30)
+                  for key in grads_k)
+    print(f"  the same step, fq_impl pallas vs jnp on the kernel tail: loss "
+          f"{loss_f:.7f} vs {loss_k:.7f} (rel {rel_f:.2e}, tol "
+          f"{FQ_LOSS_TOL:.0e}); gradients: worst leaf max|diff| / max|grad| "
+          f"{worst_f:.2e} (tol {FQ_GRAD_TOL:.0e}); launches {counts_f}")
+    assert counts_f == dict(PER_STEP, fq_ada=FQ_LAYERS), counts_f
+    assert rel_f <= FQ_LOSS_TOL, (loss_f, loss_k)
+    assert worst_f <= FQ_GRAD_TOL, worst_f
 
-    def one(times=None):
-        t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        total, _ = loss(st, pack["gt"], emb, 1)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        total.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        opt.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        if times is not None:
-            times.append((t1 - t0, t2 - t1, t3 - t2))
+    def timed(spec):
+        """(one step as a callable, its mean forward, backward and optimizer
+        ms over 10 steps): forward, backward, Adam over the alphas."""
+        st = fresh()
+        leaves = [v for s in st.values() for v in s.values()
+                  if v.requires_grad]
+        opt = torch.optim.Adam(leaves, lr=0.003, eps=1e-8)
+        loss = make_loss(kern, params, spec, "adaround", 2.0, pack)
 
-    for _ in range(3):
-        one()
-    times = []
-    for _ in range(10):
-        one(times)
-    fwd, bwd, upd = (1e3 * sum(t[i] for t in times) / len(times)
-                     for i in range(3))
-    print(f"  step (batch {CALIB_BATCH}, mean of 10): forward {fwd:.3f} ms, "
-          f"backward {bwd:.3f} ms, optimizer {upd:.3f} ms, total "
-          f"{fwd + bwd + upd:.3f} ms")
+        def one(times=None):
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            total, _ = loss(st, pack["gt"], emb, 1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            total.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if times is not None:
+                times.append((t1 - t0, t2 - t1, t3 - t2))
+
+        for _ in range(3):
+            one()
+        times = []
+        for _ in range(10):
+            one(times)
+        return (one, *(1e3 * sum(t[i] for t in times) / len(times)
+                       for i in range(3)))
+
+    # the two impls in turns: jnp, pallas, pallas, jnp
+    runs = [timed(sp) for sp in (spec, spec_fq, spec_fq, spec)]
+    one, fwd, bwd, upd = runs[0]
+    for label, (_, f, b, u) in zip(("jnp", "pallas", "pallas", "jnp"), runs):
+        print(f"  step, fq_impl {label} (batch {CALIB_BATCH}, mean of 10): "
+              f"forward {f:.3f} ms, backward {b:.3f} ms, optimizer {u:.3f} "
+              f"ms, total {f + b + u:.3f} ms")
     prof = _profile_steps(torch, one)
     return dict(loss=loss_k, plain_loss=loss_p, loss_rel_err=rel_loss,
                 grad_rel_err=worst, launches=counts, forward_ms=fwd,
-                backward_ms=bwd, optimizer_ms=upd, profile=prof)
+                backward_ms=bwd, optimizer_ms=upd, profile=prof,
+                fq_pallas=dict(
+                    loss_rel_err=rel_f, grad_rel_err=worst_f,
+                    launches=counts_f,
+                    step_ms_jnp=[sum(runs[i][1:]) for i in (0, 3)],
+                    step_ms_pallas=[sum(runs[i][1:]) for i in (1, 2)],
+                    forward_ms=runs[1][1], backward_ms=runs[1][2]))
 
 
 def _profile_steps(torch, one, n=5):
@@ -581,15 +665,15 @@ def _profile_steps(torch, one, n=5):
                      for r in rows[:14]])
 
 
-def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card):
-    """``calibrate_network.main`` at Bunny-3M on the 8 seeded frames, from
-    a .pth of the seeded weights: both phases, the four eval blocks, both
-    guards, the artifact; every step's launches (from a count taken at
-    each loss call); the artifact read back by ``eval_quantized``."""
+def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
+    """``calibrate_network.main --fq_impl <fq_impl>`` at Bunny-3M on the 8
+    seeded frames, from a .pth of the seeded weights, under the directory
+    `work`: both phases, the four eval blocks, both guards, the artifact;
+    every step's launches (from a count taken at each loss call); the
+    artifact read back by ``eval_quantized``."""
     from neuroquant_tpu_torch.methods import calibrate_network, eval_quantized
     from neuroquant_tpu_torch.quantization import calibrate as tcal
 
-    tmp = tempfile.mkdtemp(prefix="nq_chip_calib_")
     snaps = []
     make_loss = tcal.make_loss
 
@@ -604,10 +688,10 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card):
     cwd = os.getcwd()
     cap = _Capture()
     try:
-        pth = os.path.join(tmp, "bunny_seeded.pth")
+        pth = os.path.join(work, "bunny_seeded.pth")
         torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
         tcal.make_loss = counting
-        os.chdir(tmp)              # the run directory goes under results/
+        os.chdir(work)             # the run directory goes under results/
         logging.getLogger().addHandler(cap)
         tf.reset_launch_counts()
         t0 = time.time()
@@ -615,10 +699,10 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card):
             "--config", os.path.join(REPO, "configs", "HNeRV",
                                      "Bunny_1280x640_3M.yaml"),
             "--arch", "hnerv", "--data_path", frames_dir, "--vid", "Bunny",
-            "--outf", "hnerv", "--ckpt", pth, "--precision",
+            "--outf", f"hnerv_{fq_impl}", "--ckpt", pth, "--precision",
             *map(str, PRECISION), "--hadamard", "--channel_wise",
             "--batch_size", str(CALIB_BATCH), "--iters_w", str(CALIB_ITERS),
-            "--lr", "0.003", "--warmup", "0.2"])
+            "--lr", "0.003", "--warmup", "0.2", "--fq_impl", fq_impl])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(tf.KERNEL_LAUNCHES)
@@ -633,11 +717,25 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card):
         tcal.make_loss = make_loss
         logging.getLogger().removeHandler(cap)
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
+    out_path = os.path.join(work, out_path)
     steps = [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
     assert len(snaps) == CALIB_ITERS, len(snaps)
-    assert all(d == PER_STEP for d in steps), [d for d in steps
-                                               if d != PER_STEP][:3]
+    if fq_impl == "pallas":
+        # phase 1's steps quantize on fq_uaq, phase 2's on fq_ada
+        phase1 = dict(PER_STEP, fq_uaq=FQ_LAYERS)
+        phase2 = dict(PER_STEP, fq_ada=FQ_LAYERS)
+        n1 = sum(d == phase1 for d in steps)
+        assert 0 < n1 < len(steps), (n1, steps[:2])
+        # the last diff of phase 1 spans the hand-off between the phases
+        # (no kernel runs there), so every diff is one step's
+        assert all(d == phase1 for d in steps[:n1]), steps[:n1]
+        assert all(d == phase2 for d in steps[n1:]), [
+            d for d in steps[n1:] if d != phase2][:3]
+        per_step = f"phase 1 ({n1} steps) {phase1}, phase 2 {phase2}"
+    else:
+        assert all(d == PER_STEP for d in steps), [d for d in steps
+                                                   if d != PER_STEP][:3]
+        per_step = str(PER_STEP)
     text = "\n".join(cap.lines)
     psnrs = [float(v) for v in re.findall(r"best_pred_seen_psnr: ([\d.]+)",
                                           text)]
@@ -647,15 +745,230 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card):
     psnr = float(results[0])
     assert math.isfinite(psnr) and abs(round(psnr, 2) - psnrs[-1]) <= 0.01, (
         psnr, psnrs)
-    for name in PER_STEP:
-        assert launches[name] > 0, (name, launches)
-    print(f"  calibrate_network: {CALIB_ITERS} steps at batch {CALIB_BATCH} "
-          f"in {wall:.1f} s wall (evals included); phase 2 {its} iters/s; "
-          f"every step's launches {PER_STEP}; run launches {launches}")
+    for name, n in launches.items():
+        # the evals' decodes launch unpack_frames; the fake-quant entries
+        # run only under fq_impl pallas
+        assert (n > 0) == (fq_impl == "pallas" or not name.startswith("fq_")
+                           ), (name, launches)
+    print(f"  calibrate_network --fq_impl {fq_impl}: {CALIB_ITERS} steps at "
+          f"batch {CALIB_BATCH} in {wall:.1f} s wall (evals included); phase "
+          f"2 {its} iters/s; every step's launches {per_step}; run launches "
+          f"{launches}")
     print(f"  PSNR fp32 / quant off / quant unopt / quant opt: {psnrs}; "
           f"eval_quantized on the artifact: {psnr:.4f} dB; card {card}")
     return dict(phase2_its=its, wall_s=wall, launches=launches,
-                psnr_blocks=psnrs, eval_psnr=psnr, steps=len(snaps))
+                psnr_blocks=psnrs, eval_psnr=psnr, steps=len(snaps),
+                artifact=out_path, fq_impl=fq_impl)
+
+
+def _fq_kernel_phase(torch, tf, cfg, sd):
+    """The fake-quant kernel's two entries at the seven Bunny-3M weight
+    shapes, with the seeded weights and the scales of ``init_quant_state``
+    (UAQ) and ``adaround_upgrade`` (AdaRound, soft and hard), against the
+    plain chain on the card; one layer without the transform and one with
+    per-layer scales; then the whole ``quantize_params`` call on both
+    fq_impls, forward alone and forward plus backward. Returns per-kernel
+    records."""
+    from neuroquant_tpu_torch.ops import fused_fakequant as ff
+    from neuroquant_tpu_torch.ops.hadamard import next_power_of_two
+    from neuroquant_tpu_torch.quantization import (
+        adaround_upgrade, init_quant_state, make_spec, quantize_params)
+    from neuroquant_tpu_torch.quantization.qmodel import _get
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    params = state_dict_from_numpy(sd, "cuda")
+    kw = dict(channel_wise=True, scale_method="max", hadamard=True)
+    spec = make_spec("hnerv", cfg, **kw).with_bits(PRECISION)
+    spec_fq = make_spec("hnerv", cfg, fq_impl="pallas", **kw).with_bits(
+        PRECISION)
+    uaq = init_quant_state(params, spec)
+    ada = adaround_upgrade(params, spec, uaq)
+    records = {k: {"per_launch": [], "max_abs_err": 0.0}
+               for k in ("fq_uaq", "fq_ada")}
+
+    def check(label, w, s, bits, hadamard, alpha, soft):
+        """The kernel against the plain chain: (largest error, elements off
+        by a flipped rounding decision, which moves a transformed row by
+        delta / sqrt(C) per element)."""
+        want = ff.fake_quant_ref(w, s["w_delta"], s["w_zp"], alpha, bits,
+                                 hadamard, soft)
+        got = ff.fused_fake_quant_hwio(w, s["w_delta"], s["w_zp"], bits,
+                                       hadamard, alpha, soft)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape, (got.shape, want.shape)
+        err = (got - want).abs()
+        c = next_power_of_two(w.shape[2]) if hadamard else 1
+        flips = int((err > 0.5 * s["w_delta"] / math.sqrt(c)).sum())
+        top = float(err.max())
+        tol = FQ_TOL * max(1.0, float(want.abs().max()))
+        print(f"  {label}: max_abs_err {top:.3e} (tol {tol:.1e}), flipped "
+              f"rounding decisions {flips} (must be 0)")
+        assert top <= tol and flips == 0, (label, top, tol, flips)
+        return top
+
+    with torch.no_grad():
+        for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+                                    spec.n_bits):
+            w, _ = _get(params, path)
+            kh, kwid, cin, cout = w.shape
+            c, r = next_power_of_two(cin), cout * kh * kwid
+            geo = f"{name} R={r} C={cin}->{c} {bits}b"
+            su, sa = uaq[name], ada[name]
+            alpha = sa["w_alpha"]
+            for kname, label, s, a, soft in (
+                    ("fq_uaq", "uaq", su, None, True),
+                    ("fq_ada", "adaround soft", sa, alpha, True),
+                    ("fq_ada", "adaround hard", sa, alpha, False)):
+                err = check(f"{kname} {geo} {label}", w, s, bits, True, a,
+                            soft)
+                records[kname]["max_abs_err"] = max(
+                    records[kname]["max_abs_err"], err)
+                if label == "adaround hard":
+                    continue          # the step runs soft; timed below
+                # back-to-back calls are host-bound at these sizes: ms is what
+                # a caller pays per call, device_ms the kernel's own time
+                def run():
+                    return ff.fused_fake_quant_hwio(
+                        w, s["w_delta"], s["w_zp"], bits, True, a, soft)
+
+                def run_plain():
+                    return ff.fake_quant_ref(w, s["w_delta"], s["w_zp"], a,
+                                             bits, True, soft)
+
+                ms, plain_ms = _time_ms(run), _time_ms(run_plain)
+                dev_ms, plain_dev_ms = _device_ms(run), _device_ms(run_plain)
+                # the weight read and written unpadded, the scales, and for
+                # AdaRound the padded alphas
+                nbytes = 4 * (2 * r * cin + 2 * cout
+                              + (r * c if a is not None else 0))
+                bound_ms, by = _bound(nbytes, 0)
+                records[kname]["per_launch"].append(dict(
+                    shape=f"{geo} {label}", ms=ms, plain_ms=plain_ms,
+                    library_ms=None, bound_ms=bound_ms, bound_by=by,
+                    mbytes=nbytes / 1e6, device_ms=dev_ms,
+                    plain_device_ms=plain_dev_ms))
+                print(f"  {kname} {geo} {label}: {ms:.4f} ms per call, "
+                      f"{dev_ms} ms on the device (plain {plain_ms:.4f} and "
+                      f"{plain_dev_ms}; bound {bound_ms:.5f} by {by}; no "
+                      f"single PyTorch call computes the chain)")
+        # without the transform (C = C_in, any width), and with per-layer
+        # (0-d) scales, on blocks_3/conv (4400 x 53)
+        name, path = spec.layer_names[4], spec.layer_paths[4]
+        w, _ = _get(params, path)
+        for hadamard, cw, label in ((False, True, "no transform"),
+                                    (True, False, "per-layer scales")):
+            sp = make_spec("hnerv", cfg, channel_wise=cw, scale_method="max",
+                           hadamard=hadamard).with_bits(PRECISION)
+            su = init_quant_state(params, sp)
+            sa = adaround_upgrade(params, sp, su)[name]
+            assert su[name]["w_delta"].dim() == (4 if cw else 0)
+            for kname, s, a, soft in (("fq_uaq", su[name], None, True),
+                                      ("fq_ada", sa, sa["w_alpha"], True),
+                                      ("fq_ada", sa, sa["w_alpha"], False)):
+                err = check(f"{kname} {name} {label} soft={soft}", w, s,
+                            sp.n_bits[4], hadamard, a, soft)
+                records[kname]["max_abs_err"] = max(
+                    records[kname]["max_abs_err"], err)
+
+    # the whole quantize_params call, 7 layers: what a calibration step pays
+    keys = [k for k in params if k.startswith(("decoder.", "head_layer."))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cot = {k: torch.randn(params[k].shape, generator=gen, device="cuda")
+           for k in keys}
+    calls = {}
+    for mode, state, leaf in (("uaq", uaq, "delta"), ("adaround", ada,
+                                                      "alpha")):
+        st = {ln: {k: v.clone().requires_grad_(k.endswith(leaf))
+                   for k, v in s.items()} for ln, s in state.items()}
+        leaves = [v for s in st.values() for v in s.values()
+                  if v.requires_grad]
+
+        def forward(sp):
+            with torch.no_grad():
+                return quantize_params(params, sp, st, mode=mode, soft=True)
+
+        def both(sp):
+            out = quantize_params(params, sp, st, mode=mode, soft=True)
+            total = sum((out[k] * cot[k]).sum() for k in keys)
+            return torch.autograd.grad(total, leaves)
+
+        g_j, g_f = both(spec), both(spec_fq)
+        worst = max(float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(g_f, g_j))
+        assert worst <= FQ_GRAD_TOL, (mode, worst)
+        # in turns: jnp, pallas, pallas, jnp
+        t = {}
+        for label, fn in (("forward", forward), ("forward_backward", both)):
+            ms = [_time_ms(lambda: fn(sp), iters=10)
+                  for sp in (spec, spec_fq, spec_fq, spec)]
+            t[label] = dict(jnp_ms=[ms[0], ms[3]], pallas_ms=[ms[1], ms[2]])
+        calls[mode] = dict(t, grad_rel_err=worst)
+        print(f"  quantize_params mode={mode}, 7 layers: forward jnp "
+              f"{t['forward']['jnp_ms']} ms, pallas "
+              f"{t['forward']['pallas_ms']} ms; forward + backward jnp "
+              f"{t['forward_backward']['jnp_ms']} ms, pallas "
+              f"{t['forward_backward']['pallas_ms']} ms; gradients pallas "
+              f"vs jnp {worst:.2e} (tol {FQ_GRAD_TOL:.0e})")
+    records["quantize_params"] = calls
+    return records
+
+
+def _bitstream_phase(torch, tf, calib, frames_dir, card):
+    """``compress.main`` on the calibration's artifact, then
+    ``eval_quantized.main --from_bitstream`` on the stream."""
+    from neuroquant_tpu_torch.coding import codec
+    from neuroquant_tpu_torch.methods import compress, eval_quantized
+
+    art = calib["artifact"]
+    t0 = time.time()
+    so = codec.build_native()
+    print(f"  range coder built/loaded in {time.time() - t0:.2f} s: "
+          f"{os.path.relpath(so, REPO)}")
+    report = compress.main(["--artifact", art, "--data_path", frames_dir])
+    stream_path = report["bitstream"]
+    assert stream_path == art + ".nqtb" and os.path.exists(stream_path)
+    with open(art, "rb") as f:
+        codes = pickle.load(f)["int_codes"]
+    n_sym = sum(int(np.asarray(c["w"]).size + np.asarray(c["b"]).size)
+                for c in codes.values())
+    t0 = time.perf_counter()
+    stream = codec.compress_artifact(codes)
+    t1 = time.perf_counter()
+    back = codec.decompress_artifact(stream)
+    t2 = time.perf_counter()
+    with open(stream_path, "rb") as f:
+        assert f.read() == stream
+    for name, c in codes.items():
+        assert np.array_equal(back[name]["w"], np.asarray(c["w"])), name
+        assert np.array_equal(back[name]["b"], np.asarray(c["b"])), name
+    assert report["weight_stream_bytes"] == len(stream)
+    assert report["pixels"] == N_FRAMES * 640 * 1280, report
+    tf.reset_launch_counts()
+    results = eval_quantized.main(["--artifact", art, "--data_path",
+                                   frames_dir, "--from_bitstream",
+                                   stream_path])
+    torch.cuda.synchronize()
+    launches = dict(tf.KERNEL_LAUNCHES)
+    psnr = float(results[0])
+    assert math.isfinite(psnr), psnr
+    assert abs(psnr - calib["eval_psnr"]) <= STREAM_PSNR_TOL, (
+        psnr, calib["eval_psnr"])
+    # every decode call is 4 conv, 2 pack_cf and 1 unpack_frames launches;
+    # a stream decodes without any fake-quant
+    n = launches["unpack_frames"]
+    assert n > 0, launches
+    assert launches == {"tail_conv_cf": 4 * n, "tail_conv_dw_cf": 0,
+                        "pack_cf": 2 * n, "unpack_cf": 0, "unpack_frames": n,
+                        "fq_uaq": 0, "fq_ada": 0}, launches
+    print(f"  stream {len(stream)} bytes for {n_sym} symbols, bpp "
+          f"{report['bpp']} (embeddings {report['embed_bits']} bits); native "
+          f"coder encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s wall (host)")
+    print(f"  eval_quantized --from_bitstream: PSNR {psnr:.4f} dB vs "
+          f"{calib['eval_psnr']:.4f} from the artifact's state (tol "
+          f"{STREAM_PSNR_TOL}); decode launches {launches}; card {card}")
+    return dict(report=report, symbols=n_sym, encode_s=t1 - t0,
+                decode_s=t2 - t1, psnr=psnr, launches=launches)
 
 
 def _write_frames(path: str, rng):
@@ -778,6 +1091,7 @@ def main() -> int:
     model.eval()
 
     frames_dir = tempfile.mkdtemp(prefix="nq_chip_frames_")
+    work = tempfile.mkdtemp(prefix="nq_chip_calib_")
     try:
         _write_frames(frames_dir, rng)
         print("[kernels]")
@@ -791,46 +1105,81 @@ def main() -> int:
         print("[calibration step: gradients, launches, time]")
         grad = _gradient_phase(torch, tf, cfg, sd, frames_dir)
         print("[calibrate]")
-        calib = _calibrate_phase(torch, tf, cfg, sd, frames_dir, card)
+        calib = _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work,
+                                 "jnp")
+        print("[kernels: fake-quant]")
+        frecords = _fq_kernel_phase(torch, tf, cfg, sd)
+        print("[calibrate, --fq_impl pallas]")
+        calib_fq = _calibrate_phase(torch, tf, cfg, sd, frames_dir, card,
+                                    work, "pallas")
+        worst = max(abs(a - b) for a, b in zip(calib_fq["psnr_blocks"],
+                                               calib["psnr_blocks"]))
+        print(f"  PSNR blocks, fq_impl pallas vs jnp at --iters_w "
+              f"{CALIB_ITERS}: {calib_fq['psnr_blocks']} vs "
+              f"{calib['psnr_blocks']} (max diff {worst:.3f} dB, tol "
+              f"{PSNR_TOL}); phase 2 it/s: pallas {calib_fq['phase2_its']}, "
+              f"jnp {calib['phase2_its']}; card {card}")
+        assert worst <= PSNR_TOL, (calib_fq["psnr_blocks"],
+                                   calib["psnr_blocks"])
+        print("[bitstream]")
+        stream = _bitstream_phase(torch, tf, calib_fq, frames_dir, card)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
 
     src = "neuroquant_tpu_torch/csrc/{}.cu".format
     tpu = "neuroquant_tpu/ops/tail_fused.py:{}".format
+    fq = "neuroquant_tpu/ops/pallas_fakequant.py:{}".format
     # the decode's kernels are summed over one decode's launches (batch 1),
-    # the calibration's new kernels over one step's (batch 2); "launches"
-    # is the count over the calibrate_network run (its steps and its evals'
-    # decodes), the main path of this slice
-    sources = [("tail_conv_cf", records, tpu(1133), "per decode"),
-               ("tail_conv_dw_cf", brecords, tpu(1172), "per step"),
-               ("pack_cf", records, tpu(656), "per decode"),
-               ("unpack_cf", brecords, tpu(666), "per step"),
-               ("unpack_frames", records, tpu(2016), "per decode")]
+    # the calibration's kernels over one step's (batch 2), the fake-quant
+    # entries over one quantize_params call's seven layers; "launches" is
+    # the count over a calibrate_network run (its steps and its evals): the
+    # fq_impl jnp run for the tail's kernels, the fq_impl pallas run, which
+    # the bitstream is made from, for the fake-quant entries
+    sources = [("tail_conv_cf", records, tpu(1133), "per decode", calib),
+               ("tail_conv_dw_cf", brecords, tpu(1172), "per step", calib),
+               ("pack_cf", records, tpu(656), "per decode", calib),
+               ("unpack_cf", brecords, tpu(666), "per step", calib),
+               ("unpack_frames", records, tpu(2016), "per decode", calib),
+               ("fq_uaq", frecords, fq(69), "per quantize_params call",
+                calib_fq),
+               ("fq_ada", frecords, fq(83), "per quantize_params call",
+                calib_fq)]
     kernels = []
-    for name, recs, replaces, summed in sources:
+    for name, recs, replaces, summed, run in sources:
         per = recs[name]["per_launch"]
         t_ops = sum(p["bound_ms"] for p in per if p["bound_by"] == "operations")
         t_bytes = sum(p["bound_ms"] for p in per if p["bound_by"] == "bytes")
         err = max(recs[name]["max_abs_err"],
                   brecords.get(name, {"max_abs_err": 0.0})["max_abs_err"])
+        is_fq = name.startswith("fq_")
         kernels.append({
-            "name": name, "route": "cuda", "source": src(name),
-            "replaces": replaces, "launches": calib["launches"][name],
+            "name": name, "route": "cuda",
+            "source": src("fq_hadamard" if is_fq else name),
+            "replaces": replaces, "launches": run["launches"][name],
+            "fq_pallas_run_launches": calib_fq["launches"][name],
             "max_abs_err": err,
             "ms": sum(p["ms"] for p in per),
             "plain_ms": sum(p["plain_ms"] for p in per),
             "bound_ms": sum(p["bound_ms"] for p in per),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": sum(p["library_ms"] for p in per),
+            # no single PyTorch call computes the fused fake-quant chain
+            "library_ms": (None if is_fq
+                           else sum(p["library_ms"] for p in per)),
             "summed": summed,
+            **({"device_ms": sum(p["device_ms"] or 0.0 for p in per),
+                "plain_device_ms": sum(p["plain_device_ms"] or 0.0
+                                       for p in per)} if is_fq else {}),
             "serving_launches": serve["launches"][name],
             "per_decode_launches": dec["launches"][name] // 4,
-            "per_step_launches": PER_STEP[name],
+            "per_step_launches": (
+                grad["fq_pallas"]["launches"][name] if is_fq
+                else PER_STEP[name]),
             "per_launch": per})
     kernels[0]["calibration_per_launch"] = brecords["tail_conv_cf"][
         "per_launch"]
     # the shape of the JAX width-tiled _unpack_kernel5, outside the sum
-    kernels[-1]["width_tiled"] = records["unpack_frames"]["width_tiled"]
+    kernels[4]["width_tiled"] = records["unpack_frames"]["width_tiled"]
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
@@ -840,7 +1189,9 @@ def main() -> int:
           f"{dec['plain_decode_ms']:.3f} plain; calibration phase 2 "
           f"{calib['phase2_its']} it/s; card {card}")
     print(json.dumps({"card": card, "decode": dec, "serving": serve,
-                      "step": grad, "calibrate": calib}))
+                      "step": grad, "calibrate": calib,
+                      "quantize_params": frecords["quantize_params"],
+                      "calibrate_fq_pallas": calib_fq, "bitstream": stream}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,7 +104,9 @@ def parse_args(argv):
                              "domain (decode_cf vs pre-packed frames)")
     parser.add_argument("--fq_impl", default="jnp", type=str,
                         choices=["jnp", "pallas"],
-                        help="weight fake-quant implementation")
+                        help="weight fake-quant implementation: 'jnp', the "
+                             "plain tensor chain; 'pallas', the fused CUDA "
+                             "kernel")
     parser.add_argument("--mesh_devices", default=0, type=int,
                         help="data-parallel calibration over N devices")
     parser.add_argument("--device", type=str, default="cuda",
@@ -143,10 +145,6 @@ def _refuse_unported(args):
     if args.mesh_devices > 1:
         raise NotImplementedError(
             "--mesh_devices > 1: data parallelism is ROADMAP queue A item 14")
-    if args.fq_impl == "pallas":
-        raise NotImplementedError(
-            "--fq_impl pallas: the fused Hadamard fake-quant kernel is "
-            "ROADMAP queue A item 11")
     if args.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "--compute_dtype bfloat16: the kernels take fp32; reduced-"

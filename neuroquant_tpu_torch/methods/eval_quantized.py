@@ -1,14 +1,19 @@
-"""Evaluate a calibrated model: quantized artifact -> fake-quantized decoder
--> PSNR / MS-SSIM / decode FPS (the counterpart of
-``neuroquant_tpu/methods/eval_quantized.py``).
+"""Evaluate a calibrated or entropy-coded model: quantized artifact (or
+bitstream) -> dequantized decoder -> PSNR / MS-SSIM / decode FPS (the
+counterpart of ``neuroquant_tpu/methods/eval_quantized.py``).
 
 It reads the artifact pickle that ``calibrate_network`` writes: the model's
 reference-layout ``state_dict`` (numpy), the ``quant_spec`` dict and the
-``quant_state`` (numpy, HWIO shapes), plus ``arch`` and ``cfg``.
+``quant_state`` (numpy, HWIO shapes), plus ``arch`` and ``cfg``. With
+``--from_bitstream`` the quantized layers are rebuilt from the ``NQTB``
+stream alone, its integer codes and its f16 scales; the artifact then gives
+only the unquantized parts (the encoder, the shapes) and the codes the
+decoded ones are checked against.
 
 Run:
   python -m neuroquant_tpu_torch.methods.eval_quantized --artifact <...pth> \
-      --data_path <frame dir> [--eval_fps] [--device cpu]
+      --data_path <frame dir> [--from_bitstream <...nqtb>] [--eval_fps] \
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ def parse_args(argv):
     p.add_argument("--data_path", type=str, required=True)
     p.add_argument("--from_bitstream", type=str, default=None,
                    help="reconstruct weights from this .nqtb stream instead "
-                        "of the saved QuantState (not ported yet)")
+                        "of the saved QuantState")
     p.add_argument("--data_split", type=str, default="1_1_1")
     p.add_argument("-p", "--print-freq", default=50, type=int)
     p.add_argument("--eval_fps", action="store_true", default=False,
@@ -85,12 +90,35 @@ def params_from_codes(params, spec: QuantSpec, codes: dict):
     return out
 
 
+def params_from_stream(params, spec: QuantSpec, decoded: dict):
+    """Dequantize entirely from the decoded bitstream, codes and scales.
+
+    The stream's scale block is the f16 concatenation [w_delta, w_zp,
+    b_delta, b_zp] (``codec.compress_artifact``); splitting it needs only
+    the spec (per-channel layout) and the kernel's C_out. For an AdaRound
+    state this is lossless: its deltas and zero points were cast through
+    f16 at the phase-2 hand-off. A UAQ state's fp32 scales are not, so its
+    stream decodes to other weights than its state does."""
+    codes = {}
+    for name, path in zip(spec.layer_names, spec.layer_paths):
+        d = decoded[name]
+        cout = _get(params, path)[0].shape[-1]
+        n_wd = cout if spec.channel_wise else 1
+        sc = np.asarray(d["scales"], np.float32)
+        if sc.size != 2 * n_wd + 2:
+            raise ValueError(f"{name}: {sc.size} scales in the stream, "
+                             f"expected {2 * n_wd + 2}")
+        wshape = (1, 1, 1, cout) if spec.channel_wise else ()
+        codes[name] = {"w": d["w"], "b": d["b"],
+                       "w_delta": sc[:n_wd].reshape(wshape),
+                       "w_zp": sc[n_wd:2 * n_wd].reshape(wshape),
+                       "b_delta": sc[2 * n_wd], "b_zp": sc[2 * n_wd + 1]}
+    return params_from_codes(params, spec, codes)
+
+
 def main(argv):
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if args.from_bitstream:
-        raise NotImplementedError(
-            "--from_bitstream: the NQTB codec is ROADMAP queue A item 7")
     logging.basicConfig(stream=sys.stdout, level=logging.INFO)
 
     with open(args.artifact, "rb") as f:
@@ -104,13 +132,31 @@ def main(argv):
     model.load_state_dict(state_dict_from_numpy(artifact["state_dict"],
                                                 device), strict=True)
     spec = spec_from_artifact(artifact)
-    state = quant_state_from_numpy(artifact["quant_state"], device)
-    # any-layer alpha => adaround mode; quantize_params resolves the
-    # per-layer mode from alpha presence (mixed-rounding states)
-    mode = ("adaround" if any("w_alpha" in s for s in state.values())
-            else "uaq")
-    model.load_state_dict(quantize_params(model.state_dict(), spec, state,
-                                          mode=mode, soft=False))
+    if args.from_bitstream:
+        from neuroquant_tpu_torch.coding import decompress_artifact
+
+        with open(args.from_bitstream, "rb") as f:
+            decoded = decompress_artifact(f.read())
+        # cross-check every decoded payload against the artifact's codes
+        for name, c in artifact["int_codes"].items():
+            for leaf in ("w", "b"):
+                if not np.array_equal(decoded[name][leaf],
+                                      np.asarray(c[leaf])):
+                    raise SystemExit(
+                        f"{args.from_bitstream}: the decoded {name}/{leaf} "
+                        "codes differ from the artifact's")
+        qparams = params_from_stream(model.state_dict(), spec, decoded)
+        logging.info("reconstructed weights+biases+scales from bitstream %s",
+                     args.from_bitstream)
+    else:
+        state = quant_state_from_numpy(artifact["quant_state"], device)
+        # any-layer alpha => adaround mode; quantize_params resolves the
+        # per-layer mode from alpha presence (mixed-rounding states)
+        mode = ("adaround" if any("w_alpha" in s for s in state.values())
+                else "uaq")
+        qparams = quantize_params(model.state_dict(), spec, state, mode=mode,
+                                  soft=False)
+    model.load_state_dict(qparams)
     model.eval()
 
     results, _, _ = common.evaluate(model, dataset, args, cfg,

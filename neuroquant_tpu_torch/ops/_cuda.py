@@ -91,6 +91,7 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library with its C signatures declared."""
     so = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     sigs = {
         # x, w, bias|NULL, out_mul|NULL, kshift, kchan, out, B, cin, cout,
         # mp, kpad, h, w, pad, act_in, emit_y, stream
@@ -105,6 +106,14 @@ def lib() -> ctypes.CDLL:
         "nq_unpack_cf": [p, p, i, i, i, i, i, i, i, p],
         # z, out, B, cp, mp, h, w, pad, f, c, mode, offset, stream
         "nq_unpack_frames": [p, p, i, i, i, i, i, i, i, i, i, f, p],
+        # x, its (so, sk, sc) strides, delta, zp, dstride, out, its strides,
+        # cout, kk, cin, cpad, n_levels, hadamard, inv, stream
+        "nq_fq_uaq": [p, ll, ll, ll, p, p, i, p, ll, ll, ll, i, i, i, i, i,
+                      i, f, p],
+        # x, its strides, alpha, its strides, delta, zp, dstride, out, its
+        # strides, cout, kk, cin, cpad, n_levels, hadamard, soft, inv, stream
+        "nq_fq_ada": [p, ll, ll, ll, p, ll, ll, ll, p, p, i, p, ll, ll, ll,
+                      i, i, i, i, i, i, i, f, p],
     }
     for name, args in sigs.items():
         fn = getattr(so, name)

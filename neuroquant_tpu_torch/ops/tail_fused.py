@@ -62,8 +62,10 @@ from neuroquant_tpu_torch.ops.packed_decode import (
 )
 
 # kernel launches per wrapper, since the last reset_launch_counts()
+# (fq_uaq and fq_ada: the two entries of ops/fused_fakequant.py's kernel)
 KERNEL_LAUNCHES = {"tail_conv_cf": 0, "tail_conv_dw_cf": 0, "pack_cf": 0,
-                   "unpack_cf": 0, "unpack_frames": 0}
+                   "unpack_cf": 0, "unpack_frames": 0, "fq_uaq": 0,
+                   "fq_ada": 0}
 
 
 def reset_launch_counts() -> None:

@@ -23,6 +23,8 @@ from typing import Dict
 import torch
 
 from neuroquant_tpu_torch.ops import quant as Q
+from neuroquant_tpu_torch.ops.fused_fakequant import (
+    ada_fake_quant, fake_quant_ref, uaq_fake_quant)
 from neuroquant_tpu_torch.ops.hadamard import fwht, pad_cin_to_pow2
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.convert import layer_prefix
@@ -62,19 +64,19 @@ def init_quant_state(params, spec: QuantSpec) -> Dict:
     return state
 
 
-def _fq_weight(w, s, bits: int, hadamard: bool, mode: str, soft: bool):
-    cin = w.shape[2]
-    x = _hadamard_weight(w) if hadamard else w
-    if mode == "uaq":
-        xq = Q.uaq_fake_quant(x, s["w_delta"], s["w_zp"], bits)
-    elif mode == "adaround":
-        xq = Q.adaround_fake_quant(x, s["w_delta"], s["w_zp"], s["w_alpha"],
-                                   bits, soft=soft)
-    else:
+def _fq_weight(w, s, bits: int, hadamard: bool, mode: str, soft: bool,
+               impl: str = "jnp"):
+    if mode not in ("uaq", "adaround"):
         raise ValueError(mode)
-    if hadamard:
-        xq = fwht(xq, axis=2)[:, :, :cin, :]     # self-inverse; crop the pad
-    return xq
+    alpha = s["w_alpha"] if mode == "adaround" else None
+    if impl != "pallas":
+        return fake_quant_ref(w, s["w_delta"], s["w_zp"], alpha, bits,
+                              hadamard, soft)
+    # the fused kernel forward, the plain chain's gradients
+    if alpha is None:
+        return uaq_fake_quant(w, s["w_delta"], s["w_zp"], bits, hadamard)
+    return ada_fake_quant(w, s["w_delta"], s["w_zp"], alpha, bits, hadamard,
+                          soft)
 
 
 def _fq_bias(b, s, bits: int, mode: str, soft: bool):
@@ -96,7 +98,8 @@ def quantize_params(params, spec: QuantSpec, state: Dict, mode: str = "uaq",
         s = state[name]
         lmode = mode if (mode != "adaround" or "w_alpha" in s) else "uaq"
         out = _set(out, path,
-                   _fq_weight(w, s, bits, spec.hadamard, lmode, soft),
+                   _fq_weight(w, s, bits, spec.hadamard, lmode, soft,
+                              spec.fq_impl),
                    _fq_bias(b, s, bits, lmode, soft))
     return out
 

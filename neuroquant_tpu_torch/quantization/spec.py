@@ -20,8 +20,9 @@ class QuantSpec:
     scale_method: str = "max"
     hadamard: bool = False
     sym: bool = False
-    # weight fake-quant implementation: 'jnp', the plain tensor chain (the
-    # JAX package's default); 'pallas', its fused kernel, is not ported
+    # weight fake-quant implementation, under the JAX package's names:
+    # 'jnp', the plain tensor chain; 'pallas', the fused CUDA kernel of
+    # ops/fused_fakequant.py
     fq_impl: str = "jnp"
 
     def __post_init__(self):
@@ -32,12 +33,9 @@ class QuantSpec:
         for b in self.n_bits:
             if not 2 <= b <= 8:
                 raise ValueError(f"bitwidth not supported: {b}")
-        if self.fq_impl == "pallas":
-            raise NotImplementedError(
-                "fq_impl='pallas': the fused Hadamard fake-quant kernel is "
-                "ROADMAP queue A item 11")
-        if self.fq_impl != "jnp":
-            raise ValueError(f"fq_impl={self.fq_impl!r} (use 'jnp')")
+        if self.fq_impl not in ("jnp", "pallas"):
+            raise ValueError(f"fq_impl={self.fq_impl!r} (use 'jnp' or "
+                             "'pallas')")
 
     def with_bits(self, bits) -> "QuantSpec":
         bits = tuple(int(b) for b in bits)

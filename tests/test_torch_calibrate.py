@@ -11,6 +11,7 @@ Tolerances: a step's loss 1e-5 relative; gradients 1e-4 of each leaf's
 largest |grad| (fp32 sums over every position in another order); decode
 3e-5 absolute on [0, 1] values; artifact PSNR 1e-3 dB, MS-SSIM 1e-5."""
 
+import dataclasses
 import os
 import pickle
 
@@ -21,6 +22,7 @@ import optax
 import pytest
 import torch
 
+from _port_threads import single_torch_thread  # noqa: F401
 from neuroquant_tpu.data import VideoDataSet as JaxVideoDataSet
 from neuroquant_tpu.models import build_model as jax_build_model
 from neuroquant_tpu.models import tail_plan_for as jax_tail_plan_for
@@ -223,7 +225,19 @@ class TestCalibrationStep:
         Adam's step is lr * m/sqrt(v), about +-lr whatever the gradient's
         size, so on a leaf whose gradient is near zero a tiny difference in
         it can flip the step's sign."""
-        s = setup
+        self._trajectory(setup, monkeypatch, "jnp")
+
+    def test_three_step_trajectory_fq_impl_pallas(self, setup, monkeypatch):
+        """The same trajectory with fq_impl='pallas' in both packages: the
+        JAX Pallas fake-quant kernels in interpret mode, the port's fused
+        module through its plain version; the same tolerances."""
+        self._trajectory(setup, monkeypatch, "pallas")
+
+    @staticmethod
+    def _trajectory(setup, monkeypatch, fq_impl):
+        s = dict(setup)
+        s["jspec"] = dataclasses.replace(s["jspec"], fq_impl=fq_impl)
+        s["tspec"] = dataclasses.replace(s["tspec"], fq_impl=fq_impl)
         train_ind, lr, iters, warmup = list(range(6)), 0.003, 3, 0.34
         kw = dict(arch="hnerv", batch_size=2, iters=iters, warmup=warmup,
                   lr=lr, seed=SEED, b_range=(20, 2), weight=0.01)
@@ -392,6 +406,15 @@ class TestCLI:
     def test_unported_flags_name_their_item(self, flag, item):
         from neuroquant_tpu_torch.methods import calibrate_network
 
+        if item == "item 11":
+            # ported: the flag parses (tests/test_torch_coding.py runs the
+            # CLI with it) and 'jnp' stays the default
+            args = calibrate_network.parse_args(
+                ["--config", "c.yaml", "--arch", "hnerv"] + flag)
+            assert args.fq_impl == "pallas"
+            assert calibrate_network.parse_args(
+                ["--config", "c.yaml", "--arch", "hnerv"]).fq_impl == "jnp"
+            return
         with pytest.raises(NotImplementedError, match=item):
             calibrate_network.parse_args(["--config", "c.yaml", "--arch",
                                           "hnerv", "--device", "cpu"] + flag)

@@ -2,7 +2,8 @@
 JAX ``calibrate_network`` writes it, evaluated by the JAX
 ``eval_quantized.main`` and by the port's on the CPU, on the fixture frames.
 PSNR must agree to 1e-3 dB and MS-SSIM to 1e-5 (the 80x160 fixture frames
-are below MS-SSIM's minimum size, so both score 0 there)."""
+are below MS-SSIM's minimum size, so both score 0 there). The same from an
+``NQTB`` stream of the artifact's codes."""
 
 import pickle
 
@@ -11,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _port_threads import single_torch_thread  # noqa: F401
 from neuroquant_tpu.methods import eval_quantized as jax_eval
 from neuroquant_tpu.models import build_model as jax_build_model
 from neuroquant_tpu.quantization import qmodel as jqm
@@ -57,7 +59,32 @@ def test_port_matches_jax(tiny_hnerv_cfg, frame_dir, tmp_path, mode):
     assert 10.0 < float(got[0]) < 60.0 and np.isfinite(float(got[2]))
 
 
-def test_from_bitstream_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_eval.main(["--artifact", "a", "--data_path", str(tmp_path),
-                        "--from_bitstream", "s.nqtb", "--device", "cpu"])
+def test_from_bitstream_is_not_ported(tiny_hnerv_cfg, frame_dir, tmp_path):
+    """--from_bitstream (ROADMAP queue A item 7) is ported: a mixed-rounding
+    artifact's stream, written by the JAX codec, evaluates as in JAX."""
+    from neuroquant_tpu.coding import compress_artifact
+
+    path, stream = str(tmp_path / "artifact.pth"), str(tmp_path / "a.nqtb")
+    cfg = dict(tiny_hnerv_cfg)
+    _artifact(cfg, "mixed", path)
+    with open(path, "rb") as f:
+        artifact = pickle.load(f)
+    model = jax_build_model("hnerv", cfg)
+    params = model.init(jax.random.PRNGKey(7), jnp.zeros((1, 80, 160, 3)))
+    spec = jax_eval.spec_from_artifact(artifact)
+    artifact["int_codes"] = jax.tree_util.tree_map(
+        np.asarray, jqm.collect_int_codes(
+            params, spec, jax.tree_util.tree_map(
+                jnp.asarray, artifact["quant_state"]), mode="adaround"))
+    with open(path, "wb") as f:
+        pickle.dump(artifact, f)
+    with open(stream, "wb") as f:
+        f.write(compress_artifact(artifact["int_codes"]))
+    argv = ["--artifact", path, "--data_path", frame_dir, "--data_split",
+            "6_6_8", "--from_bitstream", stream]
+    want = jax_eval.main(argv)
+    got = port_eval.main(argv + ["--device", "cpu"])
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = 1e-3 if i % 2 == 0 else 1e-5      # PSNR dB | MS-SSIM
+        np.testing.assert_allclose(float(np.mean(g)), float(np.mean(w)),
+                                   atol=tol, rtol=0)

@@ -10,7 +10,9 @@ Tolerances: the conv, its dx pass and the dW kernel sum fp32 products in
 another order than the plain version's matmul, 1e-4 relative to the
 output's largest value (gradients through a whole tail 1e-4 relative to
 the largest gradient); the layout kernels copy, so they are exact;
-out_img 1e-6."""
+out_img 1e-6; the fake-quant kernel 1e-6 of the output's largest value with
+no flipped rounding decision (its butterfly repeats the plain chain's
+operations in their order)."""
 
 import numpy as np
 import pytest
@@ -136,7 +138,8 @@ def test_decode_goes_through_the_kernels(dev):
         assert torch.equal(kern.decode(emb), got)        # packed weights kept
     n_layers = len(kern.blocks) - kern.pack_start + 1
     assert counts == {"tail_conv_cf": n_layers + 1, "tail_conv_dw_cf": 0,
-                      "pack_cf": 2, "unpack_cf": 0, "unpack_frames": 1}
+                      "pack_cf": 2, "unpack_cf": 0, "unpack_frames": 1,
+                      "fq_uaq": 0, "fq_ada": 0}
     assert float((got - want).abs().max()) <= 1e-4
 
 
@@ -290,8 +293,135 @@ def test_calibration_step_runs_on_the_kernels(dev, monkeypatch):
     loss_p, grads_p = step(plain, None)
     n = len(plan.layers) + 1                 # the tail and the prefix block
     assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
-                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 0}
+                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 0,
+                      "fq_uaq": 0, "fq_ada": 0}
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     top = max(float(g.abs().max()) for g in grads_p)
     for a, b in zip(grads_k, grads_p):
         assert float((a - b).abs().max()) <= 1e-4 * top
+
+
+def _fq_case(dev, khw, cin, cout, hadamard, channel_wise, bits, seed):
+    from neuroquant_tpu_torch.ops import quant as Q
+    from neuroquant_tpu_torch.ops.hadamard import fwht, pad_cin_to_pow2
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # an OIHW parameter seen as HWIO, as quantize_params hands it over
+    w = (torch.randn((cout, cin, *khw), generator=g, device=dev)
+         * 0.2).permute(2, 3, 1, 0)
+    dom = fwht(pad_cin_to_pow2(w), axis=2) if hadamard else w
+    d, z = Q.init_weight_scale(dom, bits, channel_wise, "max")
+    a = Q.adaround_init_alpha(dom, d) + 3 * torch.randn(
+        dom.shape, generator=g, device=dev)
+    return w, d, z, a
+
+
+@pytest.mark.parametrize("mode", ["uaq", "soft", "hard"])
+@pytest.mark.parametrize("khw,cin,cout,hadamard,channel_wise", [
+    ((1, 1), 16, 92, True, True), ((3, 3), 77, 64, True, True),
+    ((5, 5), 53, 44, True, True), ((3, 3), 37, 3, True, True),
+    ((3, 3), 5, 7, True, True), ((1, 1), 1, 9, True, True),
+    ((3, 3), 300, 5, True, True), ((1, 3), 1000, 3, True, True),
+    ((5, 5), 44, 37, True, False), ((5, 5), 53, 44, False, True),
+    ((3, 3), 37, 11, False, False)])
+def test_fq_hadamard(dev, mode, khw, cin, cout, hadamard, channel_wise):
+    from neuroquant_tpu_torch.ops import fused_fakequant as ff
+
+    bits = 5
+    w, d, z, a = _fq_case(dev, khw, cin, cout, hadamard, channel_wise, bits,
+                          cin + cout)
+    alpha, soft = (None if mode == "uaq" else a), mode != "hard"
+    want = ff.fake_quant_ref(w, d, z, alpha, bits, hadamard, soft)
+    tf.reset_launch_counts()
+    got = ff.fused_fake_quant_hwio(w, d, z, bits, hadamard, alpha, soft)
+    torch.cuda.synchronize()
+    counts = dict(tf.KERNEL_LAUNCHES)
+    assert counts.pop("fq_uaq" if mode == "uaq" else "fq_ada") == 1
+    assert not any(counts.values())
+    assert got.shape == want.shape
+    err = (got - want).abs()
+    assert float(err.max()) <= 1e-6 * max(1.0, float(want.abs().max()))
+    # a flipped round or floor moves a transformed value by one delta
+    assert int((err > 0.5 * d.min() / (w.shape[2] ** 0.5 * 2)).sum()) == 0
+    # the same through a contiguous HWIO weight
+    again = ff.fused_fake_quant_hwio(w.contiguous(), d, z, bits, hadamard,
+                                     alpha, soft)
+    assert torch.equal(again, got)
+
+
+def test_fq_hadamard_refuses_what_it_does_not_take(dev):
+    from neuroquant_tpu_torch.ops import fused_fakequant as ff
+
+    s = torch.ones((1, 1, 1, 4), device=dev)
+    with pytest.raises(ValueError, match="at most 1024"):
+        ff.fused_fake_quant_hwio(torch.zeros((1, 1, 1025, 4), device=dev), s,
+                                 s, 4)
+    w = torch.zeros((3, 3, 8, 4), device=dev)
+    with pytest.raises(ValueError, match="alpha"):
+        ff.fused_fake_quant_hwio(w, s, s, 4, alpha=torch.zeros(
+            (3, 3, 5, 4), device=dev))
+    with pytest.raises(ValueError, match="delta"):
+        ff.fused_fake_quant_hwio(w, torch.ones(3, device=dev), s, 4)
+    with pytest.raises(ValueError, match="delta"):
+        ff.fused_fake_quant_hwio(w, s.cpu(), s, 4)
+
+
+@pytest.mark.parametrize("mode", ["uaq", "soft"])
+def test_fq_functions_give_the_plain_gradients(dev, mode):
+    """Kernel forward, the plain version's VJP backward: the gradients of
+    w, delta, zp and alpha are those of autograd through the plain chain."""
+    from neuroquant_tpu_torch.ops import fused_fakequant as ff
+
+    w, d, z, a = _fq_case(dev, (3, 3), 53, 12, True, True, 4, 3)
+    wt = torch.randn(w.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    tensors = (w, d, z) if mode == "uaq" else (w, d, z, a)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in tensors]
+        (fn(*leaves) * wt).sum().backward()
+        return [t.grad for t in leaves]
+
+    tf.reset_launch_counts()
+    if mode == "uaq":
+        got = grads(lambda *t: ff.uaq_fake_quant(*t, 4, True))
+        want = grads(lambda *t: ff.fake_quant_ref(*t, None, 4, True))
+    else:
+        got = grads(lambda *t: ff.ada_fake_quant(*t, 4, True, True))
+        want = grads(lambda *t: ff.fake_quant_ref(*t, 4, True, True))
+    assert tf.KERNEL_LAUNCHES["fq_uaq" if mode == "uaq" else "fq_ada"] == 1
+    for g, r in zip(got, want):
+        # the same chain on the same inputs; the cotangent is the same
+        assert float((g - r).abs().max()) <= 1e-6 * max(
+            1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("mode,soft", [("uaq", True), ("adaround", True),
+                                       ("adaround", False)])
+def test_quantize_params_on_the_kernel(dev, mode, soft):
+    """quantize_params(fq_impl='pallas') on the card: one launch per layer
+    and the 'jnp' implementation's weights."""
+    import dataclasses
+
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization import (
+        adaround_upgrade, init_quant_state, make_spec, quantize_params)
+
+    model = build_model("hnerv", TINY_HNERV, device=dev).eval()
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    spec = make_spec("hnerv", TINY_HNERV, hadamard=True).with_bits(
+        (6, 5, 4, 5, 6))
+    state = init_quant_state(params, spec)
+    if mode == "adaround":
+        state = adaround_upgrade(params, spec, state)
+    want = quantize_params(params, spec, state, mode=mode, soft=soft)
+    tf.reset_launch_counts()
+    got = quantize_params(params, dataclasses.replace(spec, fq_impl="pallas"),
+                          state, mode=mode, soft=soft)
+    torch.cuda.synchronize()
+    key = "fq_uaq" if mode == "uaq" else "fq_ada"
+    assert tf.KERNEL_LAUNCHES[key] == spec.num_layers
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].is_contiguous()
+        assert float((got[k] - want[k]).abs().max()) <= 1e-6 * max(
+            1.0, float(want[k].abs().max())), k

@@ -299,6 +299,18 @@ class TestCalibrationState:
         w.sum().backward()
         assert ts[name]["w_delta"].grad is not None
 
-    def test_fq_impl_pallas_names_its_item(self, tiny_hnerv_cfg):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            make_spec("hnerv", tiny_hnerv_cfg, fq_impl="pallas")
+    def test_fq_impl_pallas_names_its_item(self, params, tiny_hnerv_cfg):
+        """fq_impl='pallas' names the fused kernel of
+        ops/fused_fakequant.py (ROADMAP queue A item 11): the same
+        fake-quantized weights as 'jnp', here through its plain version."""
+        _, sd = params
+        spec = make_spec("hnerv", tiny_hnerv_cfg, hadamard=True,
+                         fq_impl="pallas")
+        assert spec.fq_impl == "pallas"
+        plain = make_spec("hnerv", tiny_hnerv_cfg, hadamard=True)
+        state = tqm.init_quant_state(sd, spec)
+        got = tqm.quantize_params(sd, spec, state)
+        want = tqm.quantize_params(sd, plain, state)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        with pytest.raises(ValueError, match="fq_impl"):
+            make_spec("hnerv", tiny_hnerv_cfg, fq_impl="cuda")

@@ -233,7 +233,7 @@ class TestWrappers:
         assert torch.equal(out, ref)
         assert set(ttf.KERNEL_LAUNCHES) == {
             "tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
-            "unpack_frames"}
+            "unpack_frames", "fq_uaq", "fq_ada"}
         assert not any(ttf.KERNEL_LAUNCHES.values())
 
     def test_other_devices_raise(self, small_case):
