@@ -7,11 +7,18 @@
 Phases (any failure exits non-zero):
   1. build  -- compile neuroquant_tpu_torch/csrc/*.cu with nvcc (sm_90a)
   2. kernels -- every kernel of the decode path against its plain PyTorch
-     version on the card, at the shapes the decode gives it; times of the
+     version on the card, at the shapes the decode gives it (the conv's
+     emit z, y and the pair zy, with and without GELU on the input; the
+     head is the cout-48 tile with ragged K runs of 37); times of the
      kernel, the plain version and one PyTorch library call of the same
-     function (CUDA events, fp32, TF32 off)
-  3. kernels of the calibration step -- at batch 2: each conv's forward,
-     dx pass (GELU' epilogue) and dW pass, and unpack_cf, the same way
+     function (CUDA events, fp32, TF32 off); per conv its bound on the fp32
+     pipes and on the tensor cores, and the MACs it executes beside the
+     useful ones
+  3. kernels of the calibration step -- at batch 2: each conv's forward as
+     the step launches it (zy where a GELU follows, no GELU on the input),
+     dx pass (GELU' epilogue; the prefix's splits K, the head's has runs
+     of 3) and dW pass (twice: the same bits), act_in held against the
+     plain version too, and unpack_cf, the same way
   4. decode -- 4 embeddings through the kernel path and the plain unpacked
      path; they must agree, with 4 tail_conv_cf, 2 pack_cf and 1
      unpack_frames launches per decode
@@ -70,6 +77,7 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 SEED = 0
 N_FRAMES = 8
 PRECISION = [6, 5, 4, 5, 5, 6, 6]
@@ -153,6 +161,33 @@ def _bound(nbytes: float, flops: float):
                                  "operations")
 
 
+def _bound_tc(nbytes: float, flops: float) -> float:
+    """The bound of a kernel that multiplies on the tensor cores at fp32
+    accuracy: three TF32 products per fp32 product, or the bytes."""
+    return max(nbytes / PEAK_BYTES_PER_S,
+               3 * flops / PEAK_TF32_FLOP_PER_S) * 1e3
+
+
+def _conv_extra(tf, p, layer, batch, nbytes, flops):
+    """What a conv row reports beside its times: the tensor-core bound, the
+    MACs the kernel executes beside the useful ones, its K split."""
+    steps = tf._conv_steps(tf._k_blocks(p, layer), layer.cin, layer.taps)[0]
+    return dict(bound_tc_ms=_bound_tc(nbytes, flops),
+                useful_gmac=flops / 2e9,
+                executed_gmac=tf.conv_executed_macs(p, layer, batch) / 1e9,
+                k_splits=tf._conv_split(layer.cout, p.mp, batch, len(steps)))
+
+
+def _max_err(got, want):
+    """(largest |got - want|, CONV_TOL of want's largest value) over one
+    tensor or a tuple of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    tol = CONV_TOL * max(1.0, *(float(b.abs().max()) for b in want))
+    return err, tol
+
+
 def _seeded_state_dict(model, rng):
     """numpy state dict with the reference key names: U(+-1/sqrt(fan_in))
     weights, small biases, LayerNorm scales near 1, gamma 0.1."""
@@ -233,13 +268,12 @@ def _kernel_phase(torch, tf, cfg, model):
             x = cf_input(p, layer.cin)
             # the operand the decode packs once per model (HNeRV keeps it)
             w_op = tf.conv_w_operand(kk, p, layer)
-            for em, act in (("z", False), ("y", False), ("z", True),
-                            ("y", True)):
+            for em, act in (("z", False), ("y", False), ("zy", False),
+                            ("z", True), ("y", True)):
                 ref = tf.conv_cf_ref(x, kk, bias, p, layer, em, act)
                 out = tf.conv_cf(x, kk, bias, p, layer, em, act, w_op)
                 torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                tol = CONV_TOL * max(1.0, float(ref.abs().max()))
+                err, tol = _max_err(out, ref)
                 print(f"  tail_conv_cf {name} {layer.cin}->{layer.cout} "
                       f"k{layer.side} emit={em} act_in={act}: max_abs_err "
                       f"{err:.3e} (tol {tol:.1e})")
@@ -259,16 +293,20 @@ def _kernel_phase(torch, tf, cfg, model):
             nbytes = 4 * (x.numel() + kk.numel() + layer.cout
                           + layer.cout * p.mp)
             bound_ms, by = _bound(nbytes, flops)
+            extra = _conv_extra(tf, p, layer, 1, nbytes, flops)
             records["tail_conv_cf"]["per_launch"].append(dict(
                 shape=f"{name} {layer.cin}->{layer.cout} k{layer.side} "
                       f"grid {p.h}x{p.w} emit={emit}",
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, gflop=flops / 1e9,
-                mbytes=nbytes / 1e6))
+                mbytes=nbytes / 1e6, **extra))
             print(f"  tail_conv_cf {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-                  f"F.conv2d {lib_ms:.4f}, bound {bound_ms:.4f} by {by}; "
+                  f"F.conv2d {lib_ms:.4f}, bound {bound_ms:.4f} by {by}, "
+                  f"on the tensor cores {extra['bound_tc_ms']:.4f}; "
                   f"{flops / 1e9:.2f} GFLOP -> "
-                  f"{flops / ms / 1e9:.2f} TFLOP/s)")
+                  f"{flops / ms / 1e9:.2f} TFLOP/s; MACs executed "
+                  f"{extra['executed_gmac']:.2f} G for "
+                  f"{extra['useful_gmac']:.2f} G useful)")
 
         for name, p, hw, c in (("prefix entry", pplan, (ph, pw), 64),
                                ("tail entry", plan, (ph * 4, pw * 4), 53)):
@@ -384,11 +422,13 @@ def _decode_phase(torch, tf, cfg, sd, model):
 
 def _backward_kernel_phase(torch, tf, cfg, model):
     """The calibration step's kernels at Bunny-3M, batch 2, against their
-    plain versions: each conv layer's forward as the step runs it (emit z,
-    GELU on the input where the layer has it), its dx pass (the transposed
-    layer with the GELU' epilogue) and its dW pass; unpack_cf at both
-    entries. Library yardsticks: cuDNN's conv2d, conv2d_input and
-    conv2d_weight on the unpacked convs; permute().contiguous()."""
+    plain versions: each conv layer's forward as the step runs it (the pair
+    'zy' where a GELU follows, else z; no GELU on the input), its dx pass
+    (the transposed layer with the GELU' epilogue; the prefix's splits K)
+    and its dW pass; both kernels' act_in, which the step no longer uses,
+    held against the plain version too; unpack_cf at both entries. Library
+    yardsticks: cuDNN's conv2d, conv2d_input and conv2d_weight on the
+    unpacked convs; permute().contiguous()."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -400,25 +440,27 @@ def _backward_kernel_phase(torch, tf, cfg, model):
                for k in ("tail_conv_cf", "tail_conv_dw_cf", "unpack_cf")}
 
     def check(kname, what, got, want):
-        err = float((got - want).abs().max())
-        tol = CONV_TOL * max(1.0, float(want.abs().max()))
+        err, tol = _max_err(got, want)
         print(f"  {kname} {what}: max_abs_err {err:.3e} (tol {tol:.1e})")
         assert err <= tol, (kname, what, err, tol)
         records[kname]["max_abs_err"] = max(records[kname]["max_abs_err"],
                                             err)
 
-    def record(kname, shape, fn, plain, lib, nbytes, flops):
+    def record(kname, shape, fn, plain, lib, nbytes, flops, extra=None):
         ms = _time_ms(fn, iters=10)
         plain_ms = _time_ms(plain, iters=3, warmup=1)
         lib_ms = _time_ms(lib, iters=10)
         bound_ms, by = _bound(nbytes, flops)
+        extra = extra or {}
         records[kname]["per_launch"].append(dict(
             shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=by, gflop=flops / 1e9,
-            mbytes=nbytes / 1e6))
+            mbytes=nbytes / 1e6, **extra))
         print(f"  {kname} {shape}: {ms:.4f} ms (plain {plain_ms:.4f}, "
               f"library {lib_ms:.4f}, bound {bound_ms:.4f} by {by}; "
-              f"{flops / 1e9:.2f} GFLOP -> {flops / ms / 1e9:.2f} TFLOP/s)")
+              f"{flops / 1e9:.2f} GFLOP -> {flops / ms / 1e9:.2f} TFLOP/s)"
+              + "".join(f"; {k} {v:.4f}" if isinstance(v, float)
+                        else f"; {k} {v}" for k, v in extra.items()))
 
     with torch.no_grad():
         for name, p, layer, kk, bias, cin, cout, lib in convs:
@@ -434,15 +476,23 @@ def _backward_kernel_phase(torch, tf, cfg, model):
                    f"{p.h}x{p.w} batch {B}")
 
             w_op = tf.conv_w_operand(kk, p, layer)
-            check("tail_conv_cf", f"forward {geo} emit=z act_in={act}",
-                  tf.conv_cf(x, kk, bias, p, layer, "z", act, w_op),
-                  tf.conv_cf_ref(x, kk, bias, p, layer, "z", act))
-            record("tail_conv_cf", f"forward {geo} emit=z act_in={act}",
-                   lambda: tf.conv_cf(x, kk, bias, p, layer, "z", act, w_op),
-                   lambda: tf.conv_cf_ref(x, kk, bias, p, layer, "z", act),
-                   lambda: F.conv2d(xl, wl, padding=pad),
-                   4 * (x.numel() + kk.numel() + layer.cout + g.numel()),
-                   flops)
+            # a GELU follows the two middle layers: they emit the pair
+            emit = "zy" if name in ("tail L0", "tail L1") else "z"
+            check("tail_conv_cf", f"forward {geo} emit={emit}",
+                  tf.conv_cf(x, kk, bias, p, layer, emit, False, w_op),
+                  tf.conv_cf_ref(x, kk, bias, p, layer, emit))
+            if act:
+                check("tail_conv_cf", f"forward {geo} emit=z act_in=True",
+                      tf.conv_cf(x, kk, bias, p, layer, "z", True, w_op),
+                      tf.conv_cf_ref(x, kk, bias, p, layer, "z", True))
+            nbytes = 4 * (x.numel() + kk.numel() + layer.cout
+                          + g.numel() * len(emit))
+            record("tail_conv_cf", f"forward {geo} emit={emit}",
+                   lambda: tf.conv_cf(x, kk, bias, p, layer, emit, False,
+                                      w_op),
+                   lambda: tf.conv_cf_ref(x, kk, bias, p, layer, emit),
+                   lambda: F.conv2d(xl, wl, padding=pad), nbytes, flops,
+                   _conv_extra(tf, p, layer, B, nbytes, flops))
 
             lt = layer.transposed()
             kt = tf._kk_transpose(kk).contiguous()
@@ -452,29 +502,42 @@ def _backward_kernel_phase(torch, tf, cfg, model):
             check("tail_conv_cf", dx_geo,
                   tf.conv_cf(g, kt, None, p, lt, w_op=wt_op, out_mul=om),
                   tf.conv_cf_ref(g, kt, None, p, lt, out_mul=om))
+            nbytes = 4 * (g.numel() + kt.numel() + x.numel()
+                          * (2 if act else 1))
             record("tail_conv_cf", dx_geo,
                    lambda: tf.conv_cf(g, kt, None, p, lt, w_op=wt_op,
                                       out_mul=om),
                    lambda: tf.conv_cf_ref(g, kt, None, p, lt, out_mul=om),
                    lambda: torch.nn.grad.conv2d_input(xl.shape, wl, gl,
                                                       padding=pad),
-                   4 * (g.numel() + kt.numel() + x.numel()
-                        * (2 if act else 1)), flops)
+                   nbytes, flops, _conv_extra(tf, p, lt, B, nbytes, flops))
 
             blocks = tf._k_blocks(p, layer)
-            dkk, db = tf.conv_cf_dw(x, g, p, layer, act)
-            rkk, rdb = tf.conv_cf_dw_ref(x, g, p, layer, act, blocks)
-            check("tail_conv_dw_cf", f"dW {geo} act_in={act}", dkk, rkk)
+            dkk, db = tf.conv_cf_dw(x, g, p, layer)
+            rkk, rdb = tf.conv_cf_dw_ref(x, g, p, layer, False, blocks)
+            check("tail_conv_dw_cf", f"dW {geo}", dkk, rkk)
             check("tail_conv_dw_cf", f"db {geo}", db, rdb)
-            again = tf.conv_cf_dw(x, g, p, layer, act)[0]
+            again = tf.conv_cf_dw(x, g, p, layer)[0]
             assert torch.equal(again, dkk), "dW differs from run to run"
-            record("tail_conv_dw_cf", f"dW {geo} act_in={act}",
-                   lambda: tf.conv_cf_dw(x, g, p, layer, act),
-                   lambda: tf.conv_cf_dw_ref(x, g, p, layer, act, blocks),
+            if act:
+                check("tail_conv_dw_cf", f"dW {geo} act_in=True",
+                      tf.conv_cf_dw(x, g, p, layer, True)[0],
+                      tf.conv_cf_dw_ref(x, g, p, layer, True, blocks)[0])
+            nbytes = 4 * (x.numel() + g.numel() + dkk.numel() + db.numel())
+            splits, chunk = tf._dw_split(
+                tf.K_STEP * (len(tf._k_steps(blocks, layer.cin,
+                                             layer.taps)[0]) + 1),
+                layer.cout, B * p.mp)
+            record("tail_conv_dw_cf", f"dW {geo}",
+                   lambda: tf.conv_cf_dw(x, g, p, layer),
+                   lambda: tf.conv_cf_dw_ref(x, g, p, layer, False, blocks),
                    lambda: torch.nn.grad.conv2d_weight(xl, wl.shape, gl,
                                                        padding=pad),
-                   4 * (x.numel() + g.numel() + dkk.numel() + db.numel()),
-                   flops)
+                   nbytes, flops,
+                   dict(bound_tc_ms=_bound_tc(nbytes, flops),
+                        useful_gmac=flops / 2e9,
+                        executed_gmac=tf.conv_executed_macs(p, layer, B)
+                        / 1e9, position_splits=splits))
 
         for name, p, (h, w), c in (("prefix entry", pplan, (ph, pw), 64),
                                    ("tail entry", plan, (ph * 4, pw * 4),
@@ -547,7 +610,13 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
                                        if k.endswith("alpha")}
 
     tf.reset_launch_counts()
+    torch.cuda.synchronize()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
     loss_k, grads_k = step(kern, pack)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"  peak device memory of one step on the kernel path: "
+          f"{peak_mb:.1f} MiB ({held_mb:.1f} MiB held before it)")
     counts = dict(tf.KERNEL_LAUNCHES)
     loss_p, grads_p = step(plain, None)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
@@ -618,7 +687,8 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
               f"ms, total {f + b + u:.3f} ms")
     prof = _profile_steps(torch, one)
     return dict(loss=loss_k, plain_loss=loss_p, loss_rel_err=rel_loss,
-                grad_rel_err=worst, launches=counts, forward_ms=fwd,
+                grad_rel_err=worst, launches=counts, peak_mib=peak_mb,
+                held_before_mib=held_mb, forward_ms=fwd,
                 backward_ms=bwd, optimizer_ms=upd, profile=prof,
                 fq_pallas=dict(
                     loss_rel_err=rel_f, grad_rel_err=worst_f,
@@ -1078,8 +1148,11 @@ def main() -> int:
     print(f"  kernels built/loaded in {time.time() - t0:.2f} s "
           f"(nvcc wall {_cuda.BUILD_INFO['seconds']})")
     for line in _cuda.BUILD_INFO["log"].splitlines():
+        # per kernel: registers, static shared memory, spills (ptxas -v)
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("   ", line.strip())
+        elif "Compiling entry function" in line and "tail_conv" in line:
+            print("   ", line.strip()[:160])
 
     cfg = validate_config(get_config(os.path.join(
         REPO, "configs", "HNeRV", "Bunny_1280x640_3M.yaml")), "hnerv")
@@ -1167,6 +1240,8 @@ def main() -> int:
             "library_ms": (None if is_fq
                            else sum(p["library_ms"] for p in per)),
             "summed": summed,
+            **({"bound_tc_ms": sum(p["bound_tc_ms"] for p in per)}
+               if name.startswith("tail_conv") else {}),
             **({"device_ms": sum(p["device_ms"] or 0.0 for p in per),
                 "plain_device_ms": sum(p["plain_device_ms"] or 0.0
                                        for p in per)} if is_fq else {}),

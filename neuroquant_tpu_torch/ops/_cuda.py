@@ -93,13 +93,14 @@ def lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     sigs = {
-        # x, w, bias|NULL, out_mul|NULL, kshift, kchan, out, B, cin, cout,
-        # mp, kpad, h, w, pad, act_in, emit_y, stream
-        "nq_tail_conv_cf": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                            i, p],
-        # x, g, kshift, kchan, part, out, B, cin, cout, mp, nk, splits,
-        # chunk, act_in, stream
-        "nq_tail_conv_dw_cf": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
+        # x, w, bias|NULL, out_mul|NULL, mask, ksteps, out_z|NULL,
+        # out_y|NULL, part|NULL, B, cin, cout, mp, nsteps, splits, act_in,
+        # stream
+        "nq_tail_conv_cf": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                            p],
+        # x, g, ksteps, part, out, B, cin, cout, mp, nsteps, splits, chunk,
+        # act_in, stream
+        "nq_tail_conv_dw_cf": [p, p, p, p, p, i, i, i, i, i, i, i, i, p],
         # x, out, B, h, w, c, c8, pad, mp, stream
         "nq_pack_cf": [p, p, i, i, i, i, i, i, i, p],
         # g, out, B, h, w, c, c8, pad, mp, stream

@@ -12,8 +12,8 @@ Five kernels (``csrc/``) run the tail's high-resolution work:
 
   ``tail_conv_cf``     one conv layer:
                        z = mask * (conv(gelu?(x), kk) + b) * gelu'(m)?,
-                       emitting z or gelu(z); with the GELU' factor it is
-                       the backward's dx pass   (TPU: ``_fwd_kernel``)
+                       emitting z, gelu(z) or both; with the GELU' factor
+                       it is the backward's dx pass  (TPU: ``_fwd_kernel``)
   ``tail_conv_dw_cf``  one layer's dW and db    (TPU: ``_dw_kernel``)
   ``pack_cf``          NHWC -> (B, C8, Mp) with zero border and pads
                        (TPU: ``_pack_cf_kernel`` + ``pack_cf``'s pad glue)
@@ -40,10 +40,19 @@ Left out as TPU scheduling: the execution modes and their cost model
 budget and cout-row split (``_VMEM_BUDGET``, ``_split_parts``,
 ``_bwd_needs_split``), the halo DMA streaming, and the bf16 operand cast
 (``_mxu_cast``, ``_entry_and_cast``): the kernels take fp32 operands and
-accumulate in fp32. What is kept from the modes is the union-sparse K axis
-of a layer packed with f >= 2 (``_union_blocks``): it skips the kernel's
-structurally zero blocks, 4x fewer MACs at the HNeRV Bunny head, in the
-forward, dx and dW alike.
+accumulate in fp32 (the two conv kernels multiply on the tensor cores with
+each fp32 operand split into two TF32 parts, three products per product,
+which keeps fp32 accuracy). What is kept from the modes is the union-sparse
+K axis of a layer packed with f >= 2 (``_union_blocks``): it skips the
+kernel's structurally zero blocks, 4x fewer MACs at the HNeRV Bunny head,
+in the forward, dx and dW alike. The kernels read the K axis as a list of
+steps of 4 rows, each one box of x: consecutive channels at one flat shift
+(``_k_steps``).
+
+One deliberate difference from ``_tail_fwd_impl``: under a gradient a layer
+followed by a GELU emits the pair (z, gelu(z)) and the next layer, and its
+dW pass, read gelu(z) as it is; the JAX tail keeps z alone and applies GELU
+as each kernel reads it (``act_in``, still in both kernels' contracts).
 """
 
 from __future__ import annotations
@@ -320,7 +329,12 @@ def pack_cf(x, plan: TailPlan):
 # --------------------------------------------------------------------------
 # Kernels 3 and 4: tail_conv_cf and tail_conv_dw_cf
 # --------------------------------------------------------------------------
-K_TILE = 16     # the conv kernel's K step; the K list pads to a multiple
+K_STEP = 4          # rows of one K step: one flat shift, consecutive channels
+K_STAGE = 32        # K rows per stage of the conv kernel's ring: 8 steps
+CONV_TILE_N = 128   # positions per block of the conv kernel
+DW_TILE_K = 128     # the dW kernel's K rows per block
+DW_STEP = 32        # its positions per stage; chunks align to it
+_SM_SLOTS = 264     # blocks in flight on the H100: 2 on each of 132 SMs
 
 
 def _k_blocks(plan: TailPlan, layer: TailLayer, union: bool | None = None):
@@ -339,27 +353,69 @@ def _k_blocks(plan: TailPlan, layer: TailLayer, union: bool | None = None):
 
 
 @lru_cache(maxsize=64)
-def _k_rows(blocks, cin: int, taps: int):
-    """Per K row, padded to a multiple of K_TILE: (flat shift, input channel
-    or -1, row of the (taps*cin + 1, cout) weight matrix; its last row is
-    zero)."""
-    shift, chan, wrow = [], [], []
+def _k_steps(blocks, cin: int, taps: int):
+    """The K axis as the kernels read it, in steps of K_STEP rows: a step is
+    one box of x, consecutive channels at one flat shift, and never crosses
+    a block. Returns (steps (n, 4) int32 rows (flat shift, first channel,
+    valid rows, 0), wrow (n * K_STEP,) int64: per K row, its row of the
+    (taps*cin + 1, cout) weight matrix). A block whose length is not a
+    multiple of K_STEP ends in a step with fewer valid rows; the rows past
+    them read zero and point at the matrix's last row, which is zero."""
+    steps, wrow = [], []
+    zero = taps * cin
     for s, t, lo, n in blocks:
-        shift += [s] * n
-        chan += list(range(lo, lo + n))
-        wrow += [t * cin + c for c in range(lo, lo + n)]
-    pad = -len(shift) % K_TILE
-    shift += [0] * pad
-    chan += [-1] * pad
-    wrow += [taps * cin] * pad
-    return (np.asarray(shift, np.int32), np.asarray(chan, np.int32),
+        for c in range(lo, lo + n, K_STEP):
+            rows = min(K_STEP, lo + n - c)
+            steps.append((s, c, rows, 0))
+            wrow += [t * cin + c + r for r in range(rows)]
+            wrow += [zero] * (K_STEP - rows)
+    return (np.asarray(steps, np.int32).reshape(-1, 4),
             np.asarray(wrow, np.int64))
 
 
 @lru_cache(maxsize=64)
-def _k_rows_on(blocks, cin: int, taps: int, device: str):
+def _conv_steps(blocks, cin: int, taps: int):
+    """:func:`_k_steps` padded with empty steps (and zero weight rows) to
+    whole stages of K_STAGE rows: the conv kernel's list."""
+    steps, wrow = _k_steps(blocks, cin, taps)
+    pad = -len(steps) % (K_STAGE // K_STEP)
+    steps = np.concatenate([steps, np.zeros((pad, 4), np.int32)])
+    wrow = np.concatenate([wrow, np.full(pad * K_STEP, taps * cin, np.int64)])
+    return steps, wrow
+
+
+@lru_cache(maxsize=64)
+def _conv_steps_on(blocks, cin: int, taps: int, device: str):
     return tuple(torch.as_tensor(a, device=device)
-                 for a in _k_rows(blocks, cin, taps))
+                 for a in _conv_steps(blocks, cin, taps))
+
+
+@lru_cache(maxsize=64)
+def _dw_steps_on(blocks, cin: int, taps: int, device: str):
+    """The dW kernel's list: the K steps plus one step whose first row reads
+    ones (channel -2), so that its dW row is db; and the K rows' weight
+    rows."""
+    steps, wrow = _k_steps(blocks, cin, taps)
+    steps = np.concatenate([steps, np.asarray([[0, -2, 1, 0]], np.int32)])
+    return (torch.as_tensor(steps, device=device),
+            torch.as_tensor(wrow, device=device))
+
+
+@lru_cache(maxsize=64)
+def _k_runs(blocks, cin: int, taps: int):
+    """The step list of :func:`_conv_steps` read back as runs (flat shift,
+    first channel, valid rows, zero rows after them): consecutive full
+    steps at one shift over consecutive channels merge. What the plain
+    versions slice, so that they multiply the operand the kernels see."""
+    runs = []
+    for s, c, rows, _ in _conv_steps(blocks, cin, taps)[0].tolist():
+        if runs:
+            ps, pc, pr, pz = runs[-1]
+            if pz == 0 and ps == s and pc + pr == c and rows:
+                runs[-1] = (s, pc, pr + rows, K_STEP - rows)
+                continue
+        runs.append((s, c, rows, K_STEP - rows))
+    return tuple(runs)
 
 
 def _w_operand(kk, wrow):
@@ -372,11 +428,22 @@ def _w_operand(kk, wrow):
 
 def conv_w_operand(kk, plan: TailPlan, layer: TailLayer):
     """The kernel's weight operand: the (K rows, cout) rows of `kk` that the
-    layer's K list reads, contiguous. :func:`conv_cf` gathers it on every
-    call unless it is given one made here once."""
-    _, _, wrow = _k_rows_on(_k_blocks(plan, layer), layer.cin, layer.taps,
-                            str(kk.device))
+    layer's K-step list reads, contiguous. :func:`conv_cf` gathers it on
+    every call unless it is given one made here once."""
+    _, wrow = _conv_steps_on(_k_blocks(plan, layer), layer.cin, layer.taps,
+                             str(kk.device))
     return _w_operand(kk, wrow).contiguous()
+
+
+def conv_executed_macs(plan: TailPlan, layer: TailLayer,
+                       batch: int = 1) -> int:
+    """MACs the kernels execute for one conv_cf (or conv_cf_dw) call: every
+    position of the flat layout x the K-step list's rows (its zero rows
+    too) x cout rounded up to the 16-channel fragment. Against
+    :func:`conv_cf_flops` / 2 it shows what the border, the channel pads,
+    the union blocks' unread rows and the step padding cost."""
+    steps, _ = _k_steps(_k_blocks(plan, layer), layer.cin, layer.taps)
+    return batch * plan.mp * len(steps) * K_STEP * (-(-layer.cout // 16) * 16)
 
 
 def _im2col(x, plan: TailPlan, blocks):
@@ -388,6 +455,20 @@ def _im2col(x, plan: TailPlan, blocks):
                       for s, _, lo, n in blocks], dim=1)
 
 
+def _im2col_runs(x, plan: TailPlan, runs):
+    """:func:`_im2col` over the runs of the K-step list, zero rows
+    included."""
+    g = max(abs(s) for s, _, _, _ in runs)
+    xt = F.pad(x, (g, g))
+    parts = []
+    for s, c, rows, zeros in runs:
+        if rows:
+            parts.append(xt[:, c:c + rows, g + s:g + s + plan.mp])
+        if zeros:
+            parts.append(x.new_zeros((x.shape[0], zeros, plan.mp)))
+    return torch.cat(parts, dim=1)
+
+
 def _wrows(blocks, cin: int, device):
     """Row of the flat (taps*cin, cout) kernel that each K row reads."""
     return torch.as_tensor(np.concatenate(
@@ -395,47 +476,111 @@ def _wrows(blocks, cin: int, device):
         device=device)
 
 
+def _operands(x, plan: TailPlan, layer: TailLayer, blocks, steps: bool):
+    """(patches (B, K, Mp), wrow (K,)) of the plain versions: over the K
+    blocks, or over the kernels' padded K-step list of those blocks."""
+    if not steps:
+        return _im2col(x, plan, blocks), _wrows(blocks, layer.cin, x.device)
+    wrow = _conv_steps(blocks, layer.cin, layer.taps)[1]
+    return (_im2col_runs(x, plan, _k_runs(blocks, layer.cin, layer.taps)),
+            torch.as_tensor(wrow, device=x.device))
+
+
+_EMITS = ("z", "y", "zy")
+
+
 def conv_cf_ref(x, kk, bias, plan: TailPlan, layer: TailLayer,
                 emit: str = "z", act_in: bool = False, blocks=None,
-                out_mul=None):
+                out_mul=None, steps: bool = False):
     """Plain version of :func:`conv_cf` (the JAX ``_conv_cf_jnp``): im2col
-    over the K blocks (dense taps by default) and one matmul."""
+    over the K blocks (dense taps by default) and one matmul. steps=True
+    multiplies over the kernel's padded K-step list of those blocks
+    instead (the same conv: its extra rows are zeros)."""
+    if emit not in _EMITS:
+        raise ValueError(f"emit={emit!r} (use 'z', 'y' or 'zy')")
     if act_in:
         x = _gelu(x)
     if blocks is None:
         blocks = _k_blocks(plan, layer, union=False)
-    pats = _im2col(x, plan, blocks)                          # (B, K, Mp)
-    wrow = _wrows(blocks, layer.cin, x.device)
+    pats, wrow = _operands(x, plan, layer, blocks, steps)    # (B, K, Mp)
     acc = torch.matmul(_w_operand(kk, wrow).T.float(), pats.float())
     if bias is not None:
         acc = acc + bias.float()[None]
     if out_mul is not None:
         acc = acc * _gelu_grad(out_mul)
     acc = acc * border_mask(plan, torch.float32, device=x.device)
-    if emit == "y":
-        return _gelu(acc).to(x.dtype)
-    if emit != "z":
-        raise ValueError(f"emit={emit!r} (use 'z' or 'y')")
-    return acc.to(x.dtype)
+    z = acc.to(x.dtype)
+    if emit == "z":
+        return z
+    y = _gelu(acc).to(x.dtype)
+    return y if emit == "y" else (z, y)
+
+
+@lru_cache(maxsize=64)
+def _mask_on(h: int, w: int, pad: int, mp: int, device: str):
+    """The (Mp,) fp32 border mask on `device`, made once."""
+    return torch.as_tensor(_mask_np(h, w, pad, mp).reshape(mp),
+                           device=device)
+
+
+def _tile_m(cout: int) -> int:
+    """Output channels per block of the dW kernel (its launcher applies the
+    same rule): the tile of 64, 96 or 128 that leaves the fewest fragment
+    columns of the last tile empty."""
+    if cout <= 64:
+        return 64
+    return 96 if cout <= 96 or 128 < cout <= 192 else 128
+
+
+def _conv_tile_m(cout: int, ktiles: int) -> int:
+    """Output channels per block of the conv kernel (its launcher applies
+    the same rule): :func:`_tile_m`, but 64 for a K of at most 8 stages,
+    where the epilogue sets the time (the head's dx pass)."""
+    return 64 if ktiles <= 8 else _tile_m(cout)
+
+
+def _fill_split(tiles: int, work: int, overhead: int, most: int) -> int:
+    """Into how many parts to cut each tile's `work` (in stages) so that
+    `tiles * parts` blocks fill the card: the count that minimises waves x
+    (stages per part + overhead), the smallest on a tie."""
+    best, best_cost = 1, None
+    for s in range(1, max(1, most) + 1):
+        cost = -(-tiles * s // _SM_SLOTS) * (-(-work // s) + overhead)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def _conv_split(cout: int, mp: int, batch: int, ksteps: int) -> int:
+    """Splits of the conv's K axis: 1 unless the launch has fewer tiles than
+    the card holds blocks (the prefix's dx pass), then enough to fill it,
+    each split keeping at least 8 stages."""
+    ktiles = ksteps * K_STEP // K_STAGE
+    tiles = (mp // CONV_TILE_N) * -(-cout // _conv_tile_m(cout, ktiles)) \
+        * batch
+    if tiles >= _SM_SLOTS:
+        return 1
+    return _fill_split(tiles, ktiles, 4, min(16, ktiles // 8))
 
 
 def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
             emit: str = "z", act_in: bool = False, w_op=None, out_mul=None):
     """One channels-first conv layer: x (B, cin, Mp) -> the masked
-    pre-activation 'z' (B, cout, Mp) or its activation 'y' = gelu(z).
-    act_in applies GELU to the input as it is read. kk is the canonical
-    (side, side, cin, cout) kernel, bias (cout, 1) or None; w_op, if
-    given, is ``conv_w_operand(kk, plan, layer)`` made beforehand.
-    out_mul (B, cout, Mp), the backward's dx epilogue, multiplies z by
-    GELU'(out_mul) before the border mask (the JAX order)."""
+    pre-activation 'z' (B, cout, Mp), its activation 'y' = gelu(z), or the
+    pair 'zy' (z, y) from one pass. act_in applies GELU to the input as it
+    is read. kk is the canonical (side, side, cin, cout) kernel, bias
+    (cout, 1) or None; w_op, if given, is ``conv_w_operand(kk, plan,
+    layer)`` made beforehand. out_mul (B, cout, Mp), the backward's dx
+    epilogue, multiplies z by GELU'(out_mul) before the border mask (the
+    JAX order)."""
     blocks = _k_blocks(plan, layer)
     if not _route(x, "tail_conv_cf"):
         return conv_cf_ref(x, kk, bias, plan, layer, emit, act_in, blocks,
-                           out_mul)
+                           out_mul, steps=True)
     from neuroquant_tpu_torch.ops import _cuda
 
-    if emit not in ("z", "y"):
-        raise ValueError(f"emit={emit!r} (use 'z' or 'y')")
+    if emit not in _EMITS:
+        raise ValueError(f"emit={emit!r} (use 'z', 'y' or 'zy')")
     b = x.shape[0]
     _check(x, "tail_conv_cf x", (b, layer.cin, plan.mp))
     _check(kk, "tail_conv_cf kk", (layer.side, layer.side, layer.cin,
@@ -444,23 +589,34 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
         _check(bias, "tail_conv_cf bias", (layer.cout, 1))
     if out_mul is not None:
         _check(out_mul, "tail_conv_cf out_mul", (b, layer.cout, plan.mp))
-    if plan.mp % 128:
+    if plan.mp % CONV_TILE_N:
         raise ValueError(f"tail_conv_cf: Mp={plan.mp} is not a multiple "
-                         f"of 128")
-    kshift, kchan, _ = _k_rows_on(blocks, layer.cin, layer.taps,
-                                  str(x.device))
+                         f"of {CONV_TILE_N}")
+    dev = str(x.device)
+    steps, _ = _conv_steps_on(blocks, layer.cin, layer.taps, dev)
+    nsteps = int(steps.shape[0])
     if w_op is None:
         w_op = conv_w_operand(kk, plan, layer)
-    _check(w_op, "tail_conv_cf w_op", (kshift.shape[0], layer.cout))
-    out = torch.empty((b, layer.cout, plan.mp), dtype=x.dtype,
-                      device=x.device)
+    _check(w_op, "tail_conv_cf w_op", (nsteps * K_STEP, layer.cout))
+    splits = _conv_split(layer.cout, plan.mp, b, nsteps)
+    shape = (b, layer.cout, plan.mp)
+    out_z = torch.empty(shape, dtype=x.dtype, device=x.device) \
+        if "z" in emit else None
+    out_y = torch.empty(shape, dtype=x.dtype, device=x.device) \
+        if "y" in emit else None
+    # per-split partial sums, added in a fixed order by the second pass
+    part = torch.empty((splits, *shape), dtype=x.dtype, device=x.device) \
+        if splits > 1 else None
+    mask = _mask_on(plan.h, plan.w, plan.pad, plan.mp, dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     _launch("tail_conv_cf", _cuda.lib().nq_tail_conv_cf, x.data_ptr(),
-            w_op.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            0 if out_mul is None else out_mul.data_ptr(),
-            kshift.data_ptr(), kchan.data_ptr(), out.data_ptr(), b,
-            layer.cin, layer.cout, plan.mp, int(kshift.shape[0]), plan.h,
-            plan.w, plan.pad, int(act_in), int(emit == "y"))
-    return out
+            w_op.data_ptr(), ptr(bias), ptr(out_mul), mask.data_ptr(),
+            steps.data_ptr(), ptr(out_z), ptr(out_y), ptr(part), b,
+            layer.cin, layer.cout, plan.mp, nsteps, splits, int(act_in))
+    return {"z": out_z, "y": out_y, "zy": (out_z, out_y)}[emit]
 
 
 def _scatter_dw(dw, wrow, layer: TailLayer):
@@ -476,43 +632,29 @@ def _scatter_dw(dw, wrow, layer: TailLayer):
 
 
 def conv_cf_dw_ref(x, g, plan: TailPlan, layer: TailLayer,
-                   act_in: bool = False, blocks=None):
+                   act_in: bool = False, blocks=None, steps: bool = False):
     """Plain version of :func:`conv_cf_dw`: im2col over the K blocks (dense
-    taps by default, the JAX ``_conv_cf_dw_jnp``) and one matmul."""
+    taps by default, the JAX ``_conv_cf_dw_jnp``) and one matmul.
+    steps=True sums over the kernel's padded K-step list of those blocks
+    instead (its extra rows scatter onto a dropped row)."""
     if act_in:
         x = _gelu(x)
     if blocks is None:
         blocks = _k_blocks(plan, layer, union=False)
-    pats = _im2col(x, plan, blocks).float()                  # (B, K, Mp)
-    dw = torch.einsum("bkm,bcm->kc", pats, g.float())
+    pats, wrow = _operands(x, plan, layer, blocks, steps)    # (B, K, Mp)
+    dw = torch.einsum("bkm,bcm->kc", pats.float(), g.float())
     db = g.float().sum(dim=(0, 2)).reshape(-1, 1)
-    return _scatter_dw(dw, _wrows(blocks, layer.cin, x.device), layer), db
-
-
-@lru_cache(maxsize=64)
-def _dw_rows_on(blocks, cin: int, taps: int, device: str):
-    """The dW kernel's rows: the conv's K list plus one row of ones (chan
-    -2), whose sum over positions is db."""
-    shift, chan, wrow = _k_rows(blocks, cin, taps)
-    return (torch.as_tensor(np.append(shift, 0).astype(np.int32),
-                            device=device),
-            torch.as_tensor(np.append(chan, -2).astype(np.int32),
-                            device=device),
-            torch.as_tensor(wrow, device=device))
-
-
-DW_TILE = 64        # the dW kernel's output tile: 64 K rows x 64 channels
-DW_STEP = 32        # positions per shared-memory stage; chunks align to it
-_DW_BLOCKS = 528    # aim for ~4 waves of blocks over the H100's 132 SMs
+    return _scatter_dw(dw, wrow, layer), db
 
 
 def _dw_split(nk: int, cout: int, positions: int) -> Tuple[int, int]:
     """(splits, chunk): the B*Mp positions cut into `splits` chunks of
-    `chunk` positions (a multiple of DW_STEP), one per block of the grid's
-    third axis, so that a layer with few output tiles still fills the
-    card."""
-    tiles = -(-nk // DW_TILE) * -(-cout // DW_TILE)
-    splits = max(1, min(-(-_DW_BLOCKS // tiles), positions // 1024))
+    `chunk` positions (a multiple of DW_STEP, at least 1024 where there
+    are that many), one per block of the grid's third axis, so that a
+    layer with few output tiles still fills the card."""
+    tiles = -(-nk // DW_TILE_K) * -(-cout // _tile_m(cout))
+    splits = _fill_split(tiles, -(-positions // DW_STEP), 8,
+                         positions // 1024)
     chunk = -(-positions // splits)
     chunk = -(-chunk // DW_STEP) * DW_STEP
     return -(-positions // chunk), chunk
@@ -522,13 +664,13 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
                act_in: bool = False):
     """dW and db of one layer: x its input (B, cin, Mp), g the cotangent of
     its output (B, cout, Mp), border-masked -> (dkk (side, side, cin, cout),
-    db (cout, 1)), fp32. act_in applies GELU to x as it is read (the
-    residuals are pre-activations). The sum runs over the layer's K list
-    (union-sparse for f >= 2), as the forward does, and is scattered back
-    to the canonical kernel (:func:`_scatter_dw`)."""
+    db (cout, 1)), fp32. act_in applies GELU to x as it is read (for a
+    residual kept as a pre-activation). The sum runs over the layer's
+    K-step list (union-sparse for f >= 2), as the forward does, and is
+    scattered back to the canonical kernel (:func:`_scatter_dw`)."""
     blocks = _k_blocks(plan, layer)
     if not _route(x, "tail_conv_dw_cf"):
-        return conv_cf_dw_ref(x, g, plan, layer, act_in, blocks)
+        return conv_cf_dw_ref(x, g, plan, layer, act_in, blocks, steps=True)
     from neuroquant_tpu_torch.ops import _cuda
 
     b = x.shape[0]
@@ -537,9 +679,9 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
     if plan.mp % DW_STEP:
         raise ValueError(f"tail_conv_dw_cf: Mp={plan.mp} is not a multiple "
                          f"of {DW_STEP}")
-    kshift, kchan, wrow = _dw_rows_on(blocks, layer.cin, layer.taps,
-                                      str(x.device))
-    nk = int(kshift.shape[0])
+    steps, wrow = _dw_steps_on(blocks, layer.cin, layer.taps, str(x.device))
+    nsteps = int(steps.shape[0])
+    nk = nsteps * K_STEP
     splits, chunk = _dw_split(nk, layer.cout, b * plan.mp)
     # per-split partial sums, added in a fixed order by the second pass:
     # the result is the same from run to run
@@ -547,11 +689,11 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
                        device=x.device)
     out = torch.empty((nk, layer.cout), dtype=torch.float32, device=x.device)
     _launch("tail_conv_dw_cf", _cuda.lib().nq_tail_conv_dw_cf, x.data_ptr(),
-            g.data_ptr(), kshift.data_ptr(), kchan.data_ptr(),
-            part.data_ptr(), out.data_ptr(), b, layer.cin, layer.cout,
-            plan.mp, nk, splits, chunk, int(act_in))
-    return (_scatter_dw(out[:nk - 1], wrow, layer),
-            out[nk - 1].reshape(layer.cout, 1))
+            g.data_ptr(), steps.data_ptr(), part.data_ptr(), out.data_ptr(),
+            b, layer.cin, layer.cout, plan.mp, nsteps, splits, chunk,
+            int(act_in))
+    return (_scatter_dw(out[:nk - K_STEP], wrow, layer),
+            out[nk - K_STEP].reshape(layer.cout, 1))
 
 
 def conv_cf_flops(plan: TailPlan, layer: TailLayer, batch: int = 1,
@@ -581,27 +723,33 @@ class _TailApply(torch.autograd.Function):
     """``tail_apply`` with its gradient: the JAX ``_tail_apply_fwd`` /
     ``_tail_apply_bwd``.
 
-    The forward keeps residuals: every layer emits its pre-activation z,
-    and the next layer applies GELU to it as it reads it (act_in). The
-    backward masks the cotangent once and walks the layers from the last:
-    dW/db from the saved input (GELU applied as it is read), then dx by the
-    same conv kernel on ``_kk_transpose(kk)`` and ``layer.transposed()``,
-    with GELU'(the saved input) as the epilogue where the layer applied
-    GELU to its input. Gradients are for the canonical kernels: each
-    reaches its kk once, and autograd takes it through the packing gather
-    back to the raw weights."""
+    The forward keeps residuals. A layer whose successor applies GELU to
+    its input emits the pair (z, y = gelu(z)) from one pass: the successor
+    and its dW pass read y as it is, the successor's dx epilogue reads z.
+    (The JAX tail keeps z alone and re-applies GELU as each kernel reads
+    it, which saves a (cout, Mp) write per layer; here that write costs
+    less than the erf on every staged value.) The backward masks the
+    cotangent once and walks the layers from the last: dW/db from the saved
+    input, then dx by the same conv kernel on ``_kk_transpose(kk)`` and
+    ``layer.transposed()``, with GELU'(the input's pre-activation) as the
+    epilogue where the layer's input went through GELU. Gradients are for
+    the canonical kernels: each reaches its kk once, and autograd takes it
+    through the packing gather back to the raw weights."""
 
     @staticmethod
     def forward(ctx, plan, w_ops, n, x_cf, *params):
         kks, biases = params[:n], params[n:]
-        h, residuals = x_cf, [x_cf]
+        h, inputs, pre = x_cf, [], []
         for li, layer in enumerate(plan.layers):
-            h = conv_cf(h, kks[li], biases[li], plan, layer, emit="z",
-                        act_in=layer.gelu_in,
-                        w_op=None if w_ops is None else w_ops[li])
-            if li < n - 1:
-                residuals.append(h)
-        ctx.save_for_backward(*residuals, *kks)
+            inputs.append(h)
+            pair = li < n - 1 and plan.layers[li + 1].gelu_in
+            out = conv_cf(h, kks[li], biases[li], plan, layer,
+                          emit="zy" if pair else "z",
+                          w_op=None if w_ops is None else w_ops[li])
+            z, h = out if pair else (out, out)
+            if pair:
+                pre.append(z)
+        ctx.save_for_backward(*inputs, *kks, *pre)
         ctx.plan, ctx.n = plan, n
         ctx.has_bias = tuple(bb is not None for bb in biases)
         return h
@@ -610,21 +758,20 @@ class _TailApply(torch.autograd.Function):
     def backward(ctx, g_out):
         plan, n = ctx.plan, ctx.n
         saved = ctx.saved_tensors
-        residuals, kks = saved[:n], saved[n:]
+        inputs, kks, pre = saved[:n], saved[n:2 * n], list(saved[2 * n:])
         g = (g_out * border_mask(plan, g_out.dtype,
                                  device=g_out.device)).contiguous()
         dkks, dbs = [None] * n, [None] * n
         for li in range(n - 1, -1, -1):
-            layer, x_in = plan.layers[li], residuals[li]
-            dkks[li], db = conv_cf_dw(x_in, g, plan, layer,
-                                      act_in=layer.gelu_in)
+            layer = plan.layers[li]
+            dkks[li], db = conv_cf_dw(inputs[li], g, plan, layer)
             dbs[li] = db if ctx.has_bias[li] else None
             if li == 0 and not ctx.needs_input_grad[3]:
                 g = None
                 break
             g = conv_cf(g, _kk_transpose(kks[li]).contiguous(), None, plan,
                         layer.transposed(),
-                        out_mul=x_in if layer.gelu_in else None)
+                        out_mul=pre.pop() if layer.gelu_in else None)
         return (None, None, None, g, *dkks, *dbs)
 
 
@@ -635,8 +782,8 @@ def tail_apply(plan: TailPlan, x_cf, kks, biases, w_ops=None):
 
     With no gradient wanted (decode), every layer followed by a GELU emits
     gelu(z), what the next one consumes; the head emits z. When an input
-    requires a gradient it runs as :class:`_TailApply`, which keeps the
-    pre-activations for its backward."""
+    requires a gradient it runs as :class:`_TailApply`, which keeps each
+    layer's input, and the pre-activation beside it, for its backward."""
     if _needs_grad(x_cf, *kks, *biases):
         return _TailApply.apply(plan, w_ops, len(kks), x_cf, *kks, *biases)
     h = x_cf

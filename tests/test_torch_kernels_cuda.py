@@ -6,8 +6,9 @@ a machine without them:
 
   python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
-Tolerances: the conv, its dx pass and the dW kernel sum fp32 products in
-another order than the plain version's matmul, 1e-4 relative to the
+Tolerances: the conv, its dx pass and the dW kernel multiply on the tensor
+cores with three TF32 products per fp32 product (~2^-20 of a product) and
+sum in another order than the plain version's matmul, 1e-4 relative to the
 output's largest value (gradients through a whole tail 1e-4 relative to
 the largest gradient); the layout kernels copy, so they are exact;
 out_img 1e-6; the fake-quant kernel 1e-6 of the output's largest value with
@@ -67,9 +68,21 @@ def _cf(plan, cin, dev, seed):
     return (x * tf.border_mask(plan, device=dev)).contiguous()
 
 
+def _tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _assert_close(got, want, rel=1e-4):
+    for a, b in zip(_tuple(got), _tuple(want)):
+        assert a.shape == b.shape
+        tol = rel * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("li", [0, 1, 2], ids=["f1", "f2", "head_f4"])
 @pytest.mark.parametrize("emit,act_in", [("z", False), ("y", False),
-                                         ("z", True), ("y", True)])
+                                         ("z", True), ("y", True),
+                                         ("zy", False), ("zy", True)])
 def test_tail_conv_cf(dev, small, li, emit, act_in):
     plan, kks, bms, _, _ = small
     layer = plan.layers[li]
@@ -79,11 +92,65 @@ def test_tail_conv_cf(dev, small, li, emit, act_in):
     want = tf.conv_cf_ref(x, kks[li], bms[li], plan, layer, emit, act_in)
     torch.cuda.synchronize()
     assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 1
-    tol = 1e-4 * max(1.0, float(want.abs().max()))
-    assert float((got - want).abs().max()) <= tol
+    assert len(_tuple(got)) == len(emit)
+    _assert_close(got, want)
     w_op = tf.conv_w_operand(kks[li], plan, layer)       # packed beforehand
-    assert torch.equal(tf.conv_cf(x, kks[li], bms[li], plan, layer, emit,
-                                  act_in, w_op), got)
+    again = tf.conv_cf(x, kks[li], bms[li], plan, layer, emit, act_in, w_op)
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(again), _tuple(got)))
+    if emit == "zy":                   # both from the one accumulator
+        assert torch.equal(got[0], tf.conv_cf(x, kks[li], bms[li], plan,
+                                              layer, "z", act_in))
+        assert torch.equal(got[1], tf.conv_cf(x, kks[li], bms[li], plan,
+                                              layer, "y", act_in))
+
+
+# (h, w, blocks (k, cin, cout*r*r, r), head (k, cin, cout), layer): the
+# launch shapes the small fixture does not reach
+SHAPES = {
+    # 4 position tiles x K = 2304: the conv splits K across blocks
+    "split_k": (6, 10, [(3, 256, 64, 2)], (3, 16, 3), 0),
+    "cout48": (16, 24, [(3, 8, 48, 2)], (3, 12, 3), 0),      # one 64-tile
+    "cout56": (16, 24, [(3, 8, 56, 2)], (3, 14, 3), 0),
+    "cout176": (16, 24, [(3, 32, 176, 2)], (3, 44, 3), 0),    # two 96-tiles
+    # two 128-tiles, the second with 5 of its 8 fragment rows
+    "cout208": (16, 24, [(3, 32, 208, 2)], (3, 52, 3), 0),
+    # K runs of 5 and of 3 rows: steps with zero rows
+    "ragged5": (16, 24, [(3, 6, 20, 2), (3, 5, 12, 2)], (3, 3, 3), 1),
+    "ragged3_f4": (16, 24, [(3, 6, 20, 2), (3, 5, 12, 2)], (3, 3, 3), 2),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_tail_conv_kernels_launch_shapes(dev, shape):
+    """Forward ('zy'), dx pass and dW at batch 2 (every shifted read near a
+    batch boundary must read zero, not the neighbour frame) at launch shapes
+    beyond the small fixture's; dW twice, the same bits."""
+    h, w, blocks, head, li = SHAPES[shape]
+    plan, _ = tf.plan_geometry(h, w, blocks, head, tm=128)
+    layer = plan.layers[li]
+    gen = torch.Generator(device=dev).manual_seed(len(shape))
+    kk = torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                     generator=gen, device=dev) * 0.2
+    bias = torch.randn((layer.cout, 1), generator=gen, device=dev)
+    # no zero border here: a read across the batch boundary would show
+    x = torch.randn((2, layer.cin, plan.mp), generator=gen, device=dev)
+    g = _cf(plan, layer.cout, dev, 7)
+    kblocks = tf._k_blocks(plan, layer)
+    if shape == "split_k":
+        steps = tf._conv_steps(kblocks, layer.cin, layer.taps)[0]
+        assert tf._conv_split(layer.cout, plan.mp, 2, len(steps)) > 1
+    _assert_close(tf.conv_cf(x, kk, bias, plan, layer, "zy"),
+                  tf.conv_cf_ref(x, kk, bias, plan, layer, "zy",
+                                 blocks=kblocks))
+    lt = layer.transposed()
+    kt = tf._kk_transpose(kk).contiguous()
+    _assert_close(tf.conv_cf(g, kt, None, plan, lt, out_mul=x),
+                  tf.conv_cf_ref(g, kt, None, plan, lt,
+                                 blocks=tf._k_blocks(plan, lt), out_mul=x))
+    got = tf.conv_cf_dw(x, g, plan, layer)
+    _assert_close(got, tf.conv_cf_dw_ref(x, g, plan, layer, False, kblocks))
+    again = tf.conv_cf_dw(x, g, plan, layer)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
 @pytest.mark.parametrize("c", [5, 8, 13])
