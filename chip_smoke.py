@@ -13,15 +13,18 @@ Phases (any failure exits non-zero):
      kernel, the plain version and one PyTorch library call of the same
      function (CUDA events, fp32, TF32 off); per conv its bound on the fp32
      pipes and on the tensor cores, and the MACs it executes beside the
-     useful ones
+     useful ones; per layout kernel (pack_cf, unpack_frames) also the
+     card's own time of the kernel and of the library call (torch.profiler),
+     and pack_cf at the calibration step's batch 2 too
   3. kernels of the calibration step -- at batch 2: each conv's forward as
      the step launches it (zy where a GELU follows, no GELU on the input),
      dx pass (GELU' epilogue; the prefix's splits K, the head's has runs
      of 3) and dW pass (twice: the same bits), act_in held against the
-     plain version too, and unpack_cf, the same way
+     plain version too, and unpack_cf, the same way (with its device times)
   4. decode -- 4 embeddings through the kernel path and the plain unpacked
      path; they must agree, with 4 tail_conv_cf, 2 pack_cf and 1
-     unpack_frames launches per decode
+     unpack_frames launches per decode; a profiler window over 20 decodes:
+     the card's busy time per decode, its idle share, its time by kernel
   5. serving -- a quantized artifact (Hadamard, channel-wise, max scales,
      precision 6 5 4 5 5 6 6) evaluated through
      ``neuroquant_tpu_torch.methods.eval_quantized.main`` on 8 seeded
@@ -132,26 +135,51 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, n: int = 5):
+def _device_ms(fn, n: int = 5, tries: int = 3):
     """Device time of one call of `fn`, summed over the kernels it
     launches (torch.profiler, CUPTI): what the card spends when the host
-    does not hold it back. None when the trace has no device time."""
+    does not hold it back. A trace now and then holds no device event: up
+    to `tries` windows; None when none has device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA)
-    return us / 1e3 / n if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+    return None
+
+
+def _layout_record(shape, fn, plain, lib, nbytes):
+    """A layout kernel's row: back-to-back ms (CUDA events over 20 calls,
+    host time when the host sets the pace) and the card's own time
+    (profiler), for the wrapper and for one PyTorch library call of the same
+    function; the plain version's ms; the bound by bytes."""
+    bound_ms, by = _bound(nbytes, 0)
+    return dict(shape=shape, ms=_time_ms(fn), device_ms=_device_ms(fn),
+                plain_ms=_time_ms(plain), library_ms=_time_ms(lib),
+                library_device_ms=_device_ms(lib), bound_ms=bound_ms,
+                bound_by=by, mbytes=nbytes / 1e6)
+
+
+def _layout_line(rec) -> str:
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f}"
+    return (f"{rec['ms']:.4f} ms back to back, {ms(rec['device_ms'])} on the "
+            f"device (plain {rec['plain_ms']:.4f}; library "
+            f"{rec['library_ms']:.4f}, {ms(rec['library_device_ms'])} on the "
+            f"device; bound {rec['bound_ms']:.4f} by {rec['bound_by']})")
 
 
 def _bound(nbytes: float, flops: float):
@@ -308,25 +336,29 @@ def _kernel_phase(torch, tf, cfg, model):
                   f"{extra['executed_gmac']:.2f} G for "
                   f"{extra['useful_gmac']:.2f} G useful)")
 
-        for name, p, hw, c in (("prefix entry", pplan, (ph, pw), 64),
-                               ("tail entry", plan, (ph * 4, pw * 4), 53)):
-            x = torch.randn((1, *hw, c), generator=gen, device=dev)
-            ref, out = tf.pack_cf_ref(x, p), tf.pack_cf(x, p)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            print(f"  pack_cf {name} {tuple(x.shape)} -> {tuple(out.shape)}: "
-                  f"max_abs_err {err:.3e} (tol 0, a copy)")
-            assert err == 0.0, (name, err)
-            ms = _time_ms(lambda: tf.pack_cf(x, p))
-            plain_ms = _time_ms(lambda: tf.pack_cf_ref(x, p))
-            lib_ms = _time_ms(lambda: x.permute(0, 3, 1, 2).contiguous())
-            bound_ms, by = _bound(4 * (x.numel() + out.numel()), 0)
-            records["pack_cf"]["per_launch"].append(dict(
-                shape=f"{name} {tuple(x.shape)}->{tuple(out.shape)}", ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by, mbytes=4 * (x.numel() + out.numel()) / 1e6))
-            print(f"  pack_cf {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-                  f"permute+contiguous {lib_ms:.4f}, bound {bound_ms:.4f})")
+        # batch 1 for the decode's two entries; batch 2, the calibration
+        # step's, outside the decode's sum
+        for batch, key in ((1, "per_launch"), (CALIB_BATCH,
+                                               "calibration_per_launch")):
+            for name, p, hw, c in (("prefix entry", pplan, (ph, pw), 64),
+                                   ("tail entry", plan, (ph * 4, pw * 4),
+                                    53)):
+                x = torch.randn((batch, *hw, c), generator=gen, device=dev)
+                ref, out = tf.pack_cf_ref(x, p), tf.pack_cf(x, p)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                print(f"  pack_cf {name} {tuple(x.shape)} -> "
+                      f"{tuple(out.shape)}: max_abs_err {err:.3e} (tol 0, a "
+                      f"copy)")
+                assert err == 0.0, (name, err)
+                rec = _layout_record(
+                    f"{name} {tuple(x.shape)}->{tuple(out.shape)}",
+                    lambda: tf.pack_cf(x, p), lambda: tf.pack_cf_ref(x, p),
+                    lambda: x.permute(0, 3, 1, 2).contiguous(),
+                    4 * (x.numel() + out.numel()))
+                records["pack_cf"].setdefault(key, []).append(rec)
+                print(f"  pack_cf {rec['shape']}: {_layout_line(rec)} "
+                      f"(library: permute+contiguous)")
 
         z = torch.randn((1, plan.layers[-1].cout, plan.mp), generator=gen,
                         device=dev)
@@ -354,30 +386,25 @@ def _kernel_phase(torch, tf, cfg, model):
         records["unpack_frames"]["max_abs_err"] = max(
             records["unpack_frames"]["max_abs_err"], err)
         zwl = torch.randn((2, 48, wplan.h, wplan.w), generator=gen, device=dev)
-        nbytes = 4 * (zwl.numel() + outw.numel())
-        bound_ms, by = _bound(nbytes, 0)
-        records["unpack_frames"]["width_tiled"] = dict(
-            shape=f"{tuple(zw.shape)}->{tuple(outw.shape)} out_bias=tanh",
-            ms=_time_ms(lambda: tf.unpack_frames(zw, wplan, wf, 48, "tanh")),
-            plain_ms=_time_ms(lambda: tf.unpack_frames_ref(zw, wplan, wf, 48,
-                                                           "tanh")),
-            library_ms=_time_ms(lambda: F.pixel_shuffle(zwl, wf)),
-            bound_ms=bound_ms, bound_by=by, mbytes=nbytes / 1e6)
-        print(f"  unpack_frames width-tiled plan: "
-              f"{records['unpack_frames']['width_tiled']}")
+        rec = _layout_record(
+            f"{tuple(zw.shape)}->{tuple(outw.shape)} out_bias=tanh",
+            lambda: tf.unpack_frames(zw, wplan, wf, 48, "tanh"),
+            lambda: tf.unpack_frames_ref(zw, wplan, wf, 48, "tanh"),
+            lambda: F.pixel_shuffle(zwl, wf), 4 * (zwl.numel() + outw.numel()))
+        records["unpack_frames"]["width_tiled"] = rec
+        print(f"  unpack_frames width-tiled plan {rec['shape']}: "
+              f"{_layout_line(rec)} (library: pixel_shuffle)")
         ob = cfg["out_bias"]
-        ms = _time_ms(lambda: tf.unpack_frames(z, plan, f, ch, ob))
-        plain_ms = _time_ms(lambda: tf.unpack_frames_ref(z, plan, f, ch, ob))
         zl = torch.randn((1, ch, plan.h, plan.w), generator=gen, device=dev)
-        lib_ms = _time_ms(lambda: F.pixel_shuffle(zl, f))
-        nbytes = 4 * (ch * plan.h * plan.w + out.numel())
-        bound_ms, by = _bound(nbytes, 0)
-        records["unpack_frames"]["per_launch"].append(dict(
-            shape=f"{tuple(z.shape)}->{tuple(out.shape)} out_bias={ob}",
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=by, mbytes=nbytes / 1e6))
-        print(f"  unpack_frames: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"pixel_shuffle {lib_ms:.4f}, bound {bound_ms:.4f})")
+        rec = _layout_record(
+            f"{tuple(z.shape)}->{tuple(out.shape)} out_bias={ob}",
+            lambda: tf.unpack_frames(z, plan, f, ch, ob),
+            lambda: tf.unpack_frames_ref(z, plan, f, ch, ob),
+            lambda: F.pixel_shuffle(zl, f),
+            4 * (ch * plan.h * plan.w + out.numel()))
+        records["unpack_frames"]["per_launch"].append(rec)
+        print(f"  unpack_frames {rec['shape']}: {_layout_line(rec)} "
+              f"(library: pixel_shuffle)")
     return records
 
 
@@ -414,10 +441,21 @@ def _decode_phase(torch, tf, cfg, sd, model):
         e1 = embeds[:1]
         k_ms = _time_ms(lambda: model.decode(e1), iters=20)
         p_ms = _time_ms(lambda: plain.decode(e1), iters=20)
+        # the card's busy time per decode and what it spends by kernel; the
+        # idle share against the window's wall time (the profiler's own host
+        # cost included) and against the decode's time without it
+        prof = _profile_steps(torch, lambda: model.decode(e1), n=20,
+                              what="decode")
     print(f"  decode latency (batch 1): kernel path {k_ms:.3f} ms, "
           f"plain unpacked path {p_ms:.3f} ms")
+    if prof is not None:
+        prof["idle_share_of_decode_ms"] = 1 - prof["busy_ms_per_decode"] / k_ms
+        print(f"  decode: device busy {prof['busy_ms_per_decode']:.4f} ms per "
+              f"decode; idle {100 * prof['idle_share']:.1f}% of the profiled "
+              f"window, {100 * prof['idle_share_of_decode_ms']:.1f}% of the "
+              f"{k_ms:.3f} ms decode")
     return dict(decode_ms=k_ms, plain_decode_ms=p_ms, max_abs_err=err,
-                launches=counts)
+                launches=counts, profile=prof)
 
 
 def _backward_kernel_phase(torch, tf, cfg, model):
@@ -452,6 +490,9 @@ def _backward_kernel_phase(torch, tf, cfg, model):
         lib_ms = _time_ms(lib, iters=10)
         bound_ms, by = _bound(nbytes, flops)
         extra = extra or {}
+        if kname == "unpack_cf":       # a layout kernel: the card's own time
+            extra = dict(extra, device_ms=_device_ms(fn),
+                         library_device_ms=_device_ms(lib))
         records[kname]["per_launch"].append(dict(
             shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=by, gflop=flops / 1e9,
@@ -698,10 +739,10 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
                     forward_ms=runs[1][1], backward_ms=runs[1][2]))
 
 
-def _profile_steps(torch, one, n=5):
-    """Device time by kernel name and the device's busy share over n steps
-    (torch.profiler, CUPTI); 'not measured' when the trace has no device
-    time."""
+def _profile_steps(torch, one, n=5, what="step"):
+    """Device time by kernel name and the device's busy share over n calls
+    of `one`, a step or a decode (torch.profiler, CUPTI); 'not measured'
+    when the trace has no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -711,6 +752,7 @@ def _profile_steps(torch, one, n=5):
         t0 = time.perf_counter()
         for _ in range(n):
             one()
+        torch.cuda.synchronize()      # a decode returns before the card ends
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = []
     for e in prof.key_averages():
@@ -725,14 +767,15 @@ def _profile_steps(torch, one, n=5):
         print("  profiler: no device time in the trace (not measured)")
         return None
     rows.sort(reverse=True)
-    print(f"  profiler over {n} steps: device busy {busy:.1f} ms of "
-          f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f}%); per step:")
+    print(f"  profiler over {n} {what}s: device busy {busy:.1f} ms of "
+          f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f}%); per {what}:")
     for ms, cnt, key in rows[:14]:
-        print(f"    {ms:8.3f} ms  x{cnt:<4d} {key[:90]}")
-    return dict(wall_ms_per_step=wall_ms / n, busy_ms_per_step=busy / n,
-                busy_share=busy / wall_ms,
-                top=[dict(ms=r[0], launches=r[1], name=r[2][:120])
-                     for r in rows[:14]])
+        print(f"    {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
+    return {f"wall_ms_per_{what}": wall_ms / n,
+            f"busy_ms_per_{what}": busy / n, "busy_share": busy / wall_ms,
+            "idle_share": 1 - busy / wall_ms,
+            "top": [dict(ms=r[0], launches=r[1], name=r[2][:120])
+                    for r in rows[:14]]}
 
 
 def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
@@ -1245,6 +1288,10 @@ def main() -> int:
             **({"device_ms": sum(p["device_ms"] or 0.0 for p in per),
                 "plain_device_ms": sum(p["plain_device_ms"] or 0.0
                                        for p in per)} if is_fq else {}),
+            **({"device_ms": sum(p["device_ms"] or 0.0 for p in per),
+                "library_device_ms": sum(p["library_device_ms"] or 0.0
+                                         for p in per)}
+               if name in ("pack_cf", "unpack_cf", "unpack_frames") else {}),
             "serving_launches": serve["launches"][name],
             "per_decode_launches": dec["launches"][name] // 4,
             "per_step_launches": (
@@ -1253,8 +1300,11 @@ def main() -> int:
             "per_launch": per})
     kernels[0]["calibration_per_launch"] = brecords["tail_conv_cf"][
         "per_launch"]
-    # the shape of the JAX width-tiled _unpack_kernel5, outside the sum
+    # the shape of the JAX width-tiled _unpack_kernel5, outside the sum;
+    # pack_cf at the calibration step's batch, outside the decode's sum
     kernels[4]["width_tiled"] = records["unpack_frames"]["width_tiled"]
+    kernels[2]["calibration_per_launch"] = records["pack_cf"][
+        "calibration_per_launch"]
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):

@@ -101,12 +101,13 @@ def lib() -> ctypes.CDLL:
         # x, g, ksteps, part, out, B, cin, cout, mp, nsteps, splits, chunk,
         # act_in, stream
         "nq_tail_conv_dw_cf": [p, p, p, p, p, i, i, i, i, i, i, i, i, p],
-        # x, out, B, h, w, c, c8, pad, mp, stream
-        "nq_pack_cf": [p, p, i, i, i, i, i, i, i, p],
+        # x, out, parameter block (B, h, w, c, c8, pad, mp, tm), stream
+        "nq_pack_cf": [p, p, p, p],
         # g, out, B, h, w, c, c8, pad, mp, stream
         "nq_unpack_cf": [p, p, i, i, i, i, i, i, i, p],
-        # z, out, B, cp, mp, h, w, pad, f, c, mode, offset, stream
-        "nq_unpack_frames": [p, p, i, i, i, i, i, i, i, i, i, f, p],
+        # z, out, parameter block (B, cp, mp, h, w, pad, f, c, mode, tx,
+        # fu), offset, stream
+        "nq_unpack_frames": [p, p, p, f, p],
         # x, its (so, sk, sc) strides, delta, zp, dstride, out, its strides,
         # cout, kk, cin, cpad, n_levels, hadamard, inv, stream
         "nq_fq_uaq": [p, ll, ll, ll, p, p, i, p, ll, ll, ll, i, i, i, i, i,

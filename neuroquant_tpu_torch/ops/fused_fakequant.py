@@ -31,6 +31,7 @@ from functools import lru_cache
 
 import torch
 
+from neuroquant_tpu_torch.ops import _cuda
 from neuroquant_tpu_torch.ops import quant as Q
 from neuroquant_tpu_torch.ops.hadamard import (
     fwht, next_power_of_two, pad_cin_to_pow2)
@@ -107,8 +108,6 @@ def fused_fake_quant_hwio(w_hwio, delta, zp, n_bits: int,
     if not _route(w_hwio, "fused_fake_quant"):
         return fake_quant_ref(w_hwio, delta, zp, alpha, n_bits, hadamard,
                               soft)
-    from neuroquant_tpu_torch.ops import _cuda
-
     if w_hwio.dim() != 4 or w_hwio.dtype != torch.float32:
         raise ValueError("fused_fake_quant w: expected a 4-D fp32 HWIO "
                          f"weight, got {tuple(w_hwio.shape)} {w_hwio.dtype}")

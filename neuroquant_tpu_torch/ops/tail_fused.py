@@ -57,6 +57,7 @@ as each kernel reads it (``act_in``, still in both kernels' contracts).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from functools import lru_cache
 from typing import NamedTuple, Tuple
@@ -65,6 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuroquant_tpu_torch.ops import _cuda
 from neuroquant_tpu_torch.ops.packed_decode import (
     compose_shuffle_perm, depth_to_space, identity_perm, pack_conv_kernel,
     packed_kernel_geometry, packed_sparse_taps, space_to_depth,
@@ -84,6 +86,10 @@ def reset_launch_counts() -> None:
 
 def _r8(c: int) -> int:
     return -(-int(c) // 8) * 8
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _erf(x):
@@ -225,10 +231,10 @@ def cf_to_nhwc(z, plan: TailPlan, c: int):
 
 def _launch(name: str, fn, *args) -> None:
     """Call a kernel's C launcher on the current stream; raise on a launch
-    error; count the launch."""
-    from neuroquant_tpu_torch.ops import _cuda
-
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    error; count the launch. The stream is the raw handle of the current
+    device's current stream (no ``torch.cuda.Stream`` object per call)."""
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice()))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed: "
                            f"{_cuda.error_string(rc)} ({rc})")
@@ -236,6 +242,11 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def _check(t, name: str, shape, dtype=torch.float32):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
+    (a tuple); the common case costs four attribute reads."""
+    if (t.is_cuda and t.dtype is dtype and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -243,18 +254,109 @@ def _check(t, name: str, shape, dtype=torch.float32):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
+    raise ValueError(f"{name}: tensor must be contiguous")
 
 
 def _route(x, name: str) -> bool:
     """True -> run the kernel (CUDA tensor); False -> the plain version (CPU
     tensor); anything else raises."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _c_ints(*values):
+    """A C int array for a launcher's parameter block, and its address:
+    one pointer argument where ctypes would convert each int anew."""
+    arr = (ctypes.c_int * len(values))(*values)
+    return arr, ctypes.addressof(arr)
+
+
+# --------------------------------------------------------------------------
+# Launch geometry of the two layout kernels, pack_cf and unpack_frames. The
+# wrappers pass it to the launchers as it is; tests/test_torch_layout_tiles.py
+# holds it against a numpy emulation of each kernel's block -> element map.
+# --------------------------------------------------------------------------
+LAYOUT_THREADS = 256        # threads per block of both kernels
+LAYOUT_SMEM = 48 * 1024     # shared memory a block may take (no opt-in)
+PACK_TILE_MAX = 128         # flat positions per pack_cf block, at most
+# packed columns per unpack_frames block, at most: 124 and the cover's 3
+# extra floats are 32 float4, one load per lane of a warp
+UNPACK_TILE_MAX = 124
+# g = f*c values with a compile-time instantiation of unpack_frames: the
+# configs' f = 2, 3, 4, 6 at c = 3; the kernel's launcher switches on them
+UNPACK_G_TEMPLATES = (6, 9, 12, 18)
+
+
+class PackGeometry(NamedTuple):
+    tm: int         # flat output positions per block: a power of two
+    blocks: int     # grid: (blocks, batch)
+    smem: int       # shared-memory bytes per block
+
+
+def _pack_cf_smem(tm: int, c: int) -> int:
+    """The tile's offset table (tm ints) and its staged input run (tm*c
+    floats and room for the 16-byte cover)."""
+    return 4 * tm + 4 * (tm * c + 8)
+
+
+@lru_cache(maxsize=256)
+def pack_cf_geometry(mp: int, c: int, batch: int) -> PackGeometry:
+    """Tile of :func:`pack_cf`'s kernel: 128 positions, halved while the
+    staged run would not fit a block's shared memory, or while the launch
+    has fewer blocks than the card holds (_SM_SLOTS) and the tile is above
+    16 positions: small entries are bound by latency, not bytes."""
+    tm = PACK_TILE_MAX
+    while tm > 8 and (_pack_cf_smem(tm, c) > LAYOUT_SMEM or (
+            tm > 16 and mp // tm * batch < _SM_SLOTS)):
+        tm //= 2
+    if _pack_cf_smem(tm, c) > LAYOUT_SMEM:
+        raise ValueError(f"pack_cf: {c} channels do not fit a tile of "
+                         f"{tm} positions in {LAYOUT_SMEM} bytes")
+    if mp % tm:
+        raise ValueError(f"pack_cf: Mp={mp} is not a multiple of {tm}")
+    return PackGeometry(tm, mp // tm, _pack_cf_smem(tm, c))
+
+
+class UnpackGeometry(NamedTuple):
+    tx: int         # packed columns per block: a multiple of 4
+    tiles: int      # grid: (tiles, h, batch * f // fu)
+    fu: int         # output rows Y*f+u per block: a divisor of f
+    smem: int       # shared-memory bytes per block
+    g_template: int  # the instantiation's compile-time g; 0 = generic
+
+
+@lru_cache(maxsize=256)
+def unpack_frames_geometry(h: int, w: int, f: int, c: int,
+                           batch: int) -> UnpackGeometry:
+    """Block shape of :func:`unpack_frames`'s kernel: all f output rows and
+    the widest span up to 124 columns whose staged channel rows (tx + 4
+    floats each, for the 16-byte cover) fit a block's shared memory, cut
+    into equal spans across the width; one output row per block where that
+    launch would have fewer blocks than the card holds (_SM_SLOTS). On an
+    H100 one row a block took 0.63x the time of four at the width-tiled
+    plan, and narrower spans took longer at every plan measured
+    (scripts/torch_layout_bench.py --sweep)."""
+    def widest(fu):
+        return min(UNPACK_TILE_MAX,
+                   (LAYOUT_SMEM // (4 * fu * f * c) - 4) // 4 * 4)
+
+    def span(fu):               # equal spans, each a multiple of 4
+        return _cdiv(_cdiv(w, _cdiv(w, widest(fu))), 4) * 4
+
+    fu = f
+    if (widest(fu) < 4
+            or _cdiv(w, span(fu)) * h * batch < _SM_SLOTS):
+        fu = 1
+    if widest(fu) < 4:
+        raise ValueError(f"unpack_frames: {f * c} channel rows do not fit "
+                         f"a block's {LAYOUT_SMEM} bytes")
+    tx = span(fu)
+    g = f * c
+    return UnpackGeometry(tx, _cdiv(w, tx), fu, 4 * fu * g * (tx + 4),
+                          g if g in UNPACK_G_TEMPLATES else 0)
 
 
 # --------------------------------------------------------------------------
@@ -265,16 +367,27 @@ def pack_cf_ref(x, plan: TailPlan):
     return nhwc_to_cf(x, plan)
 
 
+@lru_cache(maxsize=256)
+def _pack_cf_launch(b: int, h: int, w: int, pad: int, tm: int, c: int):
+    """(output shape, parameter block and its address) of one pack_cf
+    launch, per plan geometry and input shape."""
+    mp = _cdiv((h + 2 * pad) * (w + 2 * pad), tm) * tm
+    geo = pack_cf_geometry(mp, c, b)
+    return ((b, _r8(c), mp),
+            *_c_ints(b, h, w, c, _r8(c), pad, mp, geo.tm))
+
+
 def _pack_cf_kernel(x, plan: TailPlan):
     if not _route(x, "pack_cf"):
         return pack_cf_ref(x, plan)
-    from neuroquant_tpu_torch.ops import _cuda
-
-    b, h, w, c = x.shape
+    b, _, _, c = x.shape
+    # `block` keeps the parameter block alive while the launcher reads it
+    shape, block, prm = _pack_cf_launch(b, plan.h, plan.w, plan.pad, plan.tm,
+                                        c)
     _check(x, "pack_cf x", (b, plan.h, plan.w, c))
-    out = torch.empty((b, _r8(c), plan.mp), dtype=x.dtype, device=x.device)
+    out = x.new_empty(shape)
     _launch("pack_cf", _cuda.lib().nq_pack_cf, x.data_ptr(), out.data_ptr(),
-            b, h, w, c, _r8(c), plan.pad, plan.mp)
+            prm)
     return out
 
 
@@ -288,8 +401,6 @@ def unpack_cf(g, plan: TailPlan, c: int):
     channel pad dropped, in one pass. The transpose of :func:`pack_cf`."""
     if not _route(g, "unpack_cf"):
         return unpack_cf_ref(g, plan, c)
-    from neuroquant_tpu_torch.ops import _cuda
-
     b, c8, _ = g.shape
     if c > c8:
         raise ValueError(f"unpack_cf: {c} channels from {c8} rows")
@@ -577,8 +688,6 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
     if not _route(x, "tail_conv_cf"):
         return conv_cf_ref(x, kk, bias, plan, layer, emit, act_in, blocks,
                            out_mul, steps=True)
-    from neuroquant_tpu_torch.ops import _cuda
-
     if emit not in _EMITS:
         raise ValueError(f"emit={emit!r} (use 'z', 'y' or 'zy')")
     b = x.shape[0]
@@ -671,8 +780,6 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
     blocks = _k_blocks(plan, layer)
     if not _route(x, "tail_conv_dw_cf"):
         return conv_cf_dw_ref(x, g, plan, layer, act_in, blocks, steps=True)
-    from neuroquant_tpu_torch.ops import _cuda
-
     b = x.shape[0]
     _check(x, "tail_conv_dw_cf x", (b, layer.cin, plan.mp))
     _check(g, "tail_conv_dw_cf g", (b, layer.cout, plan.mp))
@@ -939,24 +1046,34 @@ def unpack_frames_ref(z, plan: TailPlan, f: int, ch: int, out_bias: str):
     return depth_to_space(out_img(cf_to_nhwc(z, plan, ch), out_bias), f)
 
 
-def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str):
-    if not _route(z, "unpack_frames"):
-        return unpack_frames_ref(z, plan, f, ch, out_bias)
-    from neuroquant_tpu_torch.ops import _cuda
-
-    b, cp, _ = z.shape
+@lru_cache(maxsize=256)
+def _unpack_frames_launch(b: int, cp: int, h: int, w: int, pad: int, tm: int,
+                          f: int, ch: int, out_bias: str):
+    """(z's Mp, output shape, parameter block and its address, offset) of
+    one unpack_frames launch, per plan geometry, shape and out_bias."""
     c = ch // (f * f)
     if c * f * f != ch or ch > cp:
         raise ValueError(f"unpack_frames: {ch} channels do not unpack by "
                          f"f={f} from {cp} packed rows")
-    _check(z, "unpack_frames z", (b, cp, plan.mp))
+    mp = _cdiv((h + 2 * pad) * (w + 2 * pad), tm) * tm
     mode = _OUT_MODES.get(out_bias, 2)
-    offset = 0.0 if mode < 2 else float(out_bias)
-    out = torch.empty((b, plan.h * f, plan.w * f, c), dtype=z.dtype,
-                      device=z.device)
+    geo = unpack_frames_geometry(h, w, f, c, b)
+    return (mp, (b, h * f, w * f, c),
+            *_c_ints(b, cp, mp, h, w, pad, f, c, mode, geo.tx, geo.fu),
+            0.0 if mode < 2 else float(out_bias))
+
+
+def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str):
+    if not _route(z, "unpack_frames"):
+        return unpack_frames_ref(z, plan, f, ch, out_bias)
+    b, cp, _ = z.shape
+    # `block` keeps the parameter block alive while the launcher reads it
+    mp, shape, block, prm, offset = _unpack_frames_launch(
+        b, cp, plan.h, plan.w, plan.pad, plan.tm, f, ch, out_bias)
+    _check(z, "unpack_frames z", (b, cp, mp))
+    out = z.new_empty(shape)
     _launch("unpack_frames", _cuda.lib().nq_unpack_frames, z.data_ptr(),
-            out.data_ptr(), b, cp, plan.mp, plan.h, plan.w, plan.pad, f, c,
-            mode, offset)
+            out.data_ptr(), prm, offset)
     return out
 
 

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _layout_cases import PACK_CASES, UNPACK_CASES, case_id
+from _layout_cases import plan as layout_plan
 from neuroquant_tpu_torch.ops import tail_fused as tf
 
 BLOCKS = [(5, 5, 16, 2), (3, 4, 12, 2)]     # (k, cin, cout*r*r, r)
@@ -153,24 +155,70 @@ def test_tail_conv_kernels_launch_shapes(dev, shape):
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
-@pytest.mark.parametrize("c", [5, 8, 13])
-def test_pack_cf(dev, small, c):
-    plan = small[0]
-    g = torch.Generator(device=dev).manual_seed(c)
-    x = torch.randn((2, plan.h, plan.w, c), generator=g, device=dev)
+def _rand(dev, shape, seed, offset=0):
+    """Random values of `shape` on the card; with `offset`, a contiguous
+    view that starts `offset` floats past a 16-byte boundary."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape))
+    buf = torch.randn((n + offset,), generator=g, device=dev)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("case", PACK_CASES, ids=case_id)
+def test_pack_cf(dev, case, offset):
+    """The Bunny-3M entries at batch 1 and 2, the fixtures' plans, channel
+    counts 1 to 100, widths that are no multiple of 4 or of the tile; the
+    input aligned or 1 or 3 floats past a 16-byte boundary: exact."""
+    name, c, nb = case
+    plan, _ = layout_plan(name)
+    x = _rand(dev, (nb, plan.h, plan.w, c), c + nb, offset)
+    tf.reset_launch_counts()
     got = tf.pack_cf(x, plan)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["pack_cf"] == 1
+    assert torch.equal(got, tf.pack_cf_ref(x, plan))
+
+
+@pytest.mark.parametrize("case", [("bunny", 53, 1), ("bunny_prefix", 64, 2),
+                                  ("f2_w13", 5, 2)], ids=case_id)
+def test_pack_cf_writes_every_pad(dev, case):
+    """torch.empty hands back freed memory: a same-sized buffer is filled
+    with NaN and freed first, so a border, channel pad or tail pad element
+    the kernel did not write would show."""
+    name, c, nb = case
+    plan, _ = layout_plan(name)
+    x = _rand(dev, (nb, plan.h, plan.w, c), 5)
+    junk = torch.full((nb, tf._r8(c), plan.mp), float("nan"), device=dev)
+    ptr = junk.data_ptr()
+    del junk
+    got = tf.pack_cf(x, plan)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr          # the NaN-filled block came back
+    live = tf.border_mask(plan, device=dev).reshape(-1) > 0
+    assert bool((got[:, :, ~live] == 0).all())       # ring and tail pad
+    assert bool((got[:, c:, :] == 0).all())          # channel pad
     assert torch.equal(got, tf.pack_cf_ref(x, plan))
 
 
 @pytest.mark.parametrize("out_bias", ["sigmoid", "tanh", "0.5"])
-def test_unpack_frames(dev, small, out_bias):
-    plan, _, _, f, ch = small
-    g = torch.Generator(device=dev).manual_seed(1)
-    z = torch.randn((2, plan.layers[-1].cout, plan.mp), generator=g,
-                    device=dev)
+@pytest.mark.parametrize("case", UNPACK_CASES, ids=case_id)
+def test_unpack_frames(dev, case, out_bias):
+    """The Bunny-3M decode at batch 1 and 2, UVG's f=6, the fixtures' plans,
+    the plan whose JAX unpack is the width-tiled _unpack_kernel5 (case
+    width_tiled), f = 2, 3, 4, 6 with widths that are no multiple of 4 or
+    of the span, c = 1 to 13 (the generic instantiation): out_img 1e-6."""
+    name, c, nb = case
+    plan, f = layout_plan(name)
+    ch = c * f * f
+    cp = max(plan.layers[-1].cout, tf._r8(ch))
+    z = _rand(dev, (nb, cp, plan.mp), f + c, offset=2 if nb == 1 else 0)
+    tf.reset_launch_counts()
     got = tf.unpack_frames(z, plan, f, ch, out_bias)
     want = tf.unpack_frames_ref(z, plan, f, ch, out_bias)
-    assert got.shape == want.shape == (2, plan.h * f, plan.w * f, 3)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["unpack_frames"] == 1
+    assert got.shape == want.shape == (nb, plan.h * f, plan.w * f, c)
     assert float((got - want).abs().max()) <= 1e-6
 
 
@@ -257,18 +305,6 @@ def test_unpack_cf(dev, small, c):
     got = tf.unpack_cf(g, plan, c)
     assert got.shape == (2, plan.h, plan.w, c)
     assert torch.equal(got, tf.unpack_cf_ref(g, plan, c))
-
-
-def test_unpack_frames_width_tiled(dev):
-    """A plan whose JAX unpack takes the width-tiled _unpack_kernel5."""
-    plan, f = tf.plan_geometry(4, 480, [(3, 17, 224, 4)], (3, 14, 3))
-    gen = torch.Generator(device=dev).manual_seed(3)
-    z = torch.randn((2, plan.layers[-1].cout, plan.mp), generator=gen,
-                    device=dev)
-    got = tf.unpack_frames(z, plan, f, 48, "tanh")
-    want = tf.unpack_frames_ref(z, plan, f, 48, "tanh")
-    assert got.shape == (2, 16, 1920, 3)
-    assert float((got - want).abs().max()) <= 1e-6
 
 
 def test_tail_backward_matches_plain_autograd(dev, small):
