@@ -32,22 +32,27 @@ Phases (any failure exits non-zero):
   6. calibration step -- one phase-2 step's loss and gradients, kernel
      path against the plain unpacked path; its launches; its forward,
      backward and optimizer times; a profiler window; then the same step
-     with fq_impl='pallas' (the fake-quant kernel) against fq_impl='jnp' on
-     the same kernel tail: loss, gradients, 7 fq_ada launches, its times
+     with fq_impl='pallas' (the grouped fake-quant kernels) against
+     fq_impl='jnp' on the same kernel tail: loss, gradients, one fq_ada and
+     one fq_ada_bwd launch, its times and profiler window
   7. calibrate -- ``neuroquant_tpu_torch.methods.calibrate_network.main``
      at Bunny-3M on the 8 frames from a .pth of the seeded weights, batch 2,
      80 steps (1 phase-1 and 19 phase-2 epochs): every step's launches (8
      tail_conv_cf, 4 tail_conv_dw_cf, 2 pack_cf, 2 unpack_cf), finite
      state, both guards, and the artifact read back by eval_quantized
-  8. fake-quant kernels -- fq_uaq and fq_ada (soft and
-     hard) at the seven Bunny-3M weight shapes against the plain chain on
-     the card: 1e-6 of the output's largest value and no flipped rounding
-     decision; one shape without the transform and one with per-layer
-     scales; per-launch times and the whole ``quantize_params`` call on
-     both fq_impls, forward alone and forward plus backward
-  9. calibrate, --fq_impl pallas -- phase 7 again on the fake-quant kernel:
-     7 fq_uaq (phase 1) or fq_ada (phase 2) launches per step beside the
-     8 / 4 / 2 / 2, the four PSNR blocks within 0.02 dB of phase 7's
+  8. fake-quant kernels -- the grouped forward (fq_uaq, fq_ada: UAQ,
+     AdaRound soft and hard, mixed rounding), one launch for the seven
+     Bunny-3M weight layers, against the plain chain on the card: 1e-6 of
+     the output's largest value and no flipped rounding decision; the
+     backward (fq_uaq_bwd, fq_ada_bwd), one launch, against the closed form
+     and autograd through the plain chain; the same without the transform
+     and with per-layer scales; both passes' times against their bounds;
+     the whole ``quantize_params`` call on both fq_impls, forward alone
+     and forward plus backward, one launch each way
+  9. calibrate, --fq_impl pallas -- phase 7 again on the fake-quant
+     kernels: one fq_uaq and one fq_uaq_bwd launch per phase-1 step, one
+     fq_ada and one fq_ada_bwd per phase-2 step, beside the 8 / 4 / 2 / 2,
+     the four PSNR blocks within 0.02 dB of phase 7's
  10. bitstream -- ``compress.main`` on that artifact, then
      ``eval_quantized.main --from_bitstream``: the stream decodes to the
      artifact's codes, PSNR within 0.01 dB of the artifact's state eval,
@@ -58,8 +63,9 @@ the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
 the fake-quant entries), its largest error against the plain version, and
 its times and bound summed over one decode's launches (the decode's
 kernels), one calibration step's (tail_conv_dw_cf, unpack_cf) or one
-``quantize_params`` call's seven layers (fq_uaq, fq_ada); per-launch
-figures under "per_launch". The last line is {"ok": true, "device": ...}.
+``quantize_params`` call's grouped launch over its seven layers (fq_uaq,
+fq_ada; the backward's fq_uaq_bwd, fq_ada_bwd); per-launch figures under
+"per_launch". The last line is {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -92,16 +98,23 @@ CALIB_ITERS = 80     # batch 2 over 8 frames: 1 phase-1 and 19 phase-2 epochs
 # prefix block and the tail's three layers), their 4 dW passes, the two
 # entries' pack_cf and its backward; the packed loss needs no unpack
 PER_STEP = {"tail_conv_cf": 8, "tail_conv_dw_cf": 4, "pack_cf": 2,
-            "unpack_cf": 2, "unpack_frames": 0, "fq_uaq": 0, "fq_ada": 0}
-# with fq_impl='pallas' a step's quantize_params adds one fake-quant launch
-# per quantized layer: fq_uaq in phase 1, fq_ada in phase 2
-FQ_LAYERS = len(PRECISION)
+            "unpack_cf": 2, "unpack_frames": 0, "fq_uaq": 0, "fq_ada": 0,
+            "fq_uaq_bwd": 0, "fq_ada_bwd": 0}
+# with fq_impl='pallas' a step's quantize_params adds one grouped
+# fake-quant launch over its seven layers and one backward launch: fq_uaq
+# and fq_uaq_bwd in phase 1, fq_ada and fq_ada_bwd in phase 2
+FQ_PHASE1 = dict(PER_STEP, fq_uaq=1, fq_uaq_bwd=1)
+FQ_PHASE2 = dict(PER_STEP, fq_ada=1, fq_ada_bwd=1)
 # the fake-quant kernel against the plain chain, of the output's largest
 # value: its butterfly and quantizer repeat the plain chain's fp32
 # operations in their order (the soft form's expf against torch's sigmoid)
 FQ_TOL = 1e-6
 FQ_LOSS_TOL = 1e-6   # a step's loss, fq_impl pallas against jnp, relative
 FQ_GRAD_TOL = 1e-5   # its gradients, of each leaf's largest
+# the backward kernel's ddelta and dzp against the closed form and autograd,
+# of each channel's sum of the magnitudes of the terms summed: fp32 sums
+# over up to 1,600 terms in another order, whose two halves cancel
+FQ_SUM_TOL = 1e-5
 PSNR_TOL = 0.02      # dB between the two calibrate runs' eval blocks
 STREAM_PSNR_TOL = 0.01   # dB, the stream's eval against the state's
 # one step's gradients, kernel path vs the plain unpacked path (cuDNN): fp32
@@ -437,7 +450,8 @@ def _decode_phase(torch, tf, cfg, sd, model):
         assert counts == {"tail_conv_cf": 16, "tail_conv_dw_cf": 0,
                           "pack_cf": 8, "unpack_cf": 0,
                           "unpack_frames": 4, "fq_uaq": 0,
-                          "fq_ada": 0}, counts
+                          "fq_ada": 0, "fq_uaq_bwd": 0,
+                          "fq_ada_bwd": 0}, counts
         e1 = embeds[:1]
         k_ms = _time_ms(lambda: model.decode(e1), iters=20)
         p_ms = _time_ms(lambda: plain.decode(e1), iters=20)
@@ -606,9 +620,10 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
     of its terms, so the same value and gradients; the step's launches; and
     the step's time split into forward, backward and optimizer, with a
     profiler window for the kernel time by name and the device's busy
-    share. Then the same step with fq_impl='pallas': the fake-quant kernel
-    forward and the plain chain's VJP backward give the 'jnp' step's loss
-    and gradients on the same kernel tail, with 7 fq_ada launches more."""
+    share. Then the same step with fq_impl='pallas': the grouped fake-quant
+    kernels, forward and backward, give the 'jnp' step's loss and gradients
+    on the same kernel tail, with one fq_ada and one fq_ada_bwd launch
+    more; both steps' times and profiler windows."""
     from neuroquant_tpu_torch.data import VideoDataSet
     from neuroquant_tpu_torch.models import build_model, tail_plan_for
     from neuroquant_tpu_torch.quantization import (
@@ -683,7 +698,7 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
           f"{loss_f:.7f} vs {loss_k:.7f} (rel {rel_f:.2e}, tol "
           f"{FQ_LOSS_TOL:.0e}); gradients: worst leaf max|diff| / max|grad| "
           f"{worst_f:.2e} (tol {FQ_GRAD_TOL:.0e}); launches {counts_f}")
-    assert counts_f == dict(PER_STEP, fq_ada=FQ_LAYERS), counts_f
+    assert counts_f == FQ_PHASE2, counts_f
     assert rel_f <= FQ_LOSS_TOL, (loss_f, loss_k)
     assert worst_f <= FQ_GRAD_TOL, worst_f
 
@@ -727,6 +742,8 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
               f"forward {f:.3f} ms, backward {b:.3f} ms, optimizer {u:.3f} "
               f"ms, total {f + b + u:.3f} ms")
     prof = _profile_steps(torch, one)
+    print("  the same window, fq_impl pallas:")
+    prof_f = _profile_steps(torch, runs[1][0])
     return dict(loss=loss_k, plain_loss=loss_p, loss_rel_err=rel_loss,
                 grad_rel_err=worst, launches=counts, peak_mib=peak_mb,
                 held_before_mib=held_mb, forward_ms=fwd,
@@ -736,7 +753,8 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
                     launches=counts_f,
                     step_ms_jnp=[sum(runs[i][1:]) for i in (0, 3)],
                     step_ms_pallas=[sum(runs[i][1:]) for i in (1, 2)],
-                    forward_ms=runs[1][1], backward_ms=runs[1][2]))
+                    forward_ms=runs[1][1], backward_ms=runs[1][2],
+                    profile=prof_f))
 
 
 def _profile_steps(torch, one, n=5, what="step"):
@@ -835,8 +853,7 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
     assert len(snaps) == CALIB_ITERS, len(snaps)
     if fq_impl == "pallas":
         # phase 1's steps quantize on fq_uaq, phase 2's on fq_ada
-        phase1 = dict(PER_STEP, fq_uaq=FQ_LAYERS)
-        phase2 = dict(PER_STEP, fq_ada=FQ_LAYERS)
+        phase1, phase2 = FQ_PHASE1, FQ_PHASE2
         n1 = sum(d == phase1 for d in steps)
         assert 0 < n1 < len(steps), (n1, steps[:2])
         # the last diff of phase 1 spans the hand-off between the phases
@@ -875,13 +892,18 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
 
 
 def _fq_kernel_phase(torch, tf, cfg, sd):
-    """The fake-quant kernel's two entries at the seven Bunny-3M weight
-    shapes, with the seeded weights and the scales of ``init_quant_state``
-    (UAQ) and ``adaround_upgrade`` (AdaRound, soft and hard), against the
-    plain chain on the card; one layer without the transform and one with
-    per-layer scales; then the whole ``quantize_params`` call on both
-    fq_impls, forward alone and forward plus backward. Returns per-kernel
-    records."""
+    """The grouped fake-quant kernels at the seven Bunny-3M weight shapes,
+    with the seeded weights and the scales of ``init_quant_state`` (UAQ)
+    and ``adaround_upgrade`` (AdaRound soft and hard, and mixed: AdaRound
+    on every other layer, nearest rounding on the rest): the forward, one
+    launch for the seven layers, bit for bit against the plain chain with
+    no flipped rounding decision; the backward, one launch, against the
+    closed form (``fake_quant_vjp_ref``) and autograd through the plain
+    chain; the same without the transform and with per-layer scales; each
+    pass timed against its bound as the calibration's phases call it
+    (phase 1: UAQ, ddelta; phase 2: soft AdaRound, dalpha); then the whole
+    ``quantize_params`` call on both fq_impls, forward alone and forward
+    plus backward, with its launches. Returns per-kernel records."""
     from neuroquant_tpu_torch.ops import fused_fakequant as ff
     from neuroquant_tpu_torch.ops.hadamard import next_power_of_two
     from neuroquant_tpu_torch.quantization import (
@@ -896,92 +918,186 @@ def _fq_kernel_phase(torch, tf, cfg, sd):
         PRECISION)
     uaq = init_quant_state(params, spec)
     ada = adaround_upgrade(params, spec, uaq)
+    mixed = adaround_upgrade(params, spec, uaq,
+                             only=tuple(spec.layer_names[::2]))
+    weights = [_get(params, p)[0] for p in spec.layer_paths]
     records = {k: {"per_launch": [], "max_abs_err": 0.0}
-               for k in ("fq_uaq", "fq_ada")}
+               for k in ("fq_uaq", "fq_ada", "fq_uaq_bwd", "fq_ada_bwd")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cots = [torch.randn(w.shape, generator=gen, device="cuda")
+            for w in weights]
 
-    def check(label, w, s, bits, hadamard, alpha, soft):
-        """The kernel against the plain chain: (largest error, elements off
-        by a flipped rounding decision, which moves a transformed row by
-        delta / sqrt(C) per element)."""
-        want = ff.fake_quant_ref(w, s["w_delta"], s["w_zp"], alpha, bits,
-                                 hadamard, soft)
-        got = ff.fused_fake_quant_hwio(w, s["w_delta"], s["w_zp"], bits,
-                                       hadamard, alpha, soft)
+    def group(state, soft, ws=weights, bits=spec.n_bits, names=None):
+        names = names or spec.layer_names
+        return [(w, state[n]["w_delta"], state[n]["w_zp"],
+                 state[n].get("w_alpha"), b, soft)
+                for w, n, b in zip(ws, names, bits)]
+
+    def kname(layers):
+        return "fq_ada" if any(l[3] is not None for l in layers) else "fq_uaq"
+
+    def check_forward(label, layers, hadamard):
+        """One grouped launch against the plain chain, layer by layer:
+        (largest error, elements off by a flipped rounding decision, which
+        moves a transformed row by delta / sqrt(C) per element)."""
+        tf.reset_launch_counts()
+        with torch.no_grad():
+            outs = ff.fake_quant_group(layers, hadamard)
         torch.cuda.synchronize()
-        assert got.shape == want.shape, (got.shape, want.shape)
-        err = (got - want).abs()
-        c = next_power_of_two(w.shape[2]) if hadamard else 1
-        flips = int((err > 0.5 * s["w_delta"] / math.sqrt(c)).sum())
-        top = float(err.max())
-        tol = FQ_TOL * max(1.0, float(want.abs().max()))
-        print(f"  {label}: max_abs_err {top:.3e} (tol {tol:.1e}), flipped "
-              f"rounding decisions {flips} (must be 0)")
+        launched = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
+        assert launched == {kname(layers): 1}, (label, launched)
+        top, flips, tol = 0.0, 0, 0.0
+        for (w, d, z, a, bits, soft), got in zip(layers, outs):
+            want = ff.fake_quant_ref(w, d, z, a, bits, hadamard, soft)
+            assert got.shape == want.shape, (got.shape, want.shape)
+            err = (got - want).abs()
+            c = next_power_of_two(w.shape[2]) if hadamard else 1
+            flips += int((err > 0.5 * d / math.sqrt(c)).sum())
+            top = max(top, float(err.max()))
+            tol = max(tol, FQ_TOL * max(1.0, float(want.abs().max())))
+        print(f"  forward, {label}: one {kname(layers)} launch for "
+              f"{len(layers)} layers; max_abs_err {top:.3e} (tol {tol:.1e}), "
+              f"flipped rounding decisions {flips} (must be 0)")
         assert top <= tol and flips == 0, (label, top, tol, flips)
-        return top
+        records[kname(layers)]["max_abs_err"] = max(
+            records[kname(layers)]["max_abs_err"], top)
 
-    with torch.no_grad():
-        for name, path, bits in zip(spec.layer_names, spec.layer_paths,
-                                    spec.n_bits):
-            w, _ = _get(params, path)
-            kh, kwid, cin, cout = w.shape
-            c, r = next_power_of_two(cin), cout * kh * kwid
-            geo = f"{name} R={r} C={cin}->{c} {bits}b"
-            su, sa = uaq[name], ada[name]
-            alpha = sa["w_alpha"]
-            for kname, label, s, a, soft in (
-                    ("fq_uaq", "uaq", su, None, True),
-                    ("fq_ada", "adaround soft", sa, alpha, True),
-                    ("fq_ada", "adaround hard", sa, alpha, False)):
-                err = check(f"{kname} {geo} {label}", w, s, bits, True, a,
-                            soft)
-                records[kname]["max_abs_err"] = max(
-                    records[kname]["max_abs_err"], err)
-                if label == "adaround hard":
-                    continue          # the step runs soft; timed below
-                # back-to-back calls are host-bound at these sizes: ms is what
-                # a caller pays per call, device_ms the kernel's own time
-                def run():
-                    return ff.fused_fake_quant_hwio(
-                        w, s["w_delta"], s["w_zp"], bits, True, a, soft)
+    def check_backward(label, layers, hadamard):
+        """One backward launch (every leaf wanted) against the closed form
+        and autograd through the plain chain: dw and dalpha within FQ_TOL
+        of the leaf's largest value, the reduced ddelta and dzp within
+        FQ_SUM_TOL of each channel's sum of the magnitudes of their
+        terms."""
+        leaves = [[None if t is None else t.detach().clone().requires_grad_()
+                   for t in lay[:4]] for lay in layers]
+        flat = [t for lv in leaves for t in lv if t is not None]
+        tf.reset_launch_counts()
+        outs = ff.fake_quant_group(
+            [(*lv, *lay[4:]) for lv, lay in zip(leaves, layers)], hadamard)
+        got = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(outs, cots)), flat,
+            allow_unused=True)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
+        name = kname(layers)
+        assert launched == {name: 1, name + "_bwd": 1}, (label, launched)
+        got = iter(got)
+        worst = {"closed form": 0.0, "autograd": 0.0}
+        top, unequal = 0.0, 0
+        for lv, (w, d, z, a, bits, soft), cot in zip(leaves, layers, cots):
+            mine = [None if t is None else next(got) for t in lv]
+            closed = ff.fake_quant_vjp_ref(cot, w, d, z, a, bits, hadamard,
+                                           soft)
+            sums = ff.fake_quant_vjp_ref(
+                cot, w, d, z, a, bits, hadamard, soft,
+                sum_like=lambda t, like: ff._sum_like(t.abs(), like))[1:3]
+            ins = [t.detach().clone().requires_grad_() for t in (w, d, z)]
+            if a is not None and soft:
+                ins.append(a.detach().clone().requires_grad_())
+            plain = list(torch.autograd.grad(
+                ff.fake_quant_ref(*ins[:3], a if len(ins) == 3 else ins[3],
+                                  bits, hadamard, soft), ins, cot,
+                allow_unused=True)) + [None] * (4 - len(ins))
+            for ref_name, ref in (("closed form", closed),
+                                  ("autograd", plain)):
+                for i, (g, r) in enumerate(zip(mine, ref)):
+                    if r is None:
+                        assert g is None or not bool(g.any()), (label, i)
+                        continue
+                    err = (g - r).abs()
+                    scale = (sums[i - 1].clamp_min(1e-30) if i in (1, 2)
+                             else max(1.0, float(r.abs().max())))
+                    tol = FQ_SUM_TOL if i in (1, 2) else FQ_TOL
+                    rel = float((err / scale).max())
+                    assert rel <= tol, (label, ref_name, i, rel)
+                    worst[ref_name] = max(worst[ref_name], rel)
+                    if ref_name == "closed form":
+                        top = max(top, float(err.max()))
+                        if i in (0, 3):
+                            unequal += int((g != r).sum())
+        print(f"  backward, {label}: one {name}_bwd launch; against the "
+              f"closed form {worst['closed form']:.2e}, autograd "
+              f"{worst['autograd']:.2e} (of the largest dw / dalpha, tol "
+              f"{FQ_TOL:.0e}; of the channel's term magnitudes for ddelta / "
+              f"dzp, tol {FQ_SUM_TOL:.0e}); dw and dalpha elements not equal "
+              f"to the closed form's bits: {unequal}")
+        records[name + "_bwd"]["max_abs_err"] = max(
+            records[name + "_bwd"]["max_abs_err"], top)
 
-                def run_plain():
-                    return ff.fake_quant_ref(w, s["w_delta"], s["w_zp"], a,
-                                             bits, True, soft)
+    # the seven layers in one group: UAQ, soft, hard, mixed
+    for label, state, soft in (("uaq", uaq, True), ("adaround soft", ada,
+                                                    True),
+                               ("adaround hard", ada, False),
+                               ("mixed rounding", mixed, True)):
+        layers = group(state, soft)
+        check_forward(f"7 Bunny-3M layers, {label}", layers, True)
+        if label != "adaround hard":
+            check_backward(f"7 Bunny-3M layers, {label}", layers, True)
+    # without the transform (C = C_in), and with per-layer (0-d) scales
+    for hadamard, cw, label in ((False, True, "no transform"),
+                                (True, False, "per-layer scales")):
+        sp = make_spec("hnerv", cfg, channel_wise=cw, scale_method="max",
+                       hadamard=hadamard).with_bits(PRECISION)
+        su = init_quant_state(params, sp)
+        sa = adaround_upgrade(params, sp, su)
+        assert su[sp.layer_names[4]]["w_delta"].dim() == (4 if cw else 0)
+        for mode, state, soft in (("uaq", su, True), ("soft", sa, True),
+                                  ("hard", sa, False)):
+            layers = group(state, soft, bits=sp.n_bits)
+            check_forward(f"7 layers, {label}, {mode}", layers, hadamard)
+            if mode != "hard":
+                check_backward(f"7 layers, {label}, {mode}", layers,
+                               hadamard)
 
-                ms, plain_ms = _time_ms(run), _time_ms(run_plain)
-                dev_ms, plain_dev_ms = _device_ms(run), _device_ms(run_plain)
-                # the weight read and written unpadded, the scales, and for
-                # AdaRound the padded alphas
-                nbytes = 4 * (2 * r * cin + 2 * cout
-                              + (r * c if a is not None else 0))
-                bound_ms, by = _bound(nbytes, 0)
-                records[kname]["per_launch"].append(dict(
-                    shape=f"{geo} {label}", ms=ms, plain_ms=plain_ms,
-                    library_ms=None, bound_ms=bound_ms, bound_by=by,
-                    mbytes=nbytes / 1e6, device_ms=dev_ms,
-                    plain_device_ms=plain_dev_ms))
-                print(f"  {kname} {geo} {label}: {ms:.4f} ms per call, "
-                      f"{dev_ms} ms on the device (plain {plain_ms:.4f} and "
-                      f"{plain_dev_ms}; bound {bound_ms:.5f} by {by}; no "
-                      f"single PyTorch call computes the chain)")
-        # without the transform (C = C_in, any width), and with per-layer
-        # (0-d) scales, on blocks_3/conv (4400 x 53)
-        name, path = spec.layer_names[4], spec.layer_paths[4]
-        w, _ = _get(params, path)
-        for hadamard, cw, label in ((False, True, "no transform"),
-                                    (True, False, "per-layer scales")):
-            sp = make_spec("hnerv", cfg, channel_wise=cw, scale_method="max",
-                           hadamard=hadamard).with_bits(PRECISION)
-            su = init_quant_state(params, sp)
-            sa = adaround_upgrade(params, sp, su)[name]
-            assert su[name]["w_delta"].dim() == (4 if cw else 0)
-            for kname, s, a, soft in (("fq_uaq", su[name], None, True),
-                                      ("fq_ada", sa, sa["w_alpha"], True),
-                                      ("fq_ada", sa, sa["w_alpha"], False)):
-                err = check(f"{kname} {name} {label} soft={soft}", w, s,
-                            sp.n_bits[4], hadamard, a, soft)
-                records[kname]["max_abs_err"] = max(
-                    records[kname]["max_abs_err"], err)
+    # the passes timed as the calibration's phases call them: the forward
+    # reads each weight and writes its result unpadded (AdaRound: the
+    # padded alphas too); phase 1's backward reads the gradient and the
+    # weight and writes ddelta, phase 2's reads the alphas too and writes
+    # dalpha, padded
+    n_w = sum(w.numel() for w in weights)
+    n_a = sum(ada[n]["w_alpha"].numel() for n in spec.layer_names)
+    n_s = 4 * sum(w.shape[3] for w in weights)
+    for name, state, need, nbytes in (
+            ("fq_uaq", uaq, None, 4 * (2 * n_w + n_s)),
+            ("fq_ada", ada, None, 4 * (2 * n_w + n_s + n_a)),
+            ("fq_uaq_bwd", uaq, (False, True, False, False),
+             4 * (2 * n_w + n_s)),
+            ("fq_ada_bwd", ada, (False, False, False, True),
+             4 * (2 * n_w + n_s + 2 * n_a))):
+        layers = group(state, True)
+        if need is None:
+            def run():
+                with torch.no_grad():
+                    return ff.fake_quant_group(layers, True)
+
+            def plain():
+                return [ff.fake_quant_ref(w, d, z, a, b, True, s)
+                        for w, d, z, a, b, s in layers]
+        else:
+            def run():
+                return ff._backward(layers, True, cots, [need] * len(layers))
+
+            def plain():
+                return [ff.fake_quant_vjp_ref(c, w, d, z, a, b, True, s, need)
+                        for (w, d, z, a, b, s), c in zip(layers, cots)]
+        tf.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        assert tf.KERNEL_LAUNCHES[name] == 1, dict(tf.KERNEL_LAUNCHES)
+        bound_ms, by = _bound(nbytes, 0)
+        rec = dict(shape="the seven Bunny-3M layers, one launch",
+                   ms=_time_ms(run), plain_ms=_time_ms(plain),
+                   device_ms=_device_ms(run),
+                   plain_device_ms=_device_ms(plain), library_ms=None,
+                   bound_ms=bound_ms, bound_by=by, mbytes=nbytes / 1e6)
+        records[name]["per_launch"].append(rec)
+        share = ("not measured" if rec["device_ms"] is None
+                 else f"{100 * bound_ms / rec['device_ms']:.0f}% of the bound")
+        print(f"  {name}, 7 layers: {rec['ms']:.4f} ms back to back, "
+              f"{rec['device_ms']} ms on the device ({share}); bound "
+              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB) by {by}; plain "
+              f"{rec['plain_ms']:.4f} ms, {rec['plain_device_ms']} on the "
+              f"device; no single PyTorch call computes the chain")
 
     # the whole quantize_params call, 7 layers: what a calibration step pays
     keys = [k for k in params if k.startswith(("decoder.", "head_layer."))]
@@ -1005,7 +1121,13 @@ def _fq_kernel_phase(torch, tf, cfg, sd):
             total = sum((out[k] * cot[k]).sum() for k in keys)
             return torch.autograd.grad(total, leaves)
 
-        g_j, g_f = both(spec), both(spec_fq)
+        g_j = both(spec)
+        tf.reset_launch_counts()
+        g_f = both(spec_fq)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
+        name = "fq_uaq" if mode == "uaq" else "fq_ada"
+        assert launched == {name: 1, name + "_bwd": 1}, launched
         worst = max(float((a - b).abs().max())
                     / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(g_f, g_j))
@@ -1016,13 +1138,14 @@ def _fq_kernel_phase(torch, tf, cfg, sd):
             ms = [_time_ms(lambda: fn(sp), iters=10)
                   for sp in (spec, spec_fq, spec_fq, spec)]
             t[label] = dict(jnp_ms=[ms[0], ms[3]], pallas_ms=[ms[1], ms[2]])
-        calls[mode] = dict(t, grad_rel_err=worst)
+        calls[mode] = dict(t, grad_rel_err=worst, launches=launched)
         print(f"  quantize_params mode={mode}, 7 layers: forward jnp "
               f"{t['forward']['jnp_ms']} ms, pallas "
               f"{t['forward']['pallas_ms']} ms; forward + backward jnp "
               f"{t['forward_backward']['jnp_ms']} ms, pallas "
-              f"{t['forward_backward']['pallas_ms']} ms; gradients pallas "
-              f"vs jnp {worst:.2e} (tol {FQ_GRAD_TOL:.0e})")
+              f"{t['forward_backward']['pallas_ms']} ms; launches "
+              f"{launched}; gradients pallas vs jnp {worst:.2e} (tol "
+              f"{FQ_GRAD_TOL:.0e})")
     records["quantize_params"] = calls
     return records
 
@@ -1073,7 +1196,8 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
     assert n > 0, launches
     assert launches == {"tail_conv_cf": 4 * n, "tail_conv_dw_cf": 0,
                         "pack_cf": 2 * n, "unpack_cf": 0, "unpack_frames": n,
-                        "fq_uaq": 0, "fq_ada": 0}, launches
+                        "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
+                        "fq_ada_bwd": 0}, launches
     print(f"  stream {len(stream)} bytes for {n_sym} symbols, bpp "
           f"{report['bpp']} (embeddings {report['embed_bits']} bits); native "
           f"coder encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s wall (host)")
@@ -1260,7 +1384,13 @@ def main() -> int:
                ("fq_uaq", frecords, fq(69), "per quantize_params call",
                 calib_fq),
                ("fq_ada", frecords, fq(83), "per quantize_params call",
-                calib_fq)]
+                calib_fq),
+               # the JAX package's backward is the VJP of its plain chain
+               # (no Pallas kernel); here it is a kernel of its own
+               ("fq_uaq_bwd", frecords, fq(213) + " _uaq_bwd (jnp VJP)",
+                "per quantize_params backward", calib_fq),
+               ("fq_ada_bwd", frecords, fq(238) + " _ada_bwd (jnp VJP)",
+                "per quantize_params backward", calib_fq)]
     kernels = []
     for name, recs, replaces, summed, run in sources:
         per = recs[name]["per_launch"]
@@ -1294,8 +1424,9 @@ def main() -> int:
                if name in ("pack_cf", "unpack_cf", "unpack_frames") else {}),
             "serving_launches": serve["launches"][name],
             "per_decode_launches": dec["launches"][name] // 4,
+            # the fake-quant entries: per step of the phase that runs them
             "per_step_launches": (
-                grad["fq_pallas"]["launches"][name] if is_fq
+                FQ_PHASE1[name] + FQ_PHASE2[name] if is_fq
                 else PER_STEP[name]),
             "per_launch": per})
     kernels[0]["calibration_per_launch"] = brecords["tail_conv_cf"][

@@ -54,9 +54,13 @@ __global__ void unpack_cf_kernel(const float* __restrict__ in,
 
 }  // namespace
 
-extern "C" int nq_unpack_cf(const float* in, float* out, int batch, int h,
-                            int w, int c, int c8, int pad, int mp,
+// prm: the parameter block (batch, h, w, c, c8, pad, mp), one pointer
+// where ctypes would convert seven ints anew at every call
+extern "C" int nq_unpack_cf(const float* in, float* out, const int* prm,
                             void* stream) {
+  if (prm == nullptr) return (int)cudaErrorInvalidValue;
+  const int batch = prm[0], h = prm[1], w = prm[2], c = prm[3], c8 = prm[4],
+            pad = prm[5], mp = prm[6];
   if (batch < 1 || c < 1 || c8 < c || h < 1 || w < 1 ||
       mp < (h + 2 * pad) * (w + 2 * pad))
     return (int)cudaErrorInvalidValue;

@@ -91,7 +91,6 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library with its C signatures declared."""
     so = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ll = ctypes.c_longlong
     sigs = {
         # x, w, bias|NULL, out_mul|NULL, mask, ksteps, out_z|NULL,
         # out_y|NULL, part|NULL, B, cin, cout, mp, nsteps, splits, act_in,
@@ -103,19 +102,15 @@ def lib() -> ctypes.CDLL:
         "nq_tail_conv_dw_cf": [p, p, p, p, p, i, i, i, i, i, i, i, i, p],
         # x, out, parameter block (B, h, w, c, c8, pad, mp, tm), stream
         "nq_pack_cf": [p, p, p, p],
-        # g, out, B, h, w, c, c8, pad, mp, stream
-        "nq_unpack_cf": [p, p, i, i, i, i, i, i, i, p],
+        # g, out, parameter block (B, h, w, c, c8, pad, mp), stream
+        "nq_unpack_cf": [p, p, p, p],
         # z, out, parameter block (B, cp, mp, h, w, pad, f, c, mode, tx,
         # fu), offset, stream
         "nq_unpack_frames": [p, p, p, f, p],
-        # x, its (so, sk, sc) strides, delta, zp, dstride, out, its strides,
-        # cout, kk, cin, cpad, n_levels, hadamard, inv, stream
-        "nq_fq_uaq": [p, ll, ll, ll, p, p, i, p, ll, ll, ll, i, i, i, i, i,
-                      i, f, p],
-        # x, its strides, alpha, its strides, delta, zp, dstride, out, its
-        # strides, cout, kk, cin, cpad, n_levels, hadamard, soft, inv, stream
-        "nq_fq_ada": [p, ll, ll, ll, p, ll, ll, ll, p, p, i, p, ll, ll, ll,
-                      i, i, i, i, i, i, i, f, p],
+        # the group's descriptor (ops/fused_fakequant._Group), stream
+        "nq_fq_group_forward": [p, p],
+        "nq_fq_group_backward": [p, p],
+        "nq_fq_group_bytes": [],
     }
     for name, args in sigs.items():
         fn = getattr(so, name)

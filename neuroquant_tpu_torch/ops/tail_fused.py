@@ -33,7 +33,8 @@ Gradients: ``tail_apply``, ``pack_cf`` and ``unpack_frames`` are
 backward is the JAX ``_tail_apply_bwd``: dW/db from ``tail_conv_dw_cf``,
 dx from ``tail_conv_cf`` on the tap-reversed, channel-swapped kernel with
 the GELU' epilogue; ``pack_cf``'s backward is ``unpack_cf``;
-``unpack_frames``'s is the VJP of its plain version, as in JAX.
+``unpack_frames``'s is the VJP of its plain version, as in JAX. The tail's
+backward is first-order: a second derivative through it raises.
 
 Left out as TPU scheduling: the execution modes and their cost model
 (``ExecCfg``, ``_exec_cfg``, ``_SWEEP_PINS*``, ``NQ_TAIL_MODE``), the VMEM
@@ -65,6 +66,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from neuroquant_tpu_torch.ops import _cuda
 from neuroquant_tpu_torch.ops.packed_decode import (
@@ -73,10 +75,11 @@ from neuroquant_tpu_torch.ops.packed_decode import (
 )
 
 # kernel launches per wrapper, since the last reset_launch_counts()
-# (fq_uaq and fq_ada: the two entries of ops/fused_fakequant.py's kernel)
+# (fq_uaq, fq_ada and their _bwd: ops/fused_fakequant.py's grouped forward
+# and backward launches, named as that module says)
 KERNEL_LAUNCHES = {"tail_conv_cf": 0, "tail_conv_dw_cf": 0, "pack_cf": 0,
                    "unpack_cf": 0, "unpack_frames": 0, "fq_uaq": 0,
-                   "fq_ada": 0}
+                   "fq_ada": 0, "fq_uaq_bwd": 0, "fq_ada_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -396,6 +399,14 @@ def unpack_cf_ref(g, plan: TailPlan, c: int):
     return cf_to_nhwc(g, plan, c).contiguous()
 
 
+@lru_cache(maxsize=256)
+def _unpack_cf_launch(b: int, h: int, w: int, c: int, c8: int, pad: int,
+                      mp: int):
+    """(output shape, parameter block and its address) of one unpack_cf
+    launch."""
+    return ((b, h, w, c), *_c_ints(b, h, w, c, c8, pad, mp))
+
+
 def unpack_cf(g, plan: TailPlan, c: int):
     """Channels-first (B, C8, Mp) -> NHWC (B, h, w, c): the interior, the
     channel pad dropped, in one pass. The transpose of :func:`pack_cf`."""
@@ -405,9 +416,12 @@ def unpack_cf(g, plan: TailPlan, c: int):
     if c > c8:
         raise ValueError(f"unpack_cf: {c} channels from {c8} rows")
     _check(g, "unpack_cf g", (b, c8, plan.mp))
-    out = torch.empty((b, plan.h, plan.w, c), dtype=g.dtype, device=g.device)
+    # `block` keeps the parameter block alive while the launcher reads it
+    shape, block, prm = _unpack_cf_launch(b, plan.h, plan.w, c, c8, plan.pad,
+                                          plan.mp)
+    out = g.new_empty(shape)
     _launch("unpack_cf", _cuda.lib().nq_unpack_cf, g.data_ptr(),
-            out.data_ptr(), b, plan.h, plan.w, c, c8, plan.pad, plan.mp)
+            out.data_ptr(), prm)
     return out
 
 
@@ -841,7 +855,10 @@ class _TailApply(torch.autograd.Function):
     ``layer.transposed()``, with GELU'(the input's pre-activation) as the
     epilogue where the layer's input went through GELU. Gradients are for
     the canonical kernels: each reaches its kk once, and autograd takes it
-    through the packing gather back to the raw weights."""
+    through the packing gather back to the raw weights. The backward is
+    first-order, as the JAX tail's custom VJP: its kernels build no graph,
+    so a second derivative through it raises (``once_differentiable``)
+    where it would otherwise come out silently wrong."""
 
     @staticmethod
     def forward(ctx, plan, w_ops, n, x_cf, *params):
@@ -862,6 +879,7 @@ class _TailApply(torch.autograd.Function):
         return h
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g_out):
         plan, n = ctx.plan, ctx.n
         saved = ctx.saved_tensors

@@ -24,7 +24,7 @@ import torch
 
 from neuroquant_tpu_torch.ops import quant as Q
 from neuroquant_tpu_torch.ops.fused_fakequant import (
-    ada_fake_quant, fake_quant_ref, uaq_fake_quant)
+    fake_quant_group, fake_quant_ref)
 from neuroquant_tpu_torch.ops.hadamard import fwht, pad_cin_to_pow2
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.convert import layer_prefix
@@ -64,21 +64,6 @@ def init_quant_state(params, spec: QuantSpec) -> Dict:
     return state
 
 
-def _fq_weight(w, s, bits: int, hadamard: bool, mode: str, soft: bool,
-               impl: str = "jnp"):
-    if mode not in ("uaq", "adaround"):
-        raise ValueError(mode)
-    alpha = s["w_alpha"] if mode == "adaround" else None
-    if impl != "pallas":
-        return fake_quant_ref(w, s["w_delta"], s["w_zp"], alpha, bits,
-                              hadamard, soft)
-    # the fused kernel forward, the plain chain's gradients
-    if alpha is None:
-        return uaq_fake_quant(w, s["w_delta"], s["w_zp"], bits, hadamard)
-    return ada_fake_quant(w, s["w_delta"], s["w_zp"], alpha, bits, hadamard,
-                          soft)
-
-
 def _fq_bias(b, s, bits: int, mode: str, soft: bool):
     if mode == "uaq":
         return Q.uaq_fake_quant(b, s["b_delta"], s["b_zp"], bits)
@@ -90,17 +75,31 @@ def quantize_params(params, spec: QuantSpec, state: Dict, mode: str = "uaq",
                     soft: bool = True):
     """A state dict with fake-quantized kernels and biases for every spec
     layer. Under mode='adaround' a layer without alphas is nearest-rounded:
-    the mixed-rounding state."""
-    out = params
+    the mixed-rounding state. Under ``spec.fq_impl == 'pallas'`` the
+    weights of all the layers go through one grouped kernel call
+    (``fake_quant_group``: one launch forward, one backward); the biases
+    take the plain chain under both impls, as in the JAX package."""
+    if mode not in ("uaq", "adaround"):
+        raise ValueError(mode)
+    layers = []
     for name, path, bits in zip(spec.layer_names, spec.layer_paths,
                                 spec.n_bits):
         w, b = _get(params, path)
         s = state[name]
         lmode = mode if (mode != "adaround" or "w_alpha" in s) else "uaq"
-        out = _set(out, path,
-                   _fq_weight(w, s, bits, spec.hadamard, lmode, soft,
-                              spec.fq_impl),
-                   _fq_bias(b, s, bits, lmode, soft))
+        layers.append((path, w, b, s, bits, lmode,
+                       s["w_alpha"] if lmode == "adaround" else None))
+    if spec.fq_impl == "pallas":
+        kernels = fake_quant_group(
+            [(w, s["w_delta"], s["w_zp"], alpha, bits, soft)
+             for _, w, _, s, bits, _, alpha in layers], spec.hadamard)
+    else:
+        kernels = [fake_quant_ref(w, s["w_delta"], s["w_zp"], alpha, bits,
+                                  spec.hadamard, soft)
+                   for _, w, _, s, bits, _, alpha in layers]
+    out = params
+    for (path, _, b, s, bits, lmode, _), kernel in zip(layers, kernels):
+        out = _set(out, path, kernel, _fq_bias(b, s, bits, lmode, soft))
     return out
 
 

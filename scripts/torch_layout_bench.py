@@ -18,8 +18,8 @@ name both. Per shape and root:
   launches (torch.profiler);
 - host_us: a host clock over 1,000 wrapper calls with no synchronisation
   between them (the enqueue cost);
-- library_ms and library_device_ms: one PyTorch call of the same function
-  (permute().contiguous(), F.pixel_shuffle).
+- library_ms, library_device_ms and library_host_us: one PyTorch call of
+  the same function (permute().contiguous(), F.pixel_shuffle).
 Then, in every pass, one wrapper call's host cost split into its parts:
 route and checks, allocation, stream lookup, the launcher's ctypes call without
 a launch (the batch-0 early return) and the launch itself. --check holds
@@ -339,13 +339,15 @@ def main() -> int:
                            host_us=_host_us(torch, run),
                            library_ms=_time_ms(torch, libcall),
                            library_device_ms=_device_ms(torch, libcall),
+                           library_host_us=_host_us(torch, libcall),
                            bound_ms=nbytes / 3.35e12 * 1e3, card=card)
                 rows.append(row)
                 print(f"  [{ri}] {kernel} {shape}: {row['ms']:.4f} ms back "
                       f"to back, device {row['device_ms']}, host "
                       f"{row['host_us']:.2f} us/call; library "
                       f"{row['library_ms']:.4f} ms, device "
-                      f"{row['library_device_ms']}; bound "
+                      f"{row['library_device_ms']}, host "
+                      f"{row['library_host_us']:.2f} us/call; bound "
                       f"{row['bound_ms']:.4f}")
                 sys.stdout.flush()
             # in every pass: the host's speed drifts between passes

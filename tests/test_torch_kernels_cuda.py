@@ -254,7 +254,8 @@ def test_decode_goes_through_the_kernels(dev):
     n_layers = len(kern.blocks) - kern.pack_start + 1
     assert counts == {"tail_conv_cf": n_layers + 1, "tail_conv_dw_cf": 0,
                       "pack_cf": 2, "unpack_cf": 0, "unpack_frames": 1,
-                      "fq_uaq": 0, "fq_ada": 0}
+                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
+                      "fq_ada_bwd": 0}
     assert float((got - want).abs().max()) <= 1e-4
 
 
@@ -302,9 +303,12 @@ def test_unpack_cf(dev, small, c):
     plan = small[0]
     gen = torch.Generator(device=dev).manual_seed(c)
     g = torch.randn((2, tf._r8(c), plan.mp), generator=gen, device=dev)
+    tf.reset_launch_counts()
     got = tf.unpack_cf(g, plan, c)
-    assert got.shape == (2, plan.h, plan.w, c)
+    assert tf.KERNEL_LAUNCHES["unpack_cf"] == 1    # the parameter block path
+    assert got.shape == (2, plan.h, plan.w, c) and got.is_contiguous()
     assert torch.equal(got, tf.unpack_cf_ref(g, plan, c))
+    assert torch.equal(tf.unpack_cf(g, plan, c), got)     # a cached block
 
 
 def test_tail_backward_matches_plain_autograd(dev, small):
@@ -397,7 +401,8 @@ def test_calibration_step_runs_on_the_kernels(dev, monkeypatch):
     n = len(plan.layers) + 1                 # the tail and the prefix block
     assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
                       "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 0,
-                      "fq_uaq": 0, "fq_ada": 0}
+                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
+                      "fq_ada_bwd": 0}
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     top = max(float(g.abs().max()) for g in grads_p)
     for a, b in zip(grads_k, grads_p):
@@ -467,43 +472,133 @@ def test_fq_hadamard_refuses_what_it_does_not_take(dev):
         ff.fused_fake_quant_hwio(w, torch.ones(3, device=dev), s, 4)
     with pytest.raises(ValueError, match="delta"):
         ff.fused_fake_quant_hwio(w, s.cpu(), s, 4)
+    with pytest.raises(ValueError, match="at most 256"):
+        ff.fused_fake_quant_hwio(torch.zeros((17, 17, 8, 4), device=dev), s,
+                                 s, 4)
+    with pytest.raises(ValueError, match="several devices"):
+        ff.fake_quant_group([(w, s, s, None, 4, True),
+                             (w.cpu(), s.cpu(), s.cpu(), None, 4, True)],
+                            True)
+    # the backward launch takes the gradient the forward's output gets
+    with pytest.raises(ValueError, match="gradient"):
+        ff._backward([(w, s, s, None, 4, True)], True,
+                     [torch.zeros(w.shape, dtype=torch.float64, device=dev)],
+                     [(False, True, False, False)])
 
 
-@pytest.mark.parametrize("mode", ["uaq", "soft"])
-def test_fq_functions_give_the_plain_gradients(dev, mode):
-    """Kernel forward, the plain version's VJP backward: the gradients of
-    w, delta, zp and alpha are those of autograd through the plain chain."""
+def _fq_grads_close(got, want, scales, what):
+    """dw and dalpha within 1e-6 of the leaf's largest value (the kernel
+    takes autograd's products in autograd's order); the reduced ddelta and
+    dzp within 1e-5 of each channel's sum of the magnitudes of their terms
+    (an fp32 sum in another order; their two halves cancel)."""
+    for name, g, w, sc in zip(("dw", "ddelta", "dzp", "dalpha"), got, want,
+                              (None, *scales, None)):
+        if w is None:
+            assert g is None or not bool(g.any()), (what, name)
+            continue
+        assert g.shape == w.shape, (what, name)
+        err = (g - w).abs()
+        tol = (1e-5 * sc if sc is not None
+               else 1e-6 * max(1.0, float(w.abs().max())))
+        assert bool((err <= tol).all()), (what, name, float(err.max()))
+
+
+@pytest.mark.parametrize("mode", ["uaq", "soft", "hard"])
+@pytest.mark.parametrize("khw,cin,cout,hadamard,channel_wise", [
+    ((3, 3), 53, 12, True, True), ((5, 5), 64, 9, True, True),
+    ((1, 1), 92, 40, True, False), ((3, 3), 37, 3, False, True),
+    ((3, 3), 300, 5, True, True)])
+def test_fq_functions_give_the_plain_gradients(dev, mode, khw, cin, cout,
+                                               hadamard, channel_wise):
+    """The backward kernel: the gradients of w, delta, zp and alpha against
+    the closed form (fake_quant_vjp_ref) and autograd through the plain
+    chain, one forward and one backward launch; the same bits twice."""
     from neuroquant_tpu_torch.ops import fused_fakequant as ff
 
-    w, d, z, a = _fq_case(dev, (3, 3), 53, 12, True, True, 4, 3)
+    w, d, z, a = _fq_case(dev, khw, cin, cout, hadamard, channel_wise, 4, 3)
     wt = torch.randn(w.shape, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(9))
-    tensors = (w, d, z) if mode == "uaq" else (w, d, z, a)
+    alpha, soft = (None if mode == "uaq" else a), mode != "hard"
+    tensors = (w, d, z) if alpha is None else (w, d, z, a)
 
     def grads(fn):
         leaves = [t.detach().clone().requires_grad_() for t in tensors]
         (fn(*leaves) * wt).sum().backward()
-        return [t.grad for t in leaves]
+        return [t.grad for t in leaves] + [None] * (4 - len(leaves))
+
+    def kernel(*t):
+        if alpha is None:
+            return ff.uaq_fake_quant(*t, 4, hadamard)
+        return ff.ada_fake_quant(*t, 4, hadamard, soft)
 
     tf.reset_launch_counts()
-    if mode == "uaq":
-        got = grads(lambda *t: ff.uaq_fake_quant(*t, 4, True))
-        want = grads(lambda *t: ff.fake_quant_ref(*t, None, 4, True))
-    else:
-        got = grads(lambda *t: ff.ada_fake_quant(*t, 4, True, True))
-        want = grads(lambda *t: ff.fake_quant_ref(*t, 4, True, True))
-    assert tf.KERNEL_LAUNCHES["fq_uaq" if mode == "uaq" else "fq_ada"] == 1
-    for g, r in zip(got, want):
-        # the same chain on the same inputs; the cotangent is the same
-        assert float((g - r).abs().max()) <= 1e-6 * max(
-            1.0, float(r.abs().max()))
+    got = grads(kernel)
+    torch.cuda.synchronize()
+    name = "fq_uaq" if alpha is None else "fq_ada"
+    assert tf.KERNEL_LAUNCHES[name] == 1
+    assert tf.KERNEL_LAUNCHES[name + "_bwd"] == 1
+    want = grads(lambda *t: ff.fake_quant_ref(*t[:3], t[3] if len(t) > 3
+                                              else None, 4, hadamard, soft))
+    closed = ff.fake_quant_vjp_ref(wt, w, d, z, alpha, 4, hadamard, soft)
+    scales = ff.fake_quant_vjp_ref(
+        wt, w, d, z, alpha, 4, hadamard, soft,
+        sum_like=lambda t, like: ff._sum_like(t.abs(), like))[1:3]
+    _fq_grads_close(got, closed, scales, "closed form")
+    _fq_grads_close(got, want, scales, "autograd")
+    again = grads(kernel)
+    for g1, g2 in zip(got, again):
+        assert (g1 is None) == (g2 is None)
+        assert g1 is None or torch.equal(g1, g2)     # no atomics
 
 
-@pytest.mark.parametrize("mode,soft", [("uaq", True), ("adaround", True),
-                                       ("adaround", False)])
-def test_quantize_params_on_the_kernel(dev, mode, soft):
-    """quantize_params(fq_impl='pallas') on the card: one launch per layer
-    and the 'jnp' implementation's weights."""
+def test_fq_group_is_the_plain_chain(dev):
+    """One grouped launch over a mixed-rounding group (UAQ, soft, hard;
+    channel-wise and per-layer scales; 1x1, 3x3, 5x5; C_in 16-300) gives
+    each layer's plain chain bit for bit, and one backward launch its
+    closed-form gradients."""
+    from neuroquant_tpu_torch.ops import fused_fakequant as ff
+
+    specs = [((3, 3), 53, 12, True, "uaq"), ((1, 1), 16, 92, True, "soft"),
+             ((5, 5), 44, 7, False, "uaq"), ((3, 3), 37, 3, True, "hard"),
+             ((5, 5), 64, 9, False, "soft"), ((3, 3), 300, 5, True, "soft")]
+    leaves, layers, cots = [], [], []
+    for i, (khw, cin, cout, cw, mode) in enumerate(specs):
+        w, d, z, a = _fq_case(dev, khw, cin, cout, True, cw, 5, 40 + i)
+        lv = [t.detach().clone().requires_grad_() for t in (w, d, z, a)]
+        if mode == "uaq":
+            lv[3] = None
+        leaves.append(lv)
+        layers.append((*lv, 5, mode != "hard"))
+        cots.append(torch.randn(w.shape, device=dev,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(i)))
+    tf.reset_launch_counts()
+    outs = ff.fake_quant_group(layers, True)
+    sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
+    assert counts == {"fq_ada": 1, "fq_ada_bwd": 1}, counts
+    for lv, (*_, bits, soft), out, cot in zip(leaves, layers, outs, cots):
+        w, d, z, a = (None if t is None else t.detach() for t in lv)
+        assert torch.equal(out.detach(),
+                           ff.fake_quant_ref(w, d, z, a, bits, True, soft))
+        closed = ff.fake_quant_vjp_ref(cot, w, d, z, a, bits, True, soft)
+        scales = ff.fake_quant_vjp_ref(
+            cot, w, d, z, a, bits, True, soft,
+            sum_like=lambda t, like: ff._sum_like(t.abs(), like))[1:3]
+        _fq_grads_close([None if t is None else t.grad for t in lv], closed,
+                        scales, "group")
+
+
+@pytest.mark.parametrize("mode,soft,mixed", [
+    ("uaq", True, False), ("adaround", True, False),
+    ("adaround", False, False), ("adaround", True, True)])
+def test_quantize_params_on_the_kernel(dev, mode, soft, mixed):
+    """quantize_params(fq_impl='pallas') on the card: one forward launch
+    per call and one backward launch per backward (a mixed-rounding state
+    too: AdaRound on every other layer), the 'jnp' implementation's weights
+    bit for bit and its trained leaves' gradients (alphas 1e-6 of the
+    largest; deltas, reduced in another order, 1e-5)."""
     import dataclasses
 
     from neuroquant_tpu_torch.models import build_model
@@ -516,15 +611,41 @@ def test_quantize_params_on_the_kernel(dev, mode, soft):
         (6, 5, 4, 5, 6))
     state = init_quant_state(params, spec)
     if mode == "adaround":
-        state = adaround_upgrade(params, spec, state)
-    want = quantize_params(params, spec, state, mode=mode, soft=soft)
+        state = adaround_upgrade(params, spec, state, only=(
+            tuple(spec.layer_names[::2]) if mixed else None))
+    leaf = "w_delta" if mode == "uaq" else "w_alpha"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cot = {k: torch.randn(v.shape, generator=gen, device=dev)
+           for k, v in params.items() if k.endswith("weight")}
+
+    def run(sp):
+        st = {ln: {k: v.clone().requires_grad_(k == leaf)
+                   for k, v in s.items()} for ln, s in state.items()}
+        out = quantize_params(params, sp, st, mode=mode, soft=soft)
+        torch.cuda.synchronize()
+        fwd = dict(tf.KERNEL_LAUNCHES)
+        total = sum((out[k] * c).sum() for k, c in cot.items())
+        if total.requires_grad:       # hard rounding: no path to an alpha
+            total.backward()
+        return out, {ln: st[ln][leaf].grad for ln in st if leaf in st[ln]}, fwd
+
+    want, gwant, _ = run(spec)
     tf.reset_launch_counts()
-    got = quantize_params(params, dataclasses.replace(spec, fq_impl="pallas"),
-                          state, mode=mode, soft=soft)
+    got, ggot, fwd = run(dataclasses.replace(spec, fq_impl="pallas"))
     torch.cuda.synchronize()
     key = "fq_uaq" if mode == "uaq" else "fq_ada"
-    assert tf.KERNEL_LAUNCHES[key] == spec.num_layers
+    assert {k: v for k, v in fwd.items() if v} == {key: 1}, fwd
+    counts = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
+    assert counts == ({key: 1, key + "_bwd": 1} if soft or mode == "uaq"
+                      else {key: 1}), counts     # hard alphas get nothing
     for k in want:
         assert got[k].shape == want[k].shape and got[k].is_contiguous()
-        assert float((got[k] - want[k]).abs().max()) <= 1e-6 * max(
-            1.0, float(want[k].abs().max())), k
+        if k.endswith("weight"):
+            assert torch.equal(got[k].detach(), want[k].detach()), k
+    for ln, g in gwant.items():
+        if g is None:
+            assert ggot[ln] is None, ln
+            continue
+        tol = 1e-5 if leaf == "w_delta" else 1e-6
+        assert float((ggot[ln] - g).abs().max()) <= tol * max(
+            1e-30, float(g.abs().max())), ln

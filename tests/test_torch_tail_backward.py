@@ -229,3 +229,21 @@ def test_no_graph_without_gradients(case):
         assert ttf.pack_cf(torch.zeros(B, tplan.h, tplan.w, 5,
                                        requires_grad=True),
                            tplan).grad_fn is None
+
+
+def test_second_derivative_through_the_tail_raises(case):
+    """The tail's backward is first-order, as the JAX tail's custom VJP: a
+    gradient taken with create_graph=True carries no graph through the
+    kernels' backward, so a second derivative through ``tail_apply``
+    raises instead of coming out silently wrong."""
+    _, (tplan, tkks, tbms, *_), cf = case
+    x = torch.from_numpy(cf(tplan.layers[0].cin)).requires_grad_()
+    ks = [k.clone().requires_grad_() for k in tkks]
+    y = ttf.tail_apply(tplan, x, ks, tbms)
+    # a loss whose gradient at the output depends on the inputs, as a
+    # Hessian-vector product's does
+    first = torch.autograd.grad((y ** 2).sum(), [x, *ks], create_graph=True)
+    with pytest.raises(RuntimeError, match="not have been used in the graph"):
+        torch.autograd.grad(sum((g * g).sum() for g in first), [x, *ks])
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        sum((g * g).sum() for g in first).backward()
