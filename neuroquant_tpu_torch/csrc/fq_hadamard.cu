@@ -75,16 +75,12 @@ namespace {
 
 // threads a block and the blocks an SM keeps of the narrow instantiation
 // (64 registers a thread): 256 and 4 beat 512 and 2 on each of the four
-// passes, timed in turns on an H100 (scripts/torch_fq_bench.py --variant)
-#ifndef NQ_FQ_THREADS
-#define NQ_FQ_THREADS 256
-#endif
-#ifndef NQ_FQ_MIN_BLOCKS
-#define NQ_FQ_MIN_BLOCKS 4
-#endif
-
+// passes, timed in turns on an H100 (PERF.md). The Python tile map
+// (fused_fakequant.FQ_WARPS) assumes THREADS; nq_fq_threads() checks it at
+// load.
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int MIN_BLOCKS = 4;
 constexpr int MODE_UAQ = 0, MODE_ADA_SOFT = 1, MODE_ADA_HARD = 2;
-constexpr int THREADS = NQ_FQ_THREADS, WARPS = THREADS / 32;
 constexpr int MAX_LAYERS = 16;
 constexpr int MAX_BLOCK_ROWS = 256;   // rows of a block's channel sums
 // one tile buffer's floats: two buffers and the rows' sums fit the 48 KB a
@@ -539,10 +535,10 @@ __device__ __forceinline__ void backward_tile(const Layer& L, const Tile& t) {
 // Persistent blocks with two tile buffers each: a block asks for its next
 // tile's tensors (cp.async) before it computes the current one, so the
 // loads of one tile overlap the butterflies of the other. The narrow
-// instantiation (v <= 4) keeps NQ_FQ_MIN_BLOCKS blocks an SM; the wide one
+// instantiation (v <= 4) keeps MIN_BLOCKS blocks an SM; the wide one
 // takes the registers its 32 values a lane need.
 template <int VMAX, bool BACKWARD>
-__global__ void __launch_bounds__(THREADS, VMAX <= 4 ? NQ_FQ_MIN_BLOCKS : 1)
+__global__ void __launch_bounds__(THREADS, VMAX <= 4 ? MIN_BLOCKS : 1)
     fq_kernel(const __grid_constant__ Group grp, int buf_floats) {
   extern __shared__ float smem[];
   float* part = smem + 2 * buf_floats;
@@ -630,7 +626,7 @@ int launch(const Group* grp, void* stream) {
   const size_t smem = (size_t)(2 * buf + sums) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   const bool narrow = vmax <= 4;
-  const int most = sm_count() * (narrow ? NQ_FQ_MIN_BLOCKS : 1);
+  const int most = sm_count() * (narrow ? MIN_BLOCKS : 1);
   const int grid = grp->blocks < most ? grp->blocks : most;
   if (narrow)
     fq_kernel<4, BACKWARD><<<grid, THREADS, smem, s>>>(*grp, buf);
@@ -643,6 +639,9 @@ int launch(const Group* grp, void* stream) {
 
 // The size of a Group, for the Python mirror's check.
 extern "C" int nq_fq_group_bytes() { return (int)sizeof(Group); }
+
+// Threads a block, for the Python tile map's check.
+extern "C" int nq_fq_threads() { return THREADS; }
 
 // One forward launch over the group's layers: each layer's out.
 extern "C" int nq_fq_group_forward(const void* grp, void* stream) {

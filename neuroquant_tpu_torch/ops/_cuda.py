@@ -110,7 +110,9 @@ def lib() -> ctypes.CDLL:
         # the group's descriptor (ops/fused_fakequant._Group), stream
         "nq_fq_group_forward": [p, p],
         "nq_fq_group_backward": [p, p],
+        # the Group's size and the threads a block, for the mirror's checks
         "nq_fq_group_bytes": [],
+        "nq_fq_threads": [],
     }
     for name, args in sigs.items():
         fn = getattr(so, name)

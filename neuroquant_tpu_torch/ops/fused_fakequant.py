@@ -60,7 +60,7 @@ from neuroquant_tpu_torch.ops.tail_fused import _launch, _needs_grad, _route
 MAX_C = 1024          # the kernels' widest padded C_in: 32 registers a lane
 MAX_LAYERS = 16       # layers in one launch's descriptor
 MAX_BLOCK_ROWS = 256  # rows whose sums one block keeps (the kernel's KH*KW)
-FQ_WARPS = 8          # warps per block (the kernels' NQ_FQ_THREADS / 32)
+FQ_WARPS = 8          # warps per block (the kernels' THREADS / 32)
 STAGE_FLOATS = 5632   # a tile buffer's floats (two and the sums: 48 KB)
 FILL = 0.75           # the least share of a block's row slots in use
 MODE_UAQ, MODE_ADA_SOFT, MODE_ADA_HARD = 0, 1, 2
@@ -248,6 +248,10 @@ def _lib():
         raise RuntimeError(
             f"fq_hadamard: the kernel's Group is {lib.nq_fq_group_bytes()} "
             f"bytes, its mirror {ctypes.sizeof(_Group)}")
+    if lib.nq_fq_threads() != 32 * FQ_WARPS:
+        raise RuntimeError(
+            f"fq_hadamard: the kernels take {lib.nq_fq_threads()} threads a "
+            f"block, the tile map {32 * FQ_WARPS}")
     return lib
 
 
@@ -440,21 +444,32 @@ def _hwio_view(flat, shape, offset: int):
                            (kw, 1, kh * kw, cin * kh * kw), offset)
 
 
+def _route_group(layers) -> bool:
+    """:func:`_route` for a whole group: every tensor of every layer must
+    lie on the first weight's device, so a CUDA tensor never reaches the
+    plain chain and a CPU one never the kernels."""
+    dev = layers[0][0].device
+    for i, lay in enumerate(layers):
+        for name, t in zip(("w", "delta", "zp", "alpha"), lay[:4]):
+            if t is not None and t.device != dev:
+                raise ValueError(
+                    f"fused_fake_quant {name} of layer {i}: on {t.device}, "
+                    f"the first weight on {dev}; the layers lie on several "
+                    "devices")
+    return _route(layers[0][0], "fused_fake_quant")
+
+
 def _forward(layers, hadamard: bool):
     """The fake-quantized HWIO weights of every layer, (w, delta, zp, alpha
     | None, n_bits, soft) each: one kernel launch per ``MAX_LAYERS``
     layers on the card, the plain chain on the CPU."""
-    if not _route(layers[0][0], "fused_fake_quant"):
+    if not _route_group(layers):
         return [fake_quant_ref(w, d, z, a, b, hadamard, s)
                 for w, d, z, a, b, s in layers]
     key = (False, hadamard, tuple(map(_signature, layers)))
     plan, prep = _PLANS.get(key), None
     if plan is None:
         prep = [_prepare(*lay[:5], hadamard, lay[5]) for lay in layers]
-        dev = prep[0].w.device
-        if any(p.w.device != dev for p in prep):
-            raise ValueError("fused_fake_quant: the layers lie on several "
-                             "devices")
         offsets = [0]
         for p in prep:
             offsets.append(offsets[-1] + p.w.numel())
@@ -491,7 +506,7 @@ def _backward(layers, hadamard: bool, gs, needs):
     outputs for the cotangents gs, None where ``needs`` (4 flags a layer)
     asks for none: one backward launch per ``MAX_LAYERS`` layers that need
     any on the card, :func:`fake_quant_vjp_ref` on the CPU."""
-    if not _route(layers[0][0], "fused_fake_quant"):
+    if not _route_group(layers):
         return [fake_quant_vjp_ref(g, w, d, z, a, b, hadamard, s, nd)
                 if any(nd) and g is not None else (None,) * 4
                 for (w, d, z, a, b, s), g, nd in zip(layers, gs, needs)]
@@ -620,7 +635,7 @@ def fused_fake_quant_hwio(w_hwio, delta, zp, n_bits: int,
                           soft: bool = True):
     """One layer's fused fake-quant, forward only: the kernel on a CUDA
     tensor, :func:`fake_quant_ref` on a CPU one."""
-    if not _route(w_hwio, "fused_fake_quant"):
+    if not _route_group([(w_hwio, delta, zp, alpha)]):
         return fake_quant_ref(w_hwio, delta, zp, alpha, n_bits, hadamard,
                               soft)
     return _forward([(w_hwio, delta, zp, alpha, n_bits, soft)], hadamard)[0]

@@ -3,8 +3,7 @@
 seven HNeRV Bunny-3M weight layers, as a calibration calls them, on one
 NVIDIA GPU:
 
-  python3 scripts/torch_fq_bench.py [--variant THREADS:MIN_BLOCKS]...
-                                    [--no-stage] [--root DIR] [--out FILE]
+  python3 scripts/torch_fq_bench.py [--root DIR] [--out FILE]
 
 Seeded random weights at the layers' shapes, max scales in the Hadamard
 domain, 5 bits, and alphas made as ``adaround_upgrade`` makes them (in the
@@ -16,15 +15,12 @@ alone), back-to-back ms of the wrapper call (CUDA events), the bound
 (bytes over 3.35 TB/s: each input read once, each output written once)
 and the share of it reached; every result is checked first (the forward
 bit for bit against the plain chain, dalpha against the closed form).
-Each --variant rebuilds the kernels with another block size and
-launch-bounds minimum (the library's is 256:4). The card is kept busy for
-~2 s first, and the builds are timed in turns (first, second, ..., second,
-first): a card's time for these ~0.03 ms kernels drifts within a process,
-later passes reading faster. --no-stage also times every build with no
-layer staged in shared memory. --root names an older
-checkout (unpacked with ``git archive``) whose fake-quant kernel launches
-once per layer (``fused_fake_quant_hwio``): its forward is timed the same
-way, before and after this tree's, and the backward that its autograd
+The card is kept busy for ~2 s first: a card's time for these ~0.03 ms
+kernels drifts within a process, later passes reading faster. --root
+names an older checkout (unpacked with ``git archive``) whose fake-quant
+kernel launches once per layer (``fused_fake_quant_hwio``): its forward
+is timed the same way, before and after this tree's, and the backward
+that its autograd
 Functions took, the plain chain recomputed and differentiated by autograd,
 beside this tree's backward kernel. Prints the card's name and power limit
 first and writes the rows as JSON to --out.
@@ -223,15 +219,12 @@ def _older(torch, root, uaq, ada, cots, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", action="append", default=[])
-    ap.add_argument("--no-stage", action="store_true")
     ap.add_argument("--root", default=None)
     ap.add_argument("--out", default=os.path.join(HERE, "results",
                                                   "fq_bench.json"))
     args = ap.parse_args()
     import torch
 
-    from neuroquant_tpu_torch.ops import _cuda
     from neuroquant_tpu_torch.ops import fused_fakequant as ff
     from neuroquant_tpu_torch.ops import quant as Q
     from neuroquant_tpu_torch.ops.hadamard import fwht, pad_cin_to_pow2
@@ -250,45 +243,21 @@ def main() -> int:
         rows += _older(torch, os.path.abspath(args.root), uaq, ada, cots,
                        card)
         ff = _load(HERE)
-        from neuroquant_tpu_torch.ops import _cuda
-    base_flags, base_warps, base_stage = (_cuda.NVCC_FLAGS, ff.FQ_WARPS,
-                                          ff.STAGE_FLOATS)
-    builds = [None] + args.variant
-    for variant in builds + builds[::-1]:
-        if variant is None:
-            threads, minb, flags = 256, 4, ()
-        else:
-            threads, minb = (int(v) for v in variant.split(":"))
-            flags = (f"-DNQ_FQ_THREADS={threads}",
-                     f"-DNQ_FQ_MIN_BLOCKS={minb}")
-        _cuda.NVCC_FLAGS = base_flags + flags
-        _cuda.lib.cache_clear()
-        ff._lib.cache_clear()
-        _cuda.lib()
-        for stage in ([base_stage, 0] if args.no_stage else [base_stage]):
-            ff.FQ_WARPS, ff.STAGE_FLOATS = threads // 32, stage
-            ff.fq_geometry.cache_clear()
-            ff._PLANS.clear()
-            for label, kname, run, nbytes, check in _passes(torch, ff, uaq,
-                                                             ada, cots):
-                check(run())
-                torch.cuda.synchronize()
-                dev = _device_ms(torch, run, kname)
-                bound = nbytes / 3.35e12 * 1e3
-                row = dict(card=card, root=HERE, threads=threads,
-                           min_blocks=minb,
-                           staged=bool(stage), kernel=label,
-                           device_ms=dev, ms=_time_ms(torch, run),
-                           bound_ms=bound, mbytes=nbytes / 1e6,
-                           share=None if not dev else bound / dev)
-                rows.append(row)
-                print(f"  [{threads}:{minb}{'' if stage else ' unstaged'}] "
-                      f"{label}: device {dev} ms ("
-                      f"{'-' if not dev else f'{100 * bound / dev:.0f}%'} of "
-                      f"the bound {bound:.4f}, {nbytes / 1e6:.1f} MB); "
-                      f"{row['ms']:.4f} ms back to back", flush=True)
-    _cuda.NVCC_FLAGS, ff.FQ_WARPS, ff.STAGE_FLOATS = (base_flags, base_warps,
-                                                      base_stage)
+    for label, kname, run, nbytes, check in _passes(torch, ff, uaq, ada,
+                                                     cots):
+        check(run())
+        torch.cuda.synchronize()
+        dev = _device_ms(torch, run, kname)
+        bound = nbytes / 3.35e12 * 1e3
+        row = dict(card=card, root=HERE, kernel=label, device_ms=dev,
+                   ms=_time_ms(torch, run), bound_ms=bound,
+                   mbytes=nbytes / 1e6,
+                   share=None if not dev else bound / dev)
+        rows.append(row)
+        print(f"  {label}: device {dev} ms ("
+              f"{'-' if not dev else f'{100 * bound / dev:.0f}%'} of the "
+              f"bound {bound:.4f}, {nbytes / 1e6:.1f} MB); "
+              f"{row['ms']:.4f} ms back to back", flush=True)
     if args.root:
         rows += _older(torch, os.path.abspath(args.root), uaq, ada, cots,
                        card)

@@ -386,6 +386,25 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
         tff._prepare(w, torch.ones(3), s, None, BITS, True, True)
 
 
+@pytest.mark.parametrize("where", ["second weight", "first delta"])
+def test_group_on_several_devices_raises(where):
+    """A group whose tensors do not all lie on the first weight's device
+    raises before it picks the kernels or the plain chain (meta stands in
+    for the card, which this test need not have)."""
+    w, s = torch.zeros((3, 3, 8, 4)), torch.ones((1, 1, 1, 4))
+    other = torch.zeros((3, 3, 8, 4), device="meta")
+    if where == "second weight":
+        layers = [(w, s, s, None, BITS, True), (other, s, s, None, BITS,
+                                                 True)]
+    else:
+        layers = [(w, s.to("meta"), s, None, BITS, True)]
+    with pytest.raises(ValueError, match="several devices"):
+        tff.fake_quant_group(layers, True)
+    with pytest.raises(ValueError, match="several devices"):
+        tff._backward(layers, True, [w] * len(layers),
+                      [(True, True, True, False)] * len(layers))
+
+
 # --------------------------------------------------------------------------
 # The launch path on the CPU: the kernels' arithmetic stands in for them,
 # reading the Group each launch passes from the pointers in it

@@ -475,10 +475,12 @@ def test_fq_hadamard_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="at most 256"):
         ff.fused_fake_quant_hwio(torch.zeros((17, 17, 8, 4), device=dev), s,
                                  s, 4)
-    with pytest.raises(ValueError, match="several devices"):
-        ff.fake_quant_group([(w, s, s, None, 4, True),
-                             (w.cpu(), s.cpu(), s.cpu(), None, 4, True)],
-                            True)
+    for first, second in ((w, w.cpu()), (w.cpu(), w)):  # either order
+        with pytest.raises(ValueError, match="several devices"):
+            ff.fake_quant_group([(first, s.to(first.device),
+                                  s.to(first.device), None, 4, True),
+                                 (second, s.to(second.device),
+                                  s.to(second.device), None, 4, True)], True)
     # the backward launch takes the gradient the forward's output gets
     with pytest.raises(ValueError, match="gradient"):
         ff._backward([(w, s, s, None, 4, True)], True,
@@ -638,10 +640,14 @@ def test_quantize_params_on_the_kernel(dev, mode, soft, mixed):
     counts = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
     assert counts == ({key: 1, key + "_bwd": 1} if soft or mode == "uaq"
                       else {key: 1}), counts     # hard alphas get nothing
+    assert set(got) == set(want)
     for k in want:
         assert got[k].shape == want[k].shape and got[k].is_contiguous()
+        g, w = got[k].detach(), want[k].detach()
         if k.endswith("weight"):
-            assert torch.equal(got[k].detach(), want[k].detach()), k
+            assert torch.equal(g, w), k
+        assert float((g - w).abs().max()) <= 1e-6 * max(
+            1.0, float(w.abs().max())), k
     for ln, g in gwant.items():
         if g is None:
             assert ggot[ln] is None, ln
