@@ -57,6 +57,18 @@ Phases (any failure exits non-zero):
      ``eval_quantized.main --from_bitstream``: the stream decodes to the
      artifact's codes, PSNR within 0.01 dB of the artifact's state eval,
      decode launches 4 / 2 / 1; stream bytes, bpp, the native coder's times
+ 11. stage 2 -- one batch's Hessian-vector product on the kernels
+     (``fused_tail: pallas_hvp``, the forward-mode tail) against the plain
+     unpacked path (1e-3 of each leaf's largest) and that path in float64
+     (1e-4), with its launches; then
+     ``neuroquant_tpu_torch.methods.bit_assign.main`` at Bunny-3M, batch 2,
+     from a .pth of the seeded weights on the 8 seeded frames, toy
+     candidates, once per route (omega on --hvp_impl xla and pallas,
+     fisher_diag on the production tail): the same winner, the two HVP
+     routes' per-layer omega scores within 1e-4 of each layer's sum of
+     |Hv * v|, tail_conv_cf, tail_conv_dw_cf, pack_cf and unpack_cf
+     launched and unpack_frames not on pallas; seconds per candidate and
+     per batch, launches per batch and peak memory of each route
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -65,7 +77,8 @@ its times and bound summed over one decode's launches (the decode's
 kernels), one calibration step's (tail_conv_dw_cf, unpack_cf) or one
 ``quantize_params`` call's grouped launch over its seven layers (fq_uaq,
 fq_ada; the backward's fq_uaq_bwd, fq_ada_bwd); per-launch figures under
-"per_launch". The last line is {"ok": true, "device": ...}.
+"per_launch"; its launches per stage-2 batch beside them. The last line is
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -122,6 +135,15 @@ STREAM_PSNR_TOL = 0.01   # dB, the stream's eval against the state's
 # leaf's largest |gradient|
 GRAD_TOL = 1e-3
 LOSS_TOL = 1e-5      # relative
+# per-layer omega scores, --hvp_impl pallas against xla, of the layer's sum
+# of |Hv * v|: each score is a sum of products that cancel, in fp32 over
+# ~1e5 positions in other orders
+STAGE2_TOL = 1e-4
+# one batch's Hv on the kernels against the plain path in float64, of each
+# leaf's largest: fp32 through seven layers and two differentiations (the
+# plain path in fp32 is held to GRAD_TOL: cuDNN's algorithms for the 5x5
+# convs at 160x320 and 320x640 lose more)
+HV64_TOL = 1e-4
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1208,6 +1230,176 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
                 decode_s=t2 - t1, psnr=psnr, launches=launches)
 
 
+def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work):
+    """Stage 2 at Bunny-3M, batch 2: one batch's Hv on the kernels
+    (``fused_tail: pallas_hvp``, the forward-mode tail) against the plain
+    unpacked path in fp32 and in float64, with its launches; then
+    ``neuroquant_tpu_torch.methods.bit_assign.main`` from a .pth of the
+    seeded weights on the 8 seeded frames, toy candidates, once per route
+    (omega on --hvp_impl xla and pallas, fisher_diag on the production
+    tail): the same winner, per-layer omega scores of the two HVP routes
+    within STAGE2_TOL of the layer's sum of |Hv * v|, each route's seconds
+    per candidate and per batch, its launches per batch, its peak memory."""
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.methods import bit_assign
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization import (
+        get_perturbation, init_quant_state, make_spec)
+    from neuroquant_tpu_torch.quantization import sensitivity as sens
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    dev = torch.device("cuda")
+    params = state_dict_from_numpy(sd, dev)
+    frames = VideoDataSet(cfg, frames_dir, device=dev).frames
+    spec = make_spec("hnerv", cfg, channel_wise=True, scale_method="max"
+                     ).with_bits(bit_assign.HNERV_CANDIDATES["candidate2"])
+    vec = get_perturbation(params, spec, init_quant_state(params, spec))
+    batch = sens.draw_batches(N_FRAMES, CALIB_BATCH, 903)[:1]
+    hv = {}
+    for route, ft, dtype in (("pallas_hvp", "pallas_hvp", torch.float32),
+                             ("off", "off", torch.float32),
+                             ("off fp64", "off", torch.float64)):
+        model = build_model("hnerv", dict(cfg, fused_tail=ft), device=dev)
+        model.load_state_dict(params, strict=True)
+        model.to(dtype)
+        torch.cuda.synchronize()
+        tf.reset_launch_counts()
+        t0 = time.time()
+        hv[route] = sens.hessian_vector_product(
+            model, spec, [v.to(dtype) for v in vec], frames.to(dtype), batch)
+        torch.cuda.synchronize()
+        if route == "pallas_hvp":
+            one_batch_s, per_batch = time.time() - t0, dict(tf.KERNEL_LAUNCHES)
+        del model
+
+    def leaf_errs(got, want):
+        return [float((a.double() - b.double()).abs().max())
+                / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want)]
+
+    leaf_err = leaf_errs(hv["pallas_hvp"], hv["off"])
+    leaf_err64 = leaf_errs(hv["pallas_hvp"], hv["off fp64"])
+    plain_err64 = leaf_errs(hv["off"], hv["off fp64"])
+    hv_err = max(leaf_err)
+    print(f"  Hv of one batch, kernels (pallas_hvp) vs plain unpacked path: "
+          f"leaf max|diff| / max|Hv| "
+          f"{' '.join(f'{e:.2e}' for e in leaf_err)} (tol {GRAD_TOL:.0e}); "
+          f"vs the plain path in float64 "
+          f"{' '.join(f'{e:.2e}' for e in leaf_err64)} (tol "
+          f"{HV64_TOL:.0e}); the plain path's own against float64 "
+          f"{' '.join(f'{e:.2e}' for e in plain_err64)}; "
+          f"{one_batch_s:.3f} s; launches {per_batch}")
+    assert hv_err <= GRAD_TOL, hv_err
+    assert max(leaf_err64) <= HV64_TOL, leaf_err64
+    for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf"):
+        assert per_batch[k] > 0, per_batch
+    assert per_batch["unpack_frames"] == 0, per_batch
+    del hv, vec, params, frames
+
+    pth = os.path.join(work, "bunny_seeded.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    sc, hvp, fisher = (bit_assign.sensitivity_criterion,
+                       sens.hessian_vector_product, sens.fisher_gradient)
+    rec = {}
+
+    def counted(fn, key):
+        """`fn` (one candidate's batches) timed and its launches counted,
+        both per batch; the sum of |Hv * v| per layer kept."""
+        def wrapper(model, spec, *args, **kw):
+            batches = args[-1] if key == "fisher" else args[-2]
+            snap = dict(tf.KERNEL_LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(model, spec, *args, **kw)
+            torch.cuda.synchronize()
+            n = len(batches)
+            launches = {k: (v - snap[k]) / n
+                        for k, v in tf.KERNEL_LAUNCHES.items()}
+            mags = ([float((h * v).abs().sum()) for h, v in zip(out, args[0])]
+                    if key == "hvp" else None)
+            rec["calls"].append(dict(seconds=(time.time() - t0) / n,
+                                     batches=n, launches=launches,
+                                     mags=mags))
+            return out
+        return wrapper
+
+    def scored(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        total, per_layer = sc(*args, **kw)
+        torch.cuda.synchronize()
+        rec["candidates"].append(dict(seconds=time.time() - t0,
+                                      total=total, per_layer=per_layer))
+        return total, per_layer
+
+    routes = (("omega xla", ["--mode", "omega", "--hvp_impl", "xla"]),
+              ("omega pallas", ["--mode", "omega", "--hvp_impl", "pallas"]),
+              ("fisher_diag", ["--mode", "fisher_diag", "--hvp_impl",
+                               "pallas"]))
+    runs = {}
+    cwd = os.getcwd()
+    try:
+        bit_assign.sensitivity_criterion = scored
+        sens.hessian_vector_product = counted(hvp, "hvp")
+        sens.fisher_gradient = counted(fisher, "fisher")
+        os.chdir(work)
+        for i, (route, extra) in enumerate(routes):
+            rec = {"candidates": [], "calls": []}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tf.reset_launch_counts()
+            t0 = time.time()
+            best = bit_assign.main([
+                "--config", os.path.join(REPO, "configs", "HNeRV",
+                                         "Bunny_1280x640_3M.yaml"),
+                "--arch", "hnerv", "--data_path", frames_dir, "--vid",
+                "Bunny", "--outf", f"stage2_{i}", "--ckpt", pth,
+                "--batch_size", str(CALIB_BATCH), "--channel_wise",
+                "--init", "max", *extra])
+            torch.cuda.synchronize()
+            runs[route] = dict(best=list(best[:2]), score=best[2],
+                               wall_s=time.time() - t0,
+                               peak_mib=torch.cuda.max_memory_allocated()
+                               / 2**20, launches=dict(tf.KERNEL_LAUNCHES),
+                               **rec)
+    finally:
+        bit_assign.sensitivity_criterion = sc
+        sens.hessian_vector_product, sens.fisher_gradient = hvp, fisher
+        os.chdir(cwd)
+    for route, r in runs.items():
+        cand = [c["seconds"] for c in r["candidates"]]
+        per = [c["seconds"] for c in r["calls"]]
+        launches = r["calls"][0]["launches"]
+        assert all(c["launches"] == launches for c in r["calls"]), route
+        assert len(r["calls"]) == len(cand) == 2, route
+        assert all(math.isfinite(c["total"]) for c in r["candidates"])
+        print(f"  bit_assign {route}: best {r['best'][0]} {r['best'][1]} "
+              f"(score {r['score']:.4e}); {len(cand)} candidates, "
+              f"{'/'.join(f'{x:.3f}' for x in cand)} s each; "
+              f"{r['calls'][0]['batches']} batches each, "
+              f"{'/'.join(f'{x:.4f}' for x in per)} s a batch; launches per "
+              f"batch {launches}; peak {r['peak_mib']:.1f} MiB; "
+              f"{r['wall_s']:.1f} s wall (FP eval included); card {card}")
+        r["launches_per_batch"] = launches
+    assert len({tuple(r["best"][1]) for r in runs.values()}) == 1, runs
+    xla, pal = runs["omega xla"], runs["omega pallas"]
+    worst = 0.0
+    for a, b, call in zip(pal["candidates"], xla["candidates"], xla["calls"]):
+        for sa, sb, mag in zip(a["per_layer"], b["per_layer"], call["mags"]):
+            worst = max(worst, abs(sa - sb) / max(mag, 1e-30))
+    print(f"  per-layer omega scores, pallas vs xla: worst |diff| / sum|Hv*v| "
+          f"{worst:.2e} (tol {STAGE2_TOL:.0e})")
+    assert worst <= STAGE2_TOL, worst
+    pb = pal["launches_per_batch"]
+    for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf"):
+        assert pb[k] > 0, pb
+    assert pb["unpack_frames"] == 0, pb
+    assert not any(xla["launches_per_batch"].values()), xla
+    return dict(hv_one_batch_rel_err=leaf_err, hv_fp64_rel_err=leaf_err64,
+                plain_fp64_rel_err=plain_err64, one_batch_s=one_batch_s,
+                launches_one_batch=per_batch, omega_rel_err=worst,
+                runs=runs)
+
+
 def _write_frames(path: str, rng):
     from PIL import Image
 
@@ -1363,6 +1555,8 @@ def main() -> int:
                                    calib["psnr_blocks"])
         print("[bitstream]")
         stream = _bitstream_phase(torch, tf, calib_fq, frames_dir, card)
+        print("[stage 2: bit_assign]")
+        stage2 = _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -1423,6 +1617,12 @@ def main() -> int:
                                          for p in per)}
                if name in ("pack_cf", "unpack_cf", "unpack_frames") else {}),
             "serving_launches": serve["launches"][name],
+            # one HVP batch of bit_assign --hvp_impl pallas (omega), one
+            # fisher_diag batch on the production tail
+            "stage2_hvp_batch_launches": stage2["runs"]["omega pallas"][
+                "launches_per_batch"][name],
+            "stage2_fisher_batch_launches": stage2["runs"]["fisher_diag"][
+                "launches_per_batch"][name],
             "per_decode_launches": dec["launches"][name] // 4,
             # the fake-quant entries: per step of the phase that runs them
             "per_step_launches": (
@@ -1447,7 +1647,8 @@ def main() -> int:
     print(json.dumps({"card": card, "decode": dec, "serving": serve,
                       "step": grad, "calibrate": calib,
                       "quantize_params": frecords["quantize_params"],
-                      "calibrate_fq_pallas": calib_fq, "bitstream": stream}))
+                      "calibrate_fq_pallas": calib_fq, "bitstream": stream,
+                      "stage2": stage2}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,63 +10,150 @@
 // read, the border ring, the channel pad and the flat tail pad are dropped.
 //
 // Bound on the H100: bytes. A transpose with no arithmetic: at HNeRV
-// Bunny-3M, batch 2, the two tail entries move ~23 MB per step (~7 us at
-// 3.35 TB/s).
+// Bunny-3M, batch 2, the tail entry moves 43.6 MB (13 us at 3.35 TB/s); the
+// prefix entry's 3.3 MB is bound by launch latency.
 //
-// Design for that bound: the mirror of pack_cf.cu, a 32x32 shared-memory
-// tile transpose. A block owns 32 interior positions (flat over h*w) x 32
-// channels; it reads each channel's positions with consecutive threads on
-// consecutive positions, and writes each position's channel run with
-// consecutive threads on consecutive channels, so both sides are
-// coalesced. The tile row is padded to 33 floats against bank conflicts.
+// Design for that bound: the mirror of pack_cf.cu.
+// - A block owns tq consecutive interior positions of one image (a power of
+//   two, 8..128; tail_fused.unpack_cf_geometry picks it) x all c channels:
+//   one contiguous run of the NHWC output.
+// - For every channel, those positions lie in one stretch of the channel's
+//   padded flat row (contiguous within each image row, the 2*pad border
+//   columns between rows included). The block reads each stretch as 16-byte
+//   loads of its cover, aligned to 32 bytes (16 where that would start
+//   before the tensor; the offset `shift` is the same for every channel),
+//   8 loads in flight per thread. Two lanes read the two halves of one
+//   32-byte sector, consecutive lane pairs consecutive channels, so a
+//   warp's load uses every byte of the 16 sectors it touches.
+// - Each loaded value goes straight to its place in the output run, staged
+//   in shared memory in NHWC order: a table of one int per cover element,
+//   computed once per block while the first loads are in flight (a row and
+//   column per position, not per element), gives that place, or -1 for a
+//   border element. A warp's 32 stores hit 16 channels at two positions
+//   4 apart: at most 2-way bank conflicts.
+// - The run is written back as aligned 16-byte stores (scalar stores for
+//   at most 3 floats at either end where the run is not 16-byte aligned),
+//   so every 32-byte sector of the output is written whole.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int ROWS = 8;   // blockDim.y; each thread moves TILE/ROWS values
+constexpr int THREADS = 256;
+constexpr int LOADS_IN_FLIGHT = 8;    // loads a thread issues before it waits
+constexpr int SMEM_MAX = 48 * 1024;   // without an opt-in attribute
 
-__global__ void unpack_cf_kernel(const float* __restrict__ in,
-                                 float* __restrict__ out, int h, int w, int c,
-                                 int c8, int pad, int mp) {
-  __shared__ float tile[TILE][TILE + 1];   // [channel][position]
-  const int q0 = blockIdx.x * TILE, c0 = blockIdx.y * TILE, b = blockIdx.z;
-  const int wp = w + 2 * pad, hw = h * w;
+// Ints of the cover table: tq positions span at most (tq-1)/w + 1 row
+// crossings of 2*pad border columns each, plus the cover's offset (< 8) and
+// its rounding to whole float4s; a multiple of 4 so that the run after it
+// stays 16-byte aligned. tail_fused._unpack_cf_table mirrors it.
+__host__ __device__ __forceinline__ int table_ints(int tq, int w, int pad) {
+  return (tq + 2 * pad * ((tq - 1) / w + 1) + 12 + 3) & ~3;
+}
+
+__global__ void __launch_bounds__(THREADS)
+unpack_cf_kernel(const float* __restrict__ in, float* __restrict__ out,
+                 int h, int w, int c, int c8, int pad, int mp, int tq) {
+  extern __shared__ float4 smem4[];
+  int* tbl = reinterpret_cast<int*>(smem4);                 // [cover] -> run
+  float* run = reinterpret_cast<float*>(smem4) + table_ints(tq, w, pad);
+  const int b = blockIdx.y, hw = h * w, wp = w + 2 * pad;
+  const int q0 = blockIdx.x * tq, q1 = min(q0 + tq, hw);
+  const int y0 = q0 / w, yl = (q1 - 1) / w;
+  const int m_lo = (y0 + pad) * wp + pad + (q0 - y0 * w);
+  const int m_hi = (yl + pad) * wp + pad + (q1 - 1 - yl * w) + 1;
+  const size_t first = (size_t)b * c8 * mp + m_lo;          // channel 0
+  const float* row0 = in + first;
+  const int shift = (int)((reinterpret_cast<uintptr_t>(row0) >> 2) &
+                          (first >= 8 ? 7 : 3));
+  const int nv4 = (m_hi - m_lo + shift + 3) >> 2;
+  const size_t o0 = ((size_t)b * hw + q0) * c;
+  const int a = (int)(o0 & 3);        // the run's offset in its float4
+
+  // items: (channel, float4) pairs, a lane pair per channel and sector;
+  // all LOADS_IN_FLIGHT loads of a thread are issued before any is stored,
+  // so a block waits for one memory round trip, not one per load
+  const float4* cover = reinterpret_cast<const float4*>(row0 - shift);
+  const int items = 2 * c * ((nv4 + 1) >> 1);
+  float4 v[LOADS_IN_FLIGHT];
+  int vv[LOADS_IN_FLIGHT], ch[LOADS_IN_FLIGHT];
+  auto fetch = [&](int i0) {
 #pragma unroll
-  for (int i = 0; i < TILE; i += ROWS) {
-    const int ch = c0 + threadIdx.y + i, q = q0 + threadIdx.x;
-    float v = 0.f;
-    if (ch < c && q < hw) {
-      const int y = q / w, xx = q - (q / w) * w;
-      v = in[((size_t)b * c8 + ch) * mp + (size_t)(y + pad) * wp + xx + pad];
+    for (int k = 0; k < LOADS_IN_FLIGHT; ++k) {
+      const int i = i0 + k * THREADS, pr = i >> 1;
+      vv[k] = 2 * (pr / c) + (i & 1);
+      ch[k] = pr - (pr / c) * c;
+      if (i < items && vv[k] < nv4)
+        v[k] = __ldg(cover + (size_t)ch[k] * (mp >> 2) + vv[k]);
     }
-    tile[threadIdx.y + i][threadIdx.x] = v;
+  };
+  auto place = [&](int i0) {
+#pragma unroll
+    for (int k = 0; k < LOADS_IN_FLIGHT; ++k) {
+      if (i0 + k * THREADS >= items || vv[k] >= nv4) continue;
+      const int* t = tbl + 4 * vv[k];
+      const float e[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (t[u] >= 0) run[t[u] + ch[k]] = e[u];
+    }
+  };
+
+  fetch(threadIdx.x);
+  // the table, while the first loads are in flight; every thread reaches
+  // the barrier
+  for (int j = threadIdx.x; j < 4 * nv4; j += THREADS) {
+    const int m = m_lo - shift + j;
+    int d = -1;
+    if (m >= m_lo && m < m_hi) {
+      const int r = m / wp, col = m - r * wp;
+      if (col >= pad && col < pad + w)
+        d = a + ((r - pad) * w + col - pad - q0) * c;
+    }
+    tbl[j] = d;
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TILE; i += ROWS) {
-    const int q = q0 + threadIdx.y + i, ch = c0 + threadIdx.x;
-    if (q < hw && ch < c)
-      out[((size_t)b * hw + q) * c + ch] = tile[threadIdx.x][threadIdx.y + i];
+  place(threadIdx.x);
+  for (int i0 = threadIdx.x + THREADS * LOADS_IN_FLIGHT; i0 < items;
+       i0 += THREADS * LOADS_IN_FLIGHT) {
+    fetch(i0);
+    place(i0);
   }
+  __syncthreads();
+
+  const int n = (q1 - q0) * c;        // floats of the run
+  float* o = out + o0;
+  const int hd = min((4 - a) & 3, n);
+  const int nb4 = (n - hd) >> 2;
+  const int tl = n - hd - 4 * nb4;
+  if (threadIdx.x < hd) o[threadIdx.x] = run[a + threadIdx.x];
+  if (threadIdx.x < tl)
+    o[hd + 4 * nb4 + threadIdx.x] = run[a + hd + 4 * nb4 + threadIdx.x];
+  // a + hd is 0 or 4: the staged body is 16-byte aligned as the output's
+  const float4* r4 = reinterpret_cast<const float4*>(run + a + hd);
+  float4* o4 = reinterpret_cast<float4*>(o + hd);
+  for (int i = threadIdx.x; i < nb4; i += THREADS) o4[i] = r4[i];
 }
 
 }  // namespace
 
-// prm: the parameter block (batch, h, w, c, c8, pad, mp), one pointer
-// where ctypes would convert seven ints anew at every call
+// prm: batch, h, w, c, c8, pad, mp, tq (see tail_fused.unpack_cf_geometry)
 extern "C" int nq_unpack_cf(const float* in, float* out, const int* prm,
                             void* stream) {
-  if (prm == nullptr) return (int)cudaErrorInvalidValue;
+  if (prm == nullptr || prm[0] < 1) return (int)cudaErrorInvalidValue;
   const int batch = prm[0], h = prm[1], w = prm[2], c = prm[3], c8 = prm[4],
-            pad = prm[5], mp = prm[6];
-  if (batch < 1 || c < 1 || c8 < c || h < 1 || w < 1 ||
-      mp < (h + 2 * pad) * (w + 2 * pad))
+            pad = prm[5], mp = prm[6], tq = prm[7];
+  if (h < 1 || w < 1 || c < 1 || c8 < c || pad < 0 || tq < 8 || tq > 128 ||
+      (tq & (tq - 1)) || mp % 4 || mp < (h + 2 * pad) * (w + 2 * pad) ||
+      (reinterpret_cast<uintptr_t>(out) & 15) ||
+      (reinterpret_cast<uintptr_t>(in) & 3))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((h * w + TILE - 1) / TILE, (c + TILE - 1) / TILE, batch);
-  const dim3 block(TILE, ROWS);
-  unpack_cf_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(in, out, h, w,
-                                                             c, c8, pad, mp);
+  const size_t smem = (size_t)table_ints(tq, w, pad) * sizeof(int) +
+                      ((size_t)tq * c + 4) * sizeof(float);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((h * w + tq - 1) / tq, batch);
+  unpack_cf_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      in, out, h, w, c, c8, pad, mp, tq);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,8 @@ from neuroquant_tpu_torch.models.hnerv import HNeRV, HNeRVConfig
 from neuroquant_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HNeRV", "HNeRVConfig", "build_model", "quant_layer_paths",
-           "param_counts", "example_input", "tail_plan_for"]
+           "param_counts", "example_input", "tail_plan_for",
+           "require_ported"]
 
 _NOT_PORTED = {
     "nerv": "NeRV is ROADMAP queue A item 9",
@@ -25,13 +26,19 @@ _NOT_PORTED = {
 }
 
 
+def require_ported(arch: str) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for an arch of
+    the JAX package that is not ported yet."""
+    if arch.lower() in _NOT_PORTED:
+        raise NotImplementedError(f"arch {arch.lower()!r} is not ported yet: "
+                                  f"{_NOT_PORTED[arch.lower()]}")
+
+
 def build_model(arch: str, cfg: dict, device=None, seed: int = 0):
     """The model for (arch, cfg) on `device` (default: the GPU), its weights
     drawn from a torch.Generator seeded with `seed`."""
     arch = arch.lower()
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet: "
-                                  f"{_NOT_PORTED[arch]}")
+    require_ported(arch)
     if arch != "hnerv":
         raise ValueError(f"model arch wrong: {arch!r}")
     device = resolve_device(device)

@@ -4,19 +4,24 @@ decoder (the counterpart of ``neuroquant_tpu/models/hnerv.py``; NHWC)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from neuroquant_tpu_torch.models.layers import (
-    Conv2d, ConvNeXt, NeRVBlock, collect_tail_params, out_img,
-    run_prefix_blocks)
-from neuroquant_tpu_torch.ops.packed_decode import resolve_pack_start
+    Conv2d, ConvNeXt, NeRVBlock, collect_tail_params, fuses_prefix_block,
+    out_img, run_prefix_blocks)
+from neuroquant_tpu_torch.ops.packed_decode import (
+    depth_to_space, resolve_pack_start)
 from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from neuroquant_tpu_torch.ops.tail_fused import (
-    prepare_tail, resolve_impl, run_fused_tail_cf, run_fused_tail_frames)
+    cf_to_nhwc, pack_cf, pack_prefix_block, plan_and_pack, prefix_cf_to_nhwc,
+    prepare_tail, resolve_impl, run_fused_tail_cf, run_fused_tail_frames,
+    tail_apply_fo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +83,46 @@ class HNeRVConfig:
     def embed_hw(self) -> Tuple[int, int]:
         s = int(np.prod(self.enc_strides))
         return self.crop_h // s, self.crop_w // s
+
+
+def _shuffle(x, r):
+    return None if x is None else pixel_shuffle(x, r)
+
+
+def _add(a, b):
+    return b if a is None else a if b is None else a + b
+
+
+def _conv_jvp(conv: Conv2d, x, dx, dw):
+    """An NHWC conv and its tangent, for input tangent dx and weight
+    tangent dw (OIHW; either may be None): conv(dx, W) + conv(x, dW)."""
+    def raw(inp, weight):
+        return F.conv2d(inp.permute(0, 3, 1, 2), weight, None, conv.stride,
+                        conv.padding, groups=conv.groups).permute(0, 2, 3, 1)
+
+    return conv(x), _add(None if dx is None else raw(dx, conv.weight),
+                         None if dw is None else raw(x, dw))
+
+
+def _gelu_jvp(x, dx):
+    """The exact-erf GELU of the unpacked blocks and its tangent,
+    (Phi(x) + x phi(x)) dx."""
+    if dx is None:
+        return F.gelu(x), None
+    cdf = 0.5 * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
+    pdf = torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
+    return F.gelu(x), (cdf + x * pdf) * dx
+
+
+def _out_img_jvp(x, dx, out_bias: str):
+    y = out_img(x, out_bias)
+    if dx is None:
+        return y, None
+    if out_bias == "tanh":
+        return y, 0.5 * (1.0 - torch.tanh(x) ** 2) * dx
+    if out_bias == "sigmoid":
+        return y, y * (1.0 - y) * dx
+    return y, dx
 
 
 class HNeRV(nn.Module):
@@ -173,15 +218,95 @@ class HNeRV(nn.Module):
         z, _, _, _ = run_fused_tail_cf(x, self._tail_weights(x))
         return out_img(z, self.cfg.out_bias)
 
+    def decode_jvp(self, img_embed, dws=None):
+        """Embedding -> (frames, their tangent) for tangents ``dws`` on the
+        decoder's conv kernels: one OIHW tensor per conv, in decode order
+        (decoder[0], each block's conv, the head: the quantized layers), or
+        None for no tangent (the tangent comes back None).
+
+        On the fused tail (``fused_tail`` other than off) the last prefix
+        block and the tail run :func:`tail_fused.tail_apply_fo` on the
+        kernels, the tangent entering through ``pack_cf`` (linear) and the
+        kernels' tangents packed by the same gather as the kernels; the
+        head's output is unpacked by plain tensor ops, as the JAX package's
+        HVP execution does. Otherwise the plain unpacked chain carries the
+        tangent on cuDNN convs. Every op of either graph is first-order
+        autograd, so a gradient of the tangent (a Hessian-vector product)
+        differentiates each kernel once."""
+        c = self.cfg
+        if c.dec_acts != "gelu":
+            raise NotImplementedError(
+                f"decode_jvp: dec_acts={c.dec_acts!r} (only gelu)")
+        blocks = self.blocks
+        if dws is None:
+            dws = (None,) * (len(blocks) + 2)
+        if len(dws) != len(blocks) + 2:
+            raise ValueError(f"decode_jvp: {len(dws)} tangents for "
+                             f"{len(blocks) + 2} convs")
+        impl = self._fused_impl()
+        t = len(blocks) if impl is None else self.pack_start
+        x, dx = _conv_jvp(self.decoder[0], img_embed, None, dws[0])
+        x, dx = (_shuffle(x, (c.fc_h, c.fc_w)),
+                 _shuffle(dx, (c.fc_h, c.fc_w)))
+        fused = fuses_prefix_block(blocks, t, impl, c.fused_prefix,
+                                   c.dec_norm)
+        for j in range(t - 1 if fused else t):
+            conv, r = blocks[j].conv[0], blocks[j].stride
+            x, dx = _conv_jvp(conv, x, dx, dws[j + 1])
+            x, dx = _gelu_jvp(_shuffle(x, r), _shuffle(dx, r))
+        if impl is None:
+            x, dx = _conv_jvp(self.head_layer, x, dx, dws[-1])
+            return _out_img_jvp(x, dx, c.out_bias)
+
+        def entry(x, dx, plan):
+            return (pack_cf(x.contiguous(), plan),
+                    None if dx is None else pack_cf(dx.contiguous(), plan))
+
+        def hwio(dw):
+            return None if dw is None else dw.permute(2, 3, 1, 0)
+
+        h, w = int(x.shape[1]), int(x.shape[2])
+        if fused:
+            blk = blocks[t - 1]
+            plan, kks, bms, r, _ = pack_prefix_block(h, w, *blk.conv_params(),
+                                                     blk.stride)
+            dkks = (None,) if dws[t] is None else pack_prefix_block(
+                h, w, hwio(dws[t]), None, r)[1]
+            x_cf, dx_cf = entry(x, dx, plan)
+            z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
+            x = prefix_cf_to_nhwc(z, plan, r, blk.out_channel)
+            dx = (None if dz is None
+                  else prefix_cf_to_nhwc(dz, plan, r, blk.out_channel))
+            x, dx = _gelu_jvp(x, dx)
+            h, w = int(x.shape[1]), int(x.shape[2])
+        tail, head = collect_tail_params(blocks, self.head_layer, t)
+        plan, kks, bms, f, ch = plan_and_pack(h, w, tail, head)
+        dkks = (None,) * len(kks)
+        if dws[t + 1] is not None:
+            dkks = plan_and_pack(
+                h, w, [(hwio(dws[j + 1]), None, blocks[j].stride)
+                       for j in range(t, len(blocks))],
+                (hwio(dws[-1]), None))[1]
+        x_cf, dx_cf = entry(x, dx, plan)
+        z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
+        y, dy = _out_img_jvp(cf_to_nhwc(z, plan, ch),
+                             None if dz is None else cf_to_nhwc(dz, plan, ch),
+                             c.out_bias)
+        return (depth_to_space(y, f),
+                None if dy is None else depth_to_space(dy, f))
+
     def decode(self, img_embed):
         """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).
 
         The kernel path runs the high-resolution tail packed from the pack
         start on, channels-first, on the CUDA kernels (ops/tail_fused.py),
         with the last prefix block fused too. With ``packed_tail: off`` or
-        ``fused_tail: off`` the plain unpacked conv/shuffle chain runs."""
+        ``fused_tail: off`` the plain unpacked conv/shuffle chain runs; with
+        ``fused_tail: pallas_hvp`` the value of :meth:`decode_jvp`."""
         c = self.cfg
         impl = self._fused_impl()
+        if impl == "pallas_hvp":
+            return self.decode_jvp(img_embed)[0]
         if impl is not None:
             x = self._prefix(img_embed, impl)
             return run_fused_tail_frames(x, self._tail_weights(x), c.out_bias)

@@ -176,6 +176,14 @@ def _build(key, build):
     return build()
 
 
+def fuses_prefix_block(blocks, t: int, impl, fused_prefix: str,
+                       dec_norm: str) -> bool:
+    """Whether the last prefix block, blocks[t-1], runs on the tail
+    kernels (see :func:`run_prefix_blocks`)."""
+    return (str(fused_prefix) != "off" and t >= 1 and impl is not None
+            and dec_norm == "none" and blocks[t - 1].kernel_size % 2 == 1)
+
+
 def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
                       dec_norm: str, memo=_build):
     """Run the decode prefix blocks[:t] on NHWC x. With the fused tail the
@@ -190,8 +198,7 @@ def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
     The JAX package also gates this on a minimum grid (``PREFIX_MIN_GRID``,
     a TPU per-call overhead knob); the port fuses at any grid size."""
     last = t - 1
-    fused = (str(fused_prefix) != "off" and last >= 0 and impl is not None
-             and dec_norm == "none" and blocks[last].kernel_size % 2 == 1)
+    fused = fuses_prefix_block(blocks, t, impl, fused_prefix, dec_norm)
     for j in range(last if fused else t):
         x = blocks[j](x)
     if fused:

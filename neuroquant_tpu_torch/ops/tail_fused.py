@@ -33,8 +33,12 @@ Gradients: ``tail_apply``, ``pack_cf`` and ``unpack_frames`` are
 backward is the JAX ``_tail_apply_bwd``: dW/db from ``tail_conv_dw_cf``,
 dx from ``tail_conv_cf`` on the tap-reversed, channel-swapped kernel with
 the GELU' epilogue; ``pack_cf``'s backward is ``unpack_cf``;
-``unpack_frames``'s is the VJP of its plain version, as in JAX. The tail's
-backward is first-order: a second derivative through it raises.
+``unpack_frames``'s is the VJP of its plain version, as in JAX. All three
+backwards are first-order: a second derivative through them raises.
+Hessian-vector products take the forward-mode tail instead,
+:func:`tail_apply_fo` (the JAX ``tail_apply_fo``): the tangent carried
+layer by layer through first-order conv Functions (``conv_p``), so the
+outer gradient differentiates each kernel once.
 
 Left out as TPU scheduling: the execution modes and their cost model
 (``ExecCfg``, ``_exec_cfg``, ``_SWEEP_PINS*``, ``NQ_TAIL_MODE``), the VMEM
@@ -278,11 +282,12 @@ def _c_ints(*values):
 
 
 # --------------------------------------------------------------------------
-# Launch geometry of the two layout kernels, pack_cf and unpack_frames. The
-# wrappers pass it to the launchers as it is; tests/test_torch_layout_tiles.py
-# holds it against a numpy emulation of each kernel's block -> element map.
+# Launch geometry of the three layout kernels, pack_cf, unpack_cf and
+# unpack_frames. The wrappers pass it to the launchers as it is;
+# tests/test_torch_layout_tiles.py holds it against a numpy emulation of each
+# kernel's block -> element map.
 # --------------------------------------------------------------------------
-LAYOUT_THREADS = 256        # threads per block of both kernels
+LAYOUT_THREADS = 256        # threads per block of the three kernels
 LAYOUT_SMEM = 48 * 1024     # shared memory a block may take (no opt-in)
 PACK_TILE_MAX = 128         # flat positions per pack_cf block, at most
 # packed columns per unpack_frames block, at most: 124 and the cover's 3
@@ -321,6 +326,41 @@ def pack_cf_geometry(mp: int, c: int, batch: int) -> PackGeometry:
     if mp % tm:
         raise ValueError(f"pack_cf: Mp={mp} is not a multiple of {tm}")
     return PackGeometry(tm, mp // tm, _pack_cf_smem(tm, c))
+
+
+def _unpack_cf_table(tq: int, w: int, pad: int) -> int:
+    """Ints of unpack_cf's cover table (``table_ints`` in the source): the
+    tq positions' stretch of a padded row, with the 2*pad border columns of
+    every row crossing, the cover's offset (< 8) and rounding; a multiple
+    of 4."""
+    return (tq + 2 * pad * ((tq - 1) // w + 1) + 12 + 3) // 4 * 4
+
+
+def _unpack_cf_smem(tq: int, w: int, pad: int, c: int) -> int:
+    """The cover table and the staged output run (tq*c floats and room
+    for its offset in a float4)."""
+    return 4 * _unpack_cf_table(tq, w, pad) + 4 * (tq * c + 4)
+
+
+@lru_cache(maxsize=256)
+def unpack_cf_geometry(h: int, w: int, pad: int, c: int,
+                       batch: int) -> PackGeometry:
+    """Tile of :func:`unpack_cf`'s kernel: positions of one image per
+    block, 128 halved while the staged run would not fit a block's shared
+    memory, or while the launch has fewer blocks than the card holds
+    (_SM_SLOTS) and the tile is above 32 positions. Returns (tq, blocks per
+    image, smem). On an NVIDIA H100 80GB HBM3 at 700 W the prefix entry
+    (2,64,4096) took 0.0031 ms of device time at 32 or 64 positions, 0.0046
+    at 16 and 128, 0.0063 at 8; the tail entry 0.0180 at 128, 0.0199 at 64
+    (scripts/torch_layout_bench.py --sweep)."""
+    tq = PACK_TILE_MAX
+    while tq > 8 and (_unpack_cf_smem(tq, w, pad, c) > LAYOUT_SMEM or (
+            tq > 32 and _cdiv(h * w, tq) * batch < _SM_SLOTS)):
+        tq //= 2
+    if _unpack_cf_smem(tq, w, pad, c) > LAYOUT_SMEM:
+        raise ValueError(f"unpack_cf: {c} channels do not fit a tile of "
+                         f"{tq} positions in {LAYOUT_SMEM} bytes")
+    return PackGeometry(tq, _cdiv(h * w, tq), _unpack_cf_smem(tq, w, pad, c))
 
 
 class UnpackGeometry(NamedTuple):
@@ -404,7 +444,8 @@ def _unpack_cf_launch(b: int, h: int, w: int, c: int, c8: int, pad: int,
                       mp: int):
     """(output shape, parameter block and its address) of one unpack_cf
     launch."""
-    return ((b, h, w, c), *_c_ints(b, h, w, c, c8, pad, mp))
+    geo = unpack_cf_geometry(h, w, pad, c, b)
+    return ((b, h, w, c), *_c_ints(b, h, w, c, c8, pad, mp, geo.tm))
 
 
 def unpack_cf(g, plan: TailPlan, c: int):
@@ -426,7 +467,10 @@ def unpack_cf(g, plan: TailPlan, c: int):
 
 
 class _PackCF(torch.autograd.Function):
-    """pack_cf is linear; its backward is the transpose, unpack_cf."""
+    """pack_cf is linear; its backward is the transpose, unpack_cf. The
+    kernel builds no graph, so the backward is first-order on the CPU and
+    the card alike (``once_differentiable``): a second derivative through
+    it raises."""
 
     @staticmethod
     def forward(ctx, x, plan):
@@ -434,6 +478,7 @@ class _PackCF(torch.autograd.Function):
         return _pack_cf_kernel(x, plan)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         return unpack_cf(g.contiguous(), ctx.plan, ctx.c), None
 
@@ -922,6 +967,125 @@ def tail_apply(plan: TailPlan, x_cf, kks, biases, w_ops=None):
 
 
 # --------------------------------------------------------------------------
+# Forward-mode tail ('pallas_hvp'): Hessian-vector products through the
+# kernels. Hv = grad(w -> jvp(L, w, v)) is reverse-over-forward: the tangent
+# is carried beside the value as plain tensors, layer by layer (the JAX
+# ``tail_apply_fo`` custom_jvp rule), and every op of that graph is
+# first-order autograd, so the outer gradient differentiates each kernel
+# once. conv_p is the one conv in it; the GELU and its tangent are one
+# Function whose closed-form backward carries the second derivative.
+# --------------------------------------------------------------------------
+class _ConvP(torch.autograd.Function):
+    """One masked conv z = mask * (conv(x, kk) + bias), emitting z, as a
+    first-order Function (the JAX ``conv_p``): forward one ``tail_conv_cf``
+    launch; backward dW and db by ``tail_conv_dw_cf``, dx by ``tail_conv_cf``
+    on the transposed layer, the calls of one layer of
+    :class:`_TailApply`'s backward, each only where an input needs it."""
+
+    @staticmethod
+    def forward(ctx, plan, layer, x, kk, bias):
+        ctx.save_for_backward(x, kk)
+        ctx.plan, ctx.layer, ctx.has_bias = plan, layer, bias is not None
+        return conv_cf(x, kk, bias, plan, layer)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, kk = ctx.saved_tensors
+        plan, layer = ctx.plan, ctx.layer
+        g = (g * border_mask(plan, g.dtype, device=g.device)).contiguous()
+        dkk = db = dx = None
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            dkk, db = conv_cf_dw(x, g, plan, layer)
+        if ctx.needs_input_grad[2]:
+            dx = conv_cf(g, _kk_transpose(kk).contiguous(), None, plan,
+                         layer.transposed())
+        return None, None, dx, dkk, db if ctx.has_bias else None
+
+
+_ERF_P = 0.3275911
+
+
+def _erf_grad(x):
+    """d/dx of :func:`_erf` as autograd differentiates that formula (the
+    JAX package differentiates its own the same way): e^{-x^2} (p t^2
+    poly'(t) + 2|x| poly(t)), and 0 at x == 0, where sign and abs have a
+    zero derivative."""
+    s = torch.sign(x)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + _ERF_P * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429))))
+    dpoly = 0.254829592 + t * (2 * -0.284496736 + t * (3 * 1.421413741
+                               + t * (4 * -1.453152027 + t * 5 * 1.061405429)))
+    return s * s * torch.exp(-ax * ax) * (_ERF_P * t * t * dpoly
+                                          + 2.0 * ax * poly)
+
+
+class _GeluTangent(torch.autograd.Function):
+    """(h, dh) -> (gelu(h), gelu'(h) * dh), the tail's GELU with its
+    tangent. Autograd through the two formulas keeps ~20 full-size
+    intermediates of the erf polynomial for the outer backward; this keeps
+    h and dh and writes that backward in closed form: the derivatives of
+    :func:`_gelu` and :func:`_gelu_grad` as autograd takes them."""
+
+    @staticmethod
+    def forward(ctx, h, dh):
+        ctx.save_for_backward(h, dh)
+        return _gelu(h), _gelu_grad(h) * dh
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gd):
+        h, dh = ctx.saved_tensors
+        hf = h.float()
+        u = hf * 0.7071067811865476
+        de = _erf_grad(u) * 0.7071067811865476        # d erf(h / sqrt 2)
+        cdf = 0.5 * (1.0 + _erf(u))
+        phi = torch.exp(-0.5 * hf * hf) * _INV_SQRT_2PI
+        dy = cdf + 0.5 * hf * de                       # d gelu / dh
+        dg = 0.5 * de + phi - hf * hf * phi            # d gelu' / dh
+        return gy * dy + gd * dh * dg, gd * (cdf + hf * phi)
+
+
+def conv_p(plan: TailPlan, layer: TailLayer, x, kk, bias=None):
+    """z = mask * (conv(x, kk) + bias) (bias may be None), first-order
+    differentiable in x, kk and bias."""
+    return _ConvP.apply(plan, layer, x.contiguous(), kk.contiguous(), bias)
+
+
+def tail_apply_fo(plan: TailPlan, x_cf, dx_cf, kks, dkks, biases,
+                  dbiases=None):
+    """The fused tail with a tangent: (h, dh) for input x_cf with tangent
+    dx_cf, kernels kks with tangents dkks, biases with tangents dbiases
+    (None: no tangent). Per layer, as the JAX ``_tail_apply_fo_jvp``:
+    ``dh <- gelu'(h) * dh; h <- gelu(h)`` where the layer's input goes
+    through GELU, then ``z = conv_p(h, W, b)``, ``dz = conv_p(dh, W) +
+    conv_p(h, dW, db)``. h equals :func:`tail_apply`'s output. Without any
+    tangent it is :func:`tail_apply` (dh None)."""
+    dbiases = dbiases if dbiases is not None else (None,) * len(kks)
+    if dx_cf is None and all(t is None for t in (*dkks, *dbiases)):
+        return tail_apply(plan, x_cf, kks, biases), None
+    h, dh = x_cf, dx_cf
+    for li, layer in enumerate(plan.layers):
+        if layer.gelu_in:
+            h, dh = (_gelu(h), None) if dh is None else _GeluTangent.apply(
+                h, dh)
+        z = conv_p(plan, layer, h, kks[li], biases[li])
+        parts = []
+        if dh is not None:
+            parts.append(conv_p(plan, layer, dh, kks[li]))
+        if dkks[li] is not None or dbiases[li] is not None:
+            dk = dkks[li] if dkks[li] is not None else torch.zeros_like(
+                kks[li])
+            parts.append(conv_p(plan, layer, h, dk, dbiases[li]))
+        h = z
+        dh = (None if not parts else parts[0] if len(parts) == 1
+              else parts[0] + parts[1])
+    return h, dh
+
+
+# --------------------------------------------------------------------------
 # Plan building + weight packing
 # --------------------------------------------------------------------------
 @lru_cache(maxsize=64)
@@ -1097,7 +1261,9 @@ def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str):
 
 class _UnpackFrames(torch.autograd.Function):
     """unpack_frames with the VJP of its plain version as its backward
-    (the JAX ``_unpack_frames_bwd``)."""
+    (the JAX ``_unpack_frames_bwd``). That VJP is taken without a graph, so
+    the backward is first-order (``once_differentiable``): a second
+    derivative through it raises."""
 
     @staticmethod
     def forward(ctx, z, plan, f, ch, out_bias):
@@ -1106,6 +1272,7 @@ class _UnpackFrames(torch.autograd.Function):
         return _unpack_frames_kernel(z, plan, f, ch, out_bias)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         (z,) = ctx.saved_tensors
         with torch.enable_grad():
@@ -1128,13 +1295,17 @@ def unpack_frames(z, plan: TailPlan, f: int, ch: int, out_bias: str):
 # --------------------------------------------------------------------------
 def resolve_impl(fused_tail: str) -> str | None:
     """cfg 'fused_tail' knob -> 'fused' (the channels-first tail on the
-    kernels) or None (the unpacked decode). The JAX values 'pallas',
-    'pallas_hvp' and 'jnp' name TPU implementations of the same function
+    kernels), 'pallas_hvp' (the same kernels, the decode taken as the value
+    of the forward-mode tail, :func:`tail_apply_fo`, and a plain unpack, as
+    the JAX package's HVP execution) or None (the unpacked decode). The JAX
+    values 'pallas' and 'jnp' name TPU implementations of the same function
     and select the fused tail here."""
     ft = str(fused_tail).lower()
     if ft in ("off", "false", "none", "xla"):
         return None
-    if ft in ("auto", "pallas", "jnp", "pallas_hvp", "fused"):
+    if ft == "pallas_hvp":
+        return ft
+    if ft in ("auto", "pallas", "jnp", "fused"):
         return "fused"
     raise ValueError(
         f"fused_tail={fused_tail!r} (use auto|pallas|pallas_hvp|jnp|off)")
@@ -1203,10 +1374,11 @@ def _prefix_plan(h: int, w: int, k: int, cin: int, cout_rr: int):
     return _make_plan(h, w, geoms, tm)
 
 
-def prepare_prefix_block(h: int, w: int, kernel, bias, r: int) -> TailWeights:
-    """The last pre-tail NeRVBlock's conv (HWIO kernel, bias, shuffle r) on
-    an (h, w) grid as a 1-layer channels-first plan, its output channels
-    relabeled subposition-major."""
+def pack_prefix_block(h: int, w: int, kernel, bias, r: int):
+    """The last pre-tail NeRVBlock's conv (HWIO kernel, bias or None,
+    shuffle r) on an (h, w) grid as a 1-layer channels-first plan, its
+    output channels relabeled subposition-major: (plan, kks, biases, r,
+    cout*r*r), as :func:`plan_and_pack` returns a tail's."""
     kh, kw, cin, cout_rr = kernel.shape
     assert kh == kw
     wrel, brel = _relabel(kernel, bias, r)
@@ -1215,7 +1387,13 @@ def prepare_prefix_block(h: int, w: int, kernel, bias, r: int) -> TailWeights:
     kk = _pad_kk(wrel, layer.cin, layer.cout).contiguous()
     bm = (None if brel is None else
           F.pad(brel, (0, layer.cout - cout_rr)).reshape(layer.cout, 1))
-    return _with_w_ops(plan, (kk,), (bm,), r, cout_rr)
+    return plan, (kk,), (bm,), r, cout_rr
+
+
+def prepare_prefix_block(h: int, w: int, kernel, bias, r: int) -> TailWeights:
+    """:func:`pack_prefix_block`, plus the kernel's weight operand on the
+    GPU."""
+    return _with_w_ops(*pack_prefix_block(h, w, kernel, bias, r))
 
 
 def run_fused_prefix_block(x, wts: TailWeights):

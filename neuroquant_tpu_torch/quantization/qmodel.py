@@ -128,6 +128,22 @@ def adaround_upgrade(params, spec: QuantSpec, state: Dict,
     return new_state
 
 
+@torch.no_grad()
+def get_perturbation(params, spec: QuantSpec, state: Dict):
+    """Per-layer delta_w = w - UAQ(w) (HWIO) for the Omega criterion.
+
+    Keeps the reference's quirk: the raw-domain weight is quantized with
+    the current scales even when those scales were initialized in the
+    Hadamard domain."""
+    out = []
+    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+                                spec.n_bits):
+        w, _ = _get(params, path)
+        s = state[name]
+        out.append(w - Q.uaq_fake_quant(w, s["w_delta"], s["w_zp"], bits))
+    return out
+
+
 def average_bits(params, spec: QuantSpec) -> float:
     """Parameter-weighted average bit width over the quantized layers."""
     bits_total, n_total = 0.0, 0.0

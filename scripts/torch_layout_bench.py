@@ -24,8 +24,8 @@ Then, in every pass, one wrapper call's host cost split into its parts:
 route and checks, allocation, stream lookup, the launcher's ctypes call without
 a launch (the batch-0 early return) and the launch itself. --check holds
 every output against the plain version (exact; out_img 1e-6). --sweep
-times the newest root's pack_cf and unpack_frames launchers directly at
-other tiles than the wrappers choose. --decode times a batch-1 HNeRV
+times the newest root's pack_cf, unpack_cf and unpack_frames launchers
+directly at other tiles than the wrappers choose. --decode times a batch-1 HNeRV
 Bunny-3M decode (seeded random weights) per root and pass: back-to-back
 ms and the card's busy ms, so the decode is compared on one card too.
 Prints the card's name and power
@@ -247,8 +247,8 @@ def _host_split(torch, tf, cu):
 
 def _sweep(torch, tf, cu):
     """Device ms of the newest launchers at other tiles than the wrappers'
-    (pack_cf: positions per block; unpack_frames: columns and output rows
-    per block)."""
+    (pack_cf and unpack_cf: positions per block; unpack_frames: columns and
+    output rows per block)."""
     dev = torch.device("cuda")
     lib = cu.lib()
     stream = torch.cuda.current_stream().cuda_stream
@@ -272,6 +272,19 @@ def _sweep(torch, tf, cu):
                 rows.append(dict(kernel="pack_cf", shape=f"{label} batch {b}",
                                  tile=tm, device_ms=ms))
                 print(f"  sweep pack_cf {label} batch {b} tm={tm}: {ms}")
+    for label, p, c in (("prefix entry", pplan, 64), ("tail entry", plan,
+                                                        53)):
+        g = torch.randn((2, tf._r8(c), p.mp), device=dev)
+        out = torch.empty((2, p.h, p.w, c), device=dev)
+        for tq in (8, 16, 32, 64, 128):
+            if tf._unpack_cf_smem(tq, p.w, p.pad, c) > tf.LAYOUT_SMEM:
+                continue
+            prm, addr = tf._c_ints(2, p.h, p.w, c, tf._r8(c), p.pad, p.mp, tq)
+            ms = _device_ms(torch, lambda: lib.nq_unpack_cf(
+                g.data_ptr(), out.data_ptr(), addr, stream))
+            rows.append(dict(kernel="unpack_cf", shape=f"{label} batch 2",
+                             tile=tq, device_ms=ms))
+            print(f"  sweep unpack_cf {label} batch 2 tq={tq}: {ms}")
     for label, p, ff, b in (("decode", plan, f, 1), ("decode", plan, f, 2),
                             ("width-tiled plan", wplan, wf, 2)):
         z = torch.randn((b, 48, p.mp), device=dev)

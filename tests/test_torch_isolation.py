@@ -10,6 +10,7 @@ import sys
 
 import pytest
 import torch
+import yaml
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "neuroquant_tpu_torch")
@@ -72,9 +73,10 @@ def test_imports_with_jax_unavailable():
 
 
 def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tiny_hnerv_cfg,
-                                              frame_dir):
+                                              frame_dir, tmp_path):
+    from neuroquant_tpu_torch.analysis import hessian_eigen
     from neuroquant_tpu_torch.data import VideoDataSet
-    from neuroquant_tpu_torch.methods import eval_quantized
+    from neuroquant_tpu_torch.methods import bit_assign, eval_quantized
     from neuroquant_tpu_torch.models import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -85,6 +87,17 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tiny_hnerv_cfg,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_quantized.main(["--artifact", "missing.pth",
                              "--data_path", frame_dir])
+    cfg_path = str(tmp_path / "tiny.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(tiny_hnerv_cfg, f)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bit_assign.main(["--config", cfg_path, "--arch", "hnerv",
+                         "--data_path", frame_dir, "--ckpt", "missing.pth",
+                         "--outf", str(tmp_path / "t2")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hessian_eigen.main(["--config", cfg_path, "--arch", "hnerv",
+                            "--ckpt", "missing.pth", "--data_path",
+                            frame_dir])
     model = build_model("hnerv", tiny_hnerv_cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 

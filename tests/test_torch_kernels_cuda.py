@@ -311,6 +311,113 @@ def test_unpack_cf(dev, small, c):
     assert torch.equal(tf.unpack_cf(g, plan, c), got)     # a cached block
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("case", PACK_CASES, ids=case_id)
+def test_unpack_cf_cases(dev, case, offset):
+    """The Bunny-3M step's two entries at batch 1 and 2, the fixtures'
+    plans, channel counts 1 to 100, widths that are no multiple of 4 or of
+    the tile; the input aligned or 1 or 3 floats past a 16-byte boundary;
+    NaN in its border ring, channel pad and tail pad, which must not reach
+    the output: exact."""
+    name, c, nb = case
+    plan, _ = layout_plan(name)
+    g = _rand(dev, (nb, tf._r8(c), plan.mp), c + nb, offset)
+    live = tf.border_mask(plan, device=dev).reshape(-1) > 0
+    g[:, :, ~live] = float("nan")
+    g[:, c:] = float("nan")
+    tf.reset_launch_counts()
+    got = tf.unpack_cf(g, plan, c)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["unpack_cf"] == 1
+    assert not bool(got.isnan().any())
+    assert torch.equal(got, tf.unpack_cf_ref(g, plan, c))
+
+
+def test_second_derivative_through_the_layout_functions_raises(dev, small):
+    """pack_cf's backward (unpack_cf) and unpack_frames' build no graph:
+    a second derivative through either raises on the card, as on the
+    CPU."""
+    plan = small[0]
+    for fn in ("pack_cf", "unpack_frames"):
+        if fn == "pack_cf":
+            x = _rand(dev, (2, plan.h, plan.w, 5), 7).requires_grad_()
+            y = tf.pack_cf(x, plan)
+        else:
+            x = _cf(plan, plan.layers[-1].cout, dev, 8).requires_grad_()
+            y = tf.unpack_frames(x, plan, 4, 48, "tanh")
+        (first,) = torch.autograd.grad((y ** 2).sum(), [x],
+                                       create_graph=True)
+        with pytest.raises(RuntimeError, match="not have been used"):
+            torch.autograd.grad((first * first).sum(), [x])
+        with pytest.raises(RuntimeError, match="differentiate twice"):
+            (first * first).sum().backward()
+
+
+def test_tail_apply_fo_on_the_kernels(dev, small):
+    """The forward-mode tail on the card against its plain versions on the
+    CPU: value, tangent and grad-of-jvp (Hv w.r.t. the kernels), 1e-4 of
+    the largest value; each conv_p differentiated once: 3 forward conv
+    launches a layer, dx where its input needs one, dW where its kernel
+    does."""
+    plan, kks, bms, _, _ = small
+    x0 = _cf(plan, plan.layers[0].cin, dev, 60)
+    dx0 = _cf(plan, plan.layers[0].cin, dev, 61)
+    wt = _cf(plan, plan.layers[-1].cout, dev, 62)
+    gen = torch.Generator(device=dev).manual_seed(63)
+    dks = [0.01 * torch.randn(k.shape, generator=gen, device=dev)
+           for k in kks]
+
+    def run(d):
+        ks = [k.detach().to(d, copy=True).requires_grad_() for k in kks]
+        h, dh = tf.tail_apply_fo(plan, x0.to(d), dx0.to(d), ks,
+                                 [k.to(d) for k in dks],
+                                 [b.to(d) for b in bms])
+        hv = torch.autograd.grad((dh * wt.to(d) * h).sum(), ks)
+        return [t.detach().cpu() for t in (h, dh, *hv)]
+
+    tf.reset_launch_counts()
+    got = run(dev)
+    torch.cuda.synchronize()
+    n = len(plan.layers)
+    # the first layer's input and its tangent need no gradient: no dx, and
+    # its conv_p(x, dk) none at all
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 3 * n + 3 * (n - 1)
+    assert tf.KERNEL_LAUNCHES["tail_conv_dw_cf"] == 2 * n
+    for g, w in zip(got, run("cpu")):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_hvp_on_the_kernels_matches_the_plain_path(dev):
+    """One batch's Hv of the tiny HNeRV: the forward-mode tail on the
+    kernels (fused_tail pallas_hvp; no unpack_frames) against the plain
+    unpacked decode (cuDNN), 1e-4 of each leaf's largest."""
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization import (
+        get_perturbation, hessian_vector_product, init_quant_state,
+        make_spec)
+
+    kern = build_model("hnerv", dict(TINY_HNERV, fused_tail="pallas_hvp"),
+                       device=dev)
+    plain = build_model("hnerv", dict(TINY_HNERV, fused_tail="off"),
+                        device=dev)
+    plain.load_state_dict(kern.state_dict())
+    params = {k: v.detach().clone() for k, v in kern.state_dict().items()}
+    spec = make_spec("hnerv", TINY_HNERV).with_bits((2, 3, 4, 6, 4))
+    vec = get_perturbation(params, spec, init_quant_state(params, spec))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.rand((2, 80, 160, 3), generator=gen, device=dev)
+    tf.reset_launch_counts()
+    got = hessian_vector_product(kern, spec, vec, frames, [[0, 1]])
+    torch.cuda.synchronize()
+    counts = dict(tf.KERNEL_LAUNCHES)
+    want = hessian_vector_product(plain, spec, vec, frames, [[0, 1]])
+    for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf"):
+        assert counts[k] > 0, counts
+    assert counts["unpack_frames"] == 0, counts
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
 def test_tail_backward_matches_plain_autograd(dev, small):
     """Gradients of the tail Function (dx and dW kernels) against autograd
     through the plain conv chain (dense taps), on the card. The Function's

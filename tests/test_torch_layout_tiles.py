@@ -1,20 +1,22 @@
-"""The launch geometry of the two layout kernels (``csrc/pack_cf.cu``,
-``csrc/unpack_frames.cu``), on the CPU. The kernels run only on the card;
-what decides where each of their output elements comes from is the tile
-(``tail_fused.pack_cf_geometry``, ``unpack_frames_geometry``), the 16-byte
-cover and its offset, and the index arithmetic of each block. A numpy
-emulation of each kernel's block -> element map, written from the CUDA
-source, shows at the Bunny-3M, fixture and edge plans that:
+"""The launch geometry of the three layout kernels (``csrc/pack_cf.cu``,
+``csrc/unpack_cf.cu``, ``csrc/unpack_frames.cu``), on the CPU. The kernels
+run only on the card; what decides where each of their output elements
+comes from is the tile (``tail_fused.pack_cf_geometry``,
+``unpack_cf_geometry``, ``unpack_frames_geometry``), the 16-byte cover and
+its offset, and the index arithmetic of each block. A numpy emulation of
+each kernel's block -> element map, written from the CUDA source, shows at
+the Bunny-3M, fixture and edge plans that:
 - every output element is written exactly once, from the right source
   element, with zeros exactly on the border ring, the channel pad and the
-  flat tail pad (pack_cf);
+  flat tail pad (pack_cf); no border, channel-pad or tail-pad element of
+  the input reaches the output (unpack_cf);
 - every 16-byte store is aligned, every staged read lies inside what the
   block loaded, and every load lies inside the input's aligned extent, also
   when the input starts 1-3 floats past a 16-byte boundary;
-- the emulated result equals ``pack_cf_ref`` exactly, and
-  ``unpack_frames_ref`` exactly with the offset form of out_img and within
-  1e-6 with tanh and sigmoid (the same torch function, whose vectorised
-  path and scalar tail differ in the last ulp).
+- the emulated result equals ``pack_cf_ref`` and ``unpack_cf_ref``
+  exactly, and ``unpack_frames_ref`` exactly with the offset form of
+  out_img and within 1e-6 with tanh and sigmoid (the same torch function,
+  whose vectorised path and scalar tail differ in the last ulp).
 No JAX here: the plain versions are held against the JAX package in
 test_torch_tail_fused.py."""
 
@@ -93,6 +95,74 @@ def emulate_pack_cf(x, p, base=0):
                 np.add.at(writes, flat[live] + i, 1)
                 out[flat[live] + i] = v[live]
     return out.reshape(nb, c8, mp), writes.reshape(nb, c8, mp)
+
+
+def emulate_unpack_cf(g, p, c, base=0):
+    """csrc/unpack_cf.cu block by block. Returns (out (B, h, w, c), per
+    element write counts)."""
+    nb, c8, mp = g.shape
+    h, w, pad, wp = p.h, p.w, p.pad, p.wp
+    hw = h * w
+    geo = tf.unpack_cf_geometry(h, w, pad, c, nb)
+    tq, tcap = geo.tm, tf._unpack_cf_table(geo.tm, w, pad)
+    assert geo.smem == 4 * tcap + 4 * (tq * c + 4) <= tf.LAYOUT_SMEM
+    assert geo.blocks == -(-hw // tq) and tq in (8, 16, 32, 64, 128)
+    assert mp % 4 == 0 and tcap % 4 == 0
+    mem = _memory(g, base)
+    out = np.full(nb * hw * c, np.nan, np.float32)
+    writes = np.zeros(out.size, np.int32)
+    chans = np.arange(c)[:, None]
+    covered = set()
+    for b in range(nb):
+        for bx in range(geo.blocks):
+            q0 = bx * tq
+            q1 = min(q0 + tq, hw)
+            y0, yl = q0 // w, (q1 - 1) // w
+            m_lo = (y0 + pad) * wp + pad + q0 - y0 * w
+            m_hi = (yl + pad) * wp + pad + (q1 - 1 - yl * w) + 1
+            first = b * c8 * mp + m_lo
+            row0 = base + first
+            shift = row0 & (7 if first >= 8 else 3)    # 32-byte sectors
+            nv4 = (m_hi - m_lo + shift + 3) >> 2
+            assert 4 * nv4 <= tcap                         # fits the table
+            if nv4 not in covered:
+                # a lane pair per channel and sector: every (channel,
+                # float4) of the cover loaded exactly once
+                i = np.arange(2 * c * ((nv4 + 1) >> 1))
+                vv, ch = 2 * ((i >> 1) // c) + (i & 1), (i >> 1) % c
+                live = vv < nv4
+                assert sorted(zip(ch[live], vv[live])) == [
+                    (k, u) for k in range(c) for u in range(nv4)]
+                covered.add(nv4)
+            o0 = (b * hw + q0) * c
+            a = o0 & 3                  # the output is 16-byte aligned
+            m = m_lo - shift + np.arange(4 * nv4)
+            r, col = m // wp, m % wp
+            ok = (m >= m_lo) & (m < m_hi) & (col >= pad) & (col < pad + w)
+            tbl = np.where(ok, a + ((r - pad) * w + col - pad - q0) * c, -1)
+            lo = row0 - shift
+            assert lo % 4 == 0 and (first < 8 or lo % 8 == 0)
+            idx = lo + chans * mp + np.arange(4 * nv4)      # (c, cover)
+            assert idx.min() >= 0 and idx.max() < mem.size  # inside the extent
+            dest = (tbl + chans)[:, ok]
+            assert dest.max() < tq * c + 4                 # fits the stage
+            run = np.full(tq * c + 4, np.nan, np.float32)
+            staged = np.zeros(run.size, np.int32)
+            np.add.at(staged, dest.ravel(), 1)
+            run[dest.ravel()] = mem[idx][:, ok].ravel()
+            n = (q1 - q0) * c
+            assert np.all(staged[a:a + n] == 1) and staged.sum() == n
+            hd = min((4 - a) & 3, n)
+            nb4 = (n - hd) >> 2
+            tl = n - hd - 4 * nb4
+            assert hd <= THREADS and tl <= THREADS
+            body = hd + 4 * np.arange(nb4)
+            assert np.all((o0 + body) % 4 == 0)            # 16-byte stores
+            assert np.all((a + body) % 4 == 0)             # aligned stage
+            e = np.arange(n)
+            np.add.at(writes, o0 + e, 1)
+            out[o0 + e] = run[a + e]
+    return out.reshape(nb, h, w, c), writes.reshape(nb, h, w, c)
 
 
 def emulate_unpack_frames(z, p, f, ch, out_bias, base=0):
@@ -184,6 +254,45 @@ def test_pack_cf_block_map_misaligned_input(base):
         out, tf.pack_cf_ref(torch.from_numpy(x), p).numpy())
 
 
+def _cf_with_nan_pads(p, c, nb, seed):
+    """A (B, c8, Mp) input whose border ring, channel pad and tail pad are
+    NaN: a pad element that reached the output would show."""
+    g = np.random.RandomState(seed).randn(nb, tf._r8(c), p.mp).astype(
+        np.float32)
+    live = tf._mask_np(p.h, p.w, p.pad, p.mp).reshape(-1) > 0
+    g[:, :, ~live] = np.nan
+    g[:, c:] = np.nan
+    return g
+
+
+@pytest.mark.parametrize("base", [0, 3])
+@pytest.mark.parametrize("case", PACK_CASES, ids=case_id)
+def test_unpack_cf_block_map(case, base):
+    """The Bunny-3M step's two entries at batch 1 and 2, the fixtures'
+    plans, the edge plans at c = 1 to 100."""
+    name, c, nb = case
+    p, _ = plan(name)
+    g = _cf_with_nan_pads(p, c, nb, c + nb)
+    out, writes = emulate_unpack_cf(g, p, c, base)
+    assert np.all(writes == 1)
+    np.testing.assert_array_equal(
+        out, tf.unpack_cf_ref(torch.from_numpy(g), p, c).numpy())
+    assert not np.isnan(out).any()
+
+
+@pytest.mark.parametrize("base", [1, 2])
+@pytest.mark.parametrize("name,c", [("bunny", 53), ("bunny_prefix", 64)])
+def test_unpack_cf_block_map_misaligned_input(name, c, base):
+    """The input 1 or 2 floats past a 16-byte boundary, at the step's two
+    entries."""
+    p, _ = plan(name)
+    g = _cf_with_nan_pads(p, c, 1, base)
+    out, writes = emulate_unpack_cf(g, p, c, base)
+    assert np.all(writes == 1)
+    np.testing.assert_array_equal(
+        out, tf.unpack_cf_ref(torch.from_numpy(g), p, c).numpy())
+
+
 @pytest.mark.parametrize("case", UNPACK_CASES, ids=case_id)
 def test_unpack_frames_block_map(case):
     name, c, nb = case
@@ -233,6 +342,26 @@ def test_pack_cf_tiles():
         tf.pack_cf_geometry(2048, 2000, 1)
 
 
+def test_unpack_cf_tiles():
+    """128 positions of one image at the Bunny tail entry (400 blocks an
+    image); the prefix entry's 3,200 positions in tiles of 32, so that its
+    1.6 MB an image spreads over the card; wide channel counts take smaller
+    tiles."""
+    assert tf.unpack_cf_geometry(160, 320, 2, 53, 2) == (128, 400, 27728)
+    assert tf.unpack_cf_geometry(40, 80, 2, 64, 2) == (32, 100, 8400)
+    assert tf.unpack_cf_geometry(40, 80, 2, 64, 1).tm == 32
+    assert tf.unpack_cf_geometry(160, 320, 2, 100, 1).tm == 64
+    assert tf._unpack_cf_table(128, 320, 2) == 144
+    assert tf._unpack_cf_table(16, 5, 2) == 44
+    for h, w, pad, c, nb in ((16, 24, 2, 5, 2), (5, 13, 2, 100, 2),
+                             (160, 320, 2, 1, 1), (40, 80, 2, 700, 1)):
+        geo = tf.unpack_cf_geometry(h, w, pad, c, nb)
+        assert geo.tm in (8, 16, 32, 64, 128)
+        assert geo.smem <= tf.LAYOUT_SMEM
+    with pytest.raises(ValueError, match="do not fit"):
+        tf.unpack_cf_geometry(40, 80, 2, 2000, 1)
+
+
 def test_unpack_frames_tiles():
     """Three spans of 108 columns and all 4 output rows a block at the
     Bunny decode (480 blocks); the compile-time g for the configs' f = 2,
@@ -259,6 +388,9 @@ def test_launch_parameter_blocks():
     assert shape == (2, 56, p.mp)
     assert list(arr) == [2, 160, 320, 53, 56, 2, p.mp, 128]
     assert tf._pack_cf_launch(2, p.h, p.w, p.pad, p.tm, 53)[2] == addr
+    shape, arr, _ = tf._unpack_cf_launch(2, p.h, p.w, 53, 56, p.pad, p.mp)
+    assert shape == (2, 160, 320, 53)
+    assert list(arr) == [2, 160, 320, 53, 56, 2, p.mp, 128]
     mp, shape, arr, _, offset = tf._unpack_frames_launch(
         1, 48, p.h, p.w, p.pad, p.tm, f, 48, "tanh")
     assert (mp, shape, offset) == (p.mp, (1, 640, 1280, 3), 0.0)

@@ -247,3 +247,25 @@ def test_second_derivative_through_the_tail_raises(case):
         torch.autograd.grad(sum((g * g).sum() for g in first), [x, *ks])
     with pytest.raises(RuntimeError, match="differentiate twice"):
         sum((g * g).sum() for g in first).backward()
+
+
+@pytest.mark.parametrize("fn", ["pack_cf", "unpack_frames"])
+def test_second_derivative_through_the_layout_functions_raises(case, fn):
+    """``pack_cf``'s backward (unpack_cf) and ``unpack_frames``' (the VJP
+    of its plain version) build no graph on the card, so a second
+    derivative through either raises on the CPU too, as through the tail,
+    instead of differentiating the plain ops here and coming out silently
+    wrong there."""
+    _, (tplan, *_), cf = case
+    if fn == "pack_cf":
+        x = torch.from_numpy(np.random.RandomState(3).randn(
+            B, tplan.h, tplan.w, 5).astype(np.float32)).requires_grad_()
+        y = ttf.pack_cf(x, tplan)
+    else:
+        x = torch.from_numpy(cf(tplan.layers[-1].cout)).requires_grad_()
+        y = ttf.unpack_frames(x, tplan, 4, 48, "tanh")
+    (first,) = torch.autograd.grad((y ** 2).sum(), [x], create_graph=True)
+    with pytest.raises(RuntimeError, match="not have been used in the graph"):
+        torch.autograd.grad((first * first).sum(), [x])
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        (first * first).sum().backward()
