@@ -69,6 +69,20 @@ Phases (any failure exits non-zero):
      |Hv * v|, tail_conv_cf, tail_conv_dw_cf, pack_cf and unpack_cf
      launched and unpack_frames not on pallas; seconds per candidate and
      per batch, launches per batch and peak memory of each route
+ 12. stage 1 -- at batch 1, the config's: phase 3's kernels again (each
+     conv's forward, dx and dW pass and unpack_cf against their plain
+     versions, times beside bounds and cuDNN's conv2d_input and
+     conv2d_weight), and unpack_frames' forward and backward; one training
+     step (encoder, fused tail, loss, backward) against the plain unpacked
+     path (loss 1e-5; every leaf's gradient, encoder included, 1e-3 of its
+     largest against the plain path in float64, and in fp32 unless cuDNN's
+     fp32 is what misses), its launches (8 / 4 / 2 / 2 / 1), its forward /
+     backward / optimizer split, a profiler window, its peak memory; then
+     ``neuroquant_tpu_torch.methods.regress.main`` on the 8 frames for 3
+     epochs (eval every epoch, --profile): every step's launches, finite
+     losses, the [profile] lines, s/step, model_latest.pth and epoch3.pth
+     reloaded strictly, and --eval_only --weight epoch3.pth reproducing the
+     last eval's PSNR to 1e-3 dB
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -77,12 +91,15 @@ its times and bound summed over one decode's launches (the decode's
 kernels), one calibration step's (tail_conv_dw_cf, unpack_cf) or one
 ``quantize_params`` call's grouped launch over its seven layers (fq_uaq,
 fq_ada; the backward's fq_uaq_bwd, fq_ada_bwd); per-launch figures under
-"per_launch"; its launches per stage-2 batch beside them. The last line is
-{"ok": true, "device": ...}.
+"per_launch"; its launches per stage-2 batch and per stage-1 step
+("per_stage1_step") beside them, and the stage-1 step's batch-1 launch
+shapes under "stage1_per_launch". The last line is {"ok": true, "device":
+...}.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import math
@@ -144,6 +161,12 @@ STAGE2_TOL = 1e-4
 # plain path in fp32 is held to GRAD_TOL: cuDNN's algorithms for the 5x5
 # convs at 160x320 and 320x640 lose more)
 HV64_TOL = 1e-4
+# a stage-1 step's launches (batch 1): the calibration step's, the prefix's
+# dx included (the gradient reaches the encoder), and the unpack of the
+# frames the loss reads; its backward is the plain VJP, as in JAX
+PER_STAGE1_STEP = dict(PER_STEP, unpack_frames=1)
+STAGE1_EPOCHS = 3    # regress.main on the 8 frames: 8 steps an epoch
+STAGE1_PSNR_TOL = 1e-3   # dB, --eval_only against the last in-training eval
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -176,8 +199,9 @@ def _device_ms(fn, n: int = 5, tries: int = 3):
     does not hold it back. A trace now and then holds no device event: up
     to `tries` windows; None when none has device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from neuroquant_tpu_torch.utils.profiling import device_rows
 
     fn()
     torch.cuda.synchronize()
@@ -187,10 +211,7 @@ def _device_ms(fn, n: int = 5, tries: int = 3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages()
-                 if getattr(e, "device_type", None) == DeviceType.CUDA)
+        us = sum(r[0] for r in device_rows(prof.key_averages()))
         if us > 0:
             return us / 1e3 / n
     return None
@@ -494,9 +515,9 @@ def _decode_phase(torch, tf, cfg, sd, model):
                 launches=counts, profile=prof)
 
 
-def _backward_kernel_phase(torch, tf, cfg, model):
-    """The calibration step's kernels at Bunny-3M, batch 2, against their
-    plain versions: each conv layer's forward as the step runs it (the pair
+def _backward_kernel_phase(torch, tf, cfg, model, batch=CALIB_BATCH):
+    """A training step's kernels at Bunny-3M, at `batch` (the calibration
+    step's 2, stage 1's 1), against their plain versions: each conv layer's forward as the step runs it (the pair
     'zy' where a GELU follows, else z; no GELU on the input), its dx pass
     (the transposed layer with the GELU' epilogue; the prefix's splits K)
     and its dW pass; both kernels' act_in, which the step no longer uses,
@@ -506,7 +527,7 @@ def _backward_kernel_phase(torch, tf, cfg, model):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    B = CALIB_BATCH
+    B = batch
     ph, pw = cfg["crop_h"] // 16, cfg["crop_w"] // 16
     convs, pplan, plan, _, _ = _conv_layers(torch, tf, cfg, model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -779,12 +800,15 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
                     profile=prof_f))
 
 
-def _profile_steps(torch, one, n=5, what="step"):
+def _profile_steps(torch, one, n=5, what="step", host_rows=0):
     """Device time by kernel name and the device's busy share over n calls
     of `one`, a step or a decode (torch.profiler, CUPTI); 'not measured'
-    when the trace has no device time."""
-    from torch.autograd import DeviceType
+    when the trace has no device time. With `host_rows`, also the host
+    operators with the most self CPU time per call (the profiler's own
+    cost included)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from neuroquant_tpu_torch.utils.profiling import device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -794,14 +818,10 @@ def _profile_steps(torch, one, n=5, what="step"):
             one()
         torch.cuda.synchronize()      # a decode returns before the card ends
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue               # host ops: their kernels are rows too
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0 and e.count > 0:
-            rows.append((dev_us / 1e3 / n, e.count // n, e.key))
+    # kernels and copies; not host ops (their kernels are rows) nor
+    # annotated ranges such as the optimizer's step (spans over kernels)
+    rows = [(us / 1e3 / n, cnt // n, key)
+            for us, cnt, key in device_rows(prof.key_averages())]
     busy = sum(r[0] for r in rows) * n
     if busy <= 0:
         print("  profiler: no device time in the trace (not measured)")
@@ -811,11 +831,22 @@ def _profile_steps(torch, one, n=5, what="step"):
           f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f}%); per {what}:")
     for ms, cnt, key in rows[:14]:
         print(f"    {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
+    host = sorted(((e.self_cpu_time_total / 1e3 / n, e.count // n, e.key)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)[:host_rows]
+    if host:
+        print(f"  host self time per {what} (profiled; top {host_rows} of "
+              f"{sum(e.count for e in prof.key_averages()) // n} host and "
+              f"device records):")
+        for ms, cnt, key in host:
+            print(f"    {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
     return {f"wall_ms_per_{what}": wall_ms / n,
             f"busy_ms_per_{what}": busy / n, "busy_share": busy / wall_ms,
             "idle_share": 1 - busy / wall_ms,
             "top": [dict(ms=r[0], launches=r[1], name=r[2][:120])
-                    for r in rows[:14]]}
+                    for r in rows[:14]],
+            "host_top": [dict(ms=r[0], calls=r[1], name=r[2][:120])
+                         for r in host]}
 
 
 def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
@@ -1400,6 +1431,330 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work):
                 runs=runs)
 
 
+def _unpack_frames_backward(torch, tf, cfg, model):
+    """unpack_frames at a stage-1 step's batch 1, its forward (the kernel)
+    and its backward (the VJP of the plain version, as the JAX package's):
+    the backward against autograd of the plain forward, and the times of
+    both passes beside their bounds by bytes and one PyTorch call of the
+    same permutation (pixel_shuffle, pixel_unshuffle)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    _, _, plan, f, ch = _conv_layers(torch, tf, cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ob = cfg["out_bias"]
+    z = torch.randn((1, plan.layers[-1].cout, plan.mp), generator=gen,
+                    device=dev).requires_grad_()
+    out = tf.unpack_frames(z, plan, f, ch, ob)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    (dz,) = torch.autograd.grad(out, z, g)
+    zr = z.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(tf.unpack_frames_ref(zr, plan, f, ch, ob),
+                                  zr, g)
+    torch.cuda.synchronize()
+    err = float((dz - want).abs().max())
+    print(f"  unpack_frames backward {tuple(g.shape)}->{tuple(dz.shape)}: "
+          f"max_abs_err {err:.3e} (tol 0: the same plain VJP)")
+    assert err == 0.0, err
+    zl = torch.randn((1, ch, plan.h, plan.w), generator=gen, device=dev)
+    gl = g.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        fwd = _layout_record(
+            f"forward {tuple(z.shape)}->{tuple(out.shape)}",
+            lambda: tf.unpack_frames(z.detach(), plan, f, ch, ob),
+            lambda: tf.unpack_frames_ref(z.detach(), plan, f, ch, ob),
+            lambda: F.pixel_shuffle(zl, f),
+            4 * (ch * plan.h * plan.w + out.numel()))
+    zz = z.detach().requires_grad_()
+
+    def backward():
+        o = tf.unpack_frames(zz, plan, f, ch, ob)
+        torch.autograd.grad(o, zz, g)
+
+    def plain_backward():
+        o = tf.unpack_frames_ref(zz, plan, f, ch, ob)
+        torch.autograd.grad(o, zz, g)
+
+    # the backward pass alone: forward+backward less the forward
+    both = _layout_record(
+        f"forward+backward {tuple(z.shape)}",
+        backward, plain_backward, lambda: F.pixel_unshuffle(gl, f),
+        4 * (2 * out.numel() + 2 * z.numel()))
+    bwd = dict(both, shape=f"backward (plain VJP) {tuple(g.shape)}->"
+                           f"{tuple(dz.shape)}",
+               ms=both["ms"] - fwd["ms"],
+               device_ms=(None if both["device_ms"] is None
+                          or fwd["device_ms"] is None
+                          else both["device_ms"] - fwd["device_ms"]),
+               plain_ms=both["plain_ms"] - fwd["plain_ms"])
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        4 * (out.numel() + 2 * z.numel()), 0)
+    for rec, lib in ((fwd, "pixel_shuffle"), (bwd, "pixel_unshuffle")):
+        print(f"  unpack_frames {rec['shape']}: {_layout_line(rec)} "
+              f"(library: {lib})")
+    return dict(forward=fwd, backward=bwd, backward_max_abs_err=err)
+
+
+def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
+    """One stage-1 step at Bunny-3M, batch 1: HNeRV's forward (encoder,
+    fused prefix and tail on the kernels, unpack_frames), the config's loss
+    and the backward, against the plain unpacked path (``fused_tail:
+    off``, cuDNN) in fp32 and in float64: the loss within LOSS_TOL and
+    every leaf's gradient, encoder included, within GRAD_TOL of its
+    largest (against float64 where cuDNN's fp32 is what misses); the
+    step's launches; its forward / backward / optimizer split over 10
+    steps with Adam; a profiler window; its peak memory."""
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.metrics import loss_fn
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    dev = torch.device("cuda")
+    img = VideoDataSet(cfg, frames_dir, device=dev).frames[:1].clone()
+
+    def model_for(ft, dtype=torch.float32):
+        m = build_model("hnerv", dict(cfg, fused_tail=ft), device=dev)
+        m.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
+        return m.to(dtype)
+
+    def step(model, dtype=torch.float32):
+        model.zero_grad(set_to_none=True)
+        x = img.to(dtype)
+        loss = loss_fn(model(x), x, cfg["loss"])
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad for n, p in
+                                      model.named_parameters()}
+
+    kern = model_for("auto")
+    tf.reset_launch_counts()
+    loss_k, g_k = step(kern)
+    counts = dict(tf.KERNEL_LAUNCHES)
+    plain = model_for("off")
+    loss_p, g_p = step(plain)
+    del plain
+    plain64 = model_for("off", torch.float64)
+    loss_64, g_64 = step(plain64, torch.float64)
+    del plain64
+
+    def worst(a, b):
+        errs = {n: float((a[n].double() - b[n].double()).abs().max())
+                / max(float(b[n].abs().max()), 1e-30) for n in b}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    (kp, kp_leaf), (k64, k64_leaf), (p64, p64_leaf) = (
+        worst(g_k, g_p), worst(g_k, g_64), worst(g_p, g_64))
+    enc = max(worst({n: g_k[n]}, {n: g_64[n]})[0] for n in g_64
+              if n.startswith("encoder."))
+    rel_p = abs(loss_k - loss_p) / abs(loss_p)
+    rel_64 = abs(loss_k - loss_64) / abs(loss_64)
+    print(f"  one stage-1 step (batch 1), kernel path vs plain unpacked path: "
+          f"loss {loss_k:.8f} vs {loss_p:.8f} fp32 (rel {rel_p:.2e}) and "
+          f"{loss_64:.8f} float64 (rel {rel_64:.2e}; tol {LOSS_TOL:.0e}); "
+          f"gradients, worst leaf max|diff| / max|grad|: vs fp32 {kp:.2e} "
+          f"({kp_leaf}), vs float64 {k64:.2e} ({k64_leaf}; encoder "
+          f"{enc:.2e}); the fp32 plain path's own vs float64 {p64:.2e} "
+          f"({p64_leaf}) (tol {GRAD_TOL:.0e}); launches {counts}")
+    assert counts == PER_STAGE1_STEP, counts
+    assert min(rel_p, rel_64) <= LOSS_TOL, (loss_k, loss_p, loss_64)
+    assert k64 <= GRAD_TOL, (k64, k64_leaf)
+    # against the fp32 plain path too, unless that path is the one off
+    assert kp <= GRAD_TOL or p64 > GRAD_TOL, (kp, p64)
+    del g_p, g_64
+
+    opt = torch.optim.Adam(kern.parameters(), lr=cfg["learning_rate"],
+                           eps=1e-8)
+
+    def one(times=None):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(kern(img), img, cfg["loss"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if times is not None:
+            times.append((t1 - t0, t2 - t1, t3 - t2))
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    times = []
+    for _ in range(10):
+        one(times)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    fwd, bwd, upd = (1e3 * sum(t[i] for t in times) / len(times)
+                     for i in range(3))
+    print(f"  stage-1 step (batch {img.shape[0]}, mean of 10, synchronised "
+          f"between the parts): forward {fwd:.3f} ms, backward {bwd:.3f} ms, "
+          f"optimizer "
+          f"{upd:.3f} ms, total {fwd + bwd + upd:.3f} ms; peak device "
+          f"memory {peak_mb:.1f} MiB ({held_mb:.1f} MiB held: weights, "
+          f"Adam's moments, the frame)")
+
+    def loop_step():
+        """A step as regress's loop runs it: no synchronize."""
+        opt.zero_grad(set_to_none=True)
+        loss_fn(kern(img), img, cfg["loss"]).backward()
+        opt.step()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        loop_step()
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t0) / 20
+    print(f"  stage-1 step, 20 back to back as the training loop runs them "
+          f"(one synchronize at the end): {steady_ms:.3f} ms a step")
+    prof = _profile_steps(torch, loop_step, host_rows=10)
+    return dict(loss=loss_k, plain_loss=loss_p, float64_loss=loss_64,
+                loss_rel_err=rel_p, loss_rel_err_float64=rel_64,
+                grad_rel_err=kp, grad_rel_err_float64=k64,
+                encoder_grad_rel_err_float64=enc,
+                plain_grad_rel_err_float64=p64, launches=counts,
+                forward_ms=fwd, backward_ms=bwd, optimizer_ms=upd,
+                step_ms=steady_ms, peak_mib=peak_mb, held_mib=held_mb,
+                profile=prof)
+
+
+def _stage1_run_phase(torch, tf, frames_dir, card, work):
+    """``regress.main`` at Bunny-3M on the 8 seeded frames, from a copy of
+    the config with only epoch (STAGE1_EPOCHS) and eval_freq (1) changed,
+    with --profile: every training step's launches (counted at each loss
+    call, within each epoch), finite losses, the [profile] lines, s/step
+    from the Time/epoch lines; model_latest.pth and epoch3.pth loaded
+    strictly into a fresh model with the trained tensors; then --eval_only
+    --weight epoch3.pth, whose PSNR must equal the last in-training
+    eval's."""
+    import yaml
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.methods import common, regress
+    from neuroquant_tpu_torch.models import build_model
+
+    base = get_config(os.path.join(REPO, "configs", "HNeRV",
+                                   "Bunny_1280x640_3M.yaml"))
+    cfg_path = os.path.join(work, "bunny_stage1.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(dict(base, epoch=STAGE1_EPOCHS, eval_freq=1), f)
+    epochs, evals = [], []
+    orig_loss, orig_make, orig_eval = (regress.loss_fn,
+                                       regress.make_train_epoch,
+                                       common.evaluate)
+
+    def counting_loss(*a, **k):
+        epochs[-1]["snaps"].append(dict(tf.KERNEL_LAUNCHES))
+        return orig_loss(*a, **k)
+
+    def counting_make(*a, **k):
+        run = orig_make(*a, **k)
+
+        def run_epoch(*ra, **rk):
+            epochs.append({"snaps": [dict(tf.KERNEL_LAUNCHES)]})
+            losses, psnrs = run(*ra, **rk)
+            torch.cuda.synchronize()
+            epochs[-1]["snaps"].append(dict(tf.KERNEL_LAUNCHES))
+            epochs[-1]["losses"] = losses.cpu().numpy()
+            return losses, psnrs
+        return run_epoch
+
+    def recording_eval(*a, **k):
+        out = orig_eval(*a, **k)
+        evals.append([float(np.mean(v)) for v in out[0]])
+        return out
+
+    argv = ["--config", cfg_path, "--arch", "hnerv", "--data_path",
+            frames_dir, "--vid", "Bunny"]
+    cwd = os.getcwd()
+    cap = _Capture()
+    try:
+        regress.loss_fn = counting_loss
+        regress.make_train_epoch = counting_make
+        common.evaluate = recording_eval
+        os.chdir(work)
+        logging.getLogger().addHandler(cap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tf.reset_launch_counts()
+        t0 = time.time()
+        model = regress.main(argv + ["--outf", "stage1", "--profile"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(tf.KERNEL_LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        run_dir = os.path.dirname(glob.glob(os.path.join(
+            work, "results", "stage1", "*", "Encoder_*", "epoch*.pth"))[0])
+        trained = {k: v.detach() for k, v in model.state_dict().items()}
+        del model
+        for name in ("model_latest.pth", f"epoch{STAGE1_EPOCHS}.pth"):
+            fresh = build_model("hnerv", base, device="cuda", seed=1)
+            sd = torch.load(os.path.join(run_dir, name), map_location="cuda",
+                            weights_only=True)
+            fresh.load_state_dict(sd, strict=True)
+            for k, v in fresh.state_dict().items():
+                assert torch.equal(v, trained[k]), (name, k)
+            print(f"  {name}: {len(sd)} tensors, loaded strictly, equal to "
+                  f"the trained model's")
+        n_train_evals = len(evals)
+        regress.main(argv + ["--outf", "stage1_eval", "--eval_only",
+                             "--weight", os.path.join(
+                                 run_dir, f"epoch{STAGE1_EPOCHS}.pth")])
+        torch.cuda.synchronize()
+    finally:
+        regress.loss_fn, regress.make_train_epoch = orig_loss, orig_make
+        common.evaluate = orig_eval
+        logging.getLogger().removeHandler(cap)
+        os.chdir(cwd)
+    assert len(epochs) == STAGE1_EPOCHS, len(epochs)
+    steps = None
+    for e in epochs:
+        sn = e["snaps"]
+        diffs = [{k: b[k] - a[k] for k in a} for a, b in zip(sn, sn[1:])]
+        # [forward of step 0, steps 0..n-2 through the forward of the next,
+        # backward of the last]
+        ends = {k: diffs[0][k] + diffs[-1][k] for k in diffs[0]}
+        assert all(d == PER_STAGE1_STEP for d in diffs[1:-1]), [
+            d for d in diffs[1:-1] if d != PER_STAGE1_STEP][:3]
+        assert ends == PER_STAGE1_STEP, ends
+        assert np.isfinite(e["losses"]).all(), e["losses"]
+        steps = len(diffs) - 1
+    text = "\n".join(cap.lines)
+    prof_lines = [m for m in cap.lines if m.startswith("[profile]")]
+    assert prof_lines, "no [profile] lines"
+    epoch_s = [float(v) for v in re.findall(r"Time/epoch: \tCurrent:([\d.]+)",
+                                            text)]
+    assert len(epoch_s) == STAGE1_EPOCHS, epoch_s
+    assert len(evals) == n_train_evals + 1 == STAGE1_EPOCHS + 1, evals
+    last, again = evals[n_train_evals - 1][0], evals[-1][0]
+    print(f"  regress.main: {STAGE1_EPOCHS} epochs x {steps} steps at batch "
+          f"{base['batch_size']} "
+          f"in {wall:.1f} s wall (evals included); every step's launches "
+          f"{PER_STAGE1_STEP}; losses "
+          f"{' '.join(f'{x:.5f}' for e in epochs for x in e['losses'])}; "
+          f"s/step by epoch (Time/epoch / {steps}; epoch 2 profiled) "
+          f"{' / '.join(f'{t / steps:.4f}' for t in epoch_s)}; run "
+          f"launches {launches}; peak {peak_mb:.1f} MiB; card {card}")
+    print("  " + "\n  ".join(prof_lines))
+    print(f"  eval PSNR by epoch {[round(e[0], 4) for e in evals[:-1]]}; "
+          f"--eval_only --weight epoch{STAGE1_EPOCHS}.pth: {again:.6f} dB vs "
+          f"{last:.6f} (tol {STAGE1_PSNR_TOL} dB)")
+    assert math.isfinite(again) and abs(again - last) <= STAGE1_PSNR_TOL, (
+        again, last)
+    return dict(epochs=STAGE1_EPOCHS, steps_per_epoch=steps, wall_s=wall,
+                launches=launches, per_step=PER_STAGE1_STEP,
+                s_per_step=[t / steps for t in epoch_s],
+                losses=[float(x) for e in epochs for x in e["losses"]],
+                eval_psnr=[e[0] for e in evals[:-1]], eval_only_psnr=again,
+                profile_lines=prof_lines, peak_mib=peak_mb)
+
+
 def _write_frames(path: str, rng):
     from PIL import Image
 
@@ -1557,6 +1912,13 @@ def main() -> int:
         stream = _bitstream_phase(torch, tf, calib_fq, frames_dir, card)
         print("[stage 2: bit_assign]")
         stage2 = _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work)
+        print("[kernels: stage-1 step, batch 1]")
+        s1records = _backward_kernel_phase(torch, tf, cfg, model, batch=1)
+        s1unpack = _unpack_frames_backward(torch, tf, cfg, model)
+        print("[stage-1 step: gradients, launches, time]")
+        s1step = _stage1_step_phase(torch, tf, cfg, sd, frames_dir)
+        print("[stage 1: regress]")
+        s1run = _stage1_run_phase(torch, tf, frames_dir, card, work)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -1591,7 +1953,8 @@ def main() -> int:
         t_ops = sum(p["bound_ms"] for p in per if p["bound_by"] == "operations")
         t_bytes = sum(p["bound_ms"] for p in per if p["bound_by"] == "bytes")
         err = max(recs[name]["max_abs_err"],
-                  brecords.get(name, {"max_abs_err": 0.0})["max_abs_err"])
+                  brecords.get(name, {"max_abs_err": 0.0})["max_abs_err"],
+                  s1records.get(name, {"max_abs_err": 0.0})["max_abs_err"])
         is_fq = name.startswith("fq_")
         kernels.append({
             "name": name, "route": "cuda",
@@ -1624,6 +1987,10 @@ def main() -> int:
             "stage2_fisher_batch_launches": stage2["runs"]["fisher_diag"][
                 "launches_per_batch"][name],
             "per_decode_launches": dec["launches"][name] // 4,
+            # one stage-1 step (batch 1), as phase 12 counts it, and the
+            # launches of phase 12's regress run (its steps and its evals)
+            "per_stage1_step": s1step["launches"][name],
+            "stage1_run_launches": s1run["launches"][name],
             # the fake-quant entries: per step of the phase that runs them
             "per_step_launches": (
                 FQ_PHASE1[name] + FQ_PHASE2[name] if is_fq
@@ -1636,6 +2003,12 @@ def main() -> int:
     kernels[4]["width_tiled"] = records["unpack_frames"]["width_tiled"]
     kernels[2]["calibration_per_launch"] = records["pack_cf"][
         "calibration_per_launch"]
+    # the stage-1 step's launches at batch 1, outside the sums
+    for i, name in ((0, "tail_conv_cf"), (1, "tail_conv_dw_cf"),
+                    (3, "unpack_cf")):
+        kernels[i]["stage1_per_launch"] = s1records[name]["per_launch"]
+    kernels[4]["stage1_per_launch"] = [s1unpack["forward"],
+                                       s1unpack["backward"]]
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
@@ -1648,7 +2021,8 @@ def main() -> int:
                       "step": grad, "calibrate": calib,
                       "quantize_params": frecords["quantize_params"],
                       "calibrate_fq_pallas": calib_fq, "bitstream": stream,
-                      "stage2": stage2}))
+                      "stage2": stage2, "stage1_step": s1step,
+                      "stage1": s1run}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

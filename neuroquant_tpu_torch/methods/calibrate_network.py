@@ -149,17 +149,17 @@ def _refuse_unported(args):
         raise NotImplementedError(
             "--compute_dtype bfloat16: the kernels take fp32; reduced-"
             "precision calibration is ROADMAP queue A item 16")
-    if args.dump_vis:
-        raise NotImplementedError(
-            "--dump_vis: the visualization eval is ROADMAP queue A item 8")
 
 
-def _eval_block(title, model, params, dataset, args, cfg):
+def _eval_block(title, model, params, dataset, args, cfg, dump_vis=False):
     """Evaluate the clip with `params` loaded into `model`; returns
-    (results, embeddings in frame order)."""
+    (results, embeddings in frame order). `dump_vis` writes the decoded
+    frames under ``<outf>/visualize_calib_network``."""
     logging.info(f"======================={title}========================")
     model.load_state_dict(params)
-    results, _, embeds = common.evaluate(model, dataset, args, cfg)
+    results, _, embeds = common.evaluate(
+        model, dataset, args, cfg, dump_vis,
+        visual_dir_name="visualize_calib_network")
     print_str = "Evaluation ... \n {} \n".format(
         datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
     s, _ = common.best_metrics_str(results)
@@ -203,7 +203,7 @@ def calibrate(args, cfg):
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     _, cali_data = _eval_block("Full-precision model", model, params,
-                               dataset, args, cfg)
+                               dataset, args, cfg, args.dump_vis)
     logging.info("input embedding shape: {}".format(tuple(cali_data.shape)))
 
     spec = make_spec(args.arch, cfg, channel_wise=args.channel_wise,
@@ -269,7 +269,7 @@ def calibrate(args, cfg):
     with torch.no_grad():
         qparams = quantize_params(params, spec, state, mode=mode, soft=False)
     _eval_block("Weight quantization model w/ opt", model, qparams, dataset,
-                args, cfg)
+                args, cfg, args.dump_vis)
 
     codes = collect_int_codes(params, spec, state, mode=mode)
 

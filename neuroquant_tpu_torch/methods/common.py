@@ -1,7 +1,8 @@
 """Machinery shared by the CLI stages (the counterpart of
-``neuroquant_tpu/methods/common.py``, without stage 1's parts): run set-up
-and seeding, checkpoint loading, whole-clip PSNR/MS-SSIM in frame order
-with the reference's ``Eval at Step`` log lines, and decode FPS."""
+``neuroquant_tpu/methods/common.py``): run set-up and seeding, the model's
+input, checkpoint loading, whole-clip PSNR/MS-SSIM in frame order with the
+reference's ``Eval at Step`` log lines (and, with ``dump_vis``, every
+decoded frame written as a PNG), and decode FPS."""
 
 from __future__ import annotations
 
@@ -55,11 +56,30 @@ def measure_decode_fps(model, embeds, batch_size: int = 1,
     return n_iters * batch_size / best
 
 
+def model_input(arch: str, frames, norm_idx, idx):
+    """What the model takes for frames `idx` (indices or a slice): NeRV
+    the frames' normalized indices, the other archs the frames."""
+    if arch.lower() == "nerv":
+        return norm_idx[idx]
+    return frames[idx]
+
+
+def _eval_fps_line(device, fps: float, bs: int) -> None:
+    logging.info("[eval_fps] {} decode throughput: {} FPS (batch {})"
+                 .format(device_name(device), round(fps, 1), bs))
+
+
 @torch.no_grad()
-def evaluate(model, dataset, args, cfg, eval_fps: bool = False):
+def evaluate(model, dataset, args, cfg, dump_vis: bool = False,
+             eval_fps: bool = False,
+             visual_dir_name: str = "visualize_fp32"):
     """Full-clip eval in frame order: encode, decode and score each batch.
     Returns (results_list, (h, w), embeddings in frame order). Decode FPS
-    is measured on the collected embeddings, as in the JAX package."""
+    is measured on the collected embeddings, as in the JAX package. With
+    `dump_vis` the host loop of :func:`_evaluate_vis` runs instead."""
+    if dump_vis:
+        return _evaluate_vis(model, dataset, args, cfg, eval_fps,
+                             visual_dir_name)
     frames = dataset.frames
     n = len(dataset)
     bs = cfg["batch_size"]
@@ -67,8 +87,10 @@ def evaluate(model, dataset, args, cfg, eval_fps: bool = False):
     n_batches = (n + bs - 1) // bs
     ps, ss, embeds = [], [], []
     for i in range(n_batches):
-        img = frames[i * bs:min((i + 1) * bs, n)]
-        emb = model.encode(img)
+        idx = slice(i * bs, min((i + 1) * bs, n))
+        img = frames[idx]
+        emb = model.encode(model_input(args.arch, frames, dataset.norm_idx,
+                                       idx))
         out = model.decode(emb)
         ps.append(psnr_fn_single(out, img))
         ss.append(msssim_fn_single(out, img))
@@ -98,9 +120,75 @@ def evaluate(model, dataset, args, cfg, eval_fps: bool = False):
     results = [np.mean(v) if len(v) else np.zeros(1) for v in metric_list]
     args.fps = fps
     if eval_fps:
-        logging.info("[eval_fps] {} decode throughput: {} FPS (batch {})"
-                     .format(device_name(all_embeds.device), round(fps, 1),
-                             bs))
+        _eval_fps_line(all_embeds.device, fps, bs)
+    return results, (cfg["crop_h"], cfg["crop_w"]), all_embeds
+
+
+def _evaluate_vis(model, dataset, args, cfg, eval_fps: bool,
+                  visual_dir_name: str):
+    """:func:`evaluate` as a host loop that writes each decoded frame to
+    ``<outf>/<visual_dir_name>/pred_<frame id>_<PSNR>.png``. Its ``Eval at
+    Step`` lines carry the running means and the FPS of the decodes timed
+    one by one; with `eval_fps`, the decode FPS of
+    :func:`measure_decode_fps` as well."""
+    from PIL import Image
+
+    frames = dataset.frames
+    n = len(dataset)
+    bs = cfg["batch_size"]
+    val_ind = set(args.val_ind_list)
+    visual_dir = os.path.join(args.outf, visual_dir_name)
+    logging.info(f"Saving predictions to {visual_dir}...")
+    os.makedirs(visual_dir, exist_ok=True)
+    cuda = frames.device.type == "cuda"
+
+    metric_list = [[] for _ in METRIC_NAMES]
+    embeds, dec_times = [], []
+    n_batches = (n + bs - 1) // bs
+    fps = 0.0
+    for i in range(n_batches):
+        idx = slice(i * bs, min((i + 1) * bs, n))
+        img = frames[idx]
+        emb = model.encode(model_input(args.arch, frames, dataset.norm_idx,
+                                       idx))
+        if cuda:
+            torch.cuda.synchronize(frames.device)
+        t0 = time.perf_counter()
+        out = model.decode(emb)
+        if cuda:
+            torch.cuda.synchronize(frames.device)
+        dec_times.append(time.perf_counter() - t0)
+        embeds.append(emb)
+
+        psnr = psnr_fn_single(out, img).cpu().numpy()
+        msssim = msssim_fn_single(out, img).cpu().numpy()
+        ids = range(idx.start, idx.stop)
+        for bi, frame_id in enumerate(ids):
+            start = 2 if frame_id in val_ind else 0
+            metric_list[start + 0].append(psnr[bi])
+            metric_list[start + 1].append(msssim[bi])
+        arr = (torch.clamp(out, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        for bi, frame_id in enumerate(ids):
+            tag = str(round(float(psnr[bi]), 2))
+            Image.fromarray(arr[bi]).save(os.path.join(
+                visual_dir, f"pred_{frame_id:04d}_{tag}.png"))
+
+        if i % args.print_freq == 0 or i == n_batches - 1:
+            fps = bs / (sum(dec_times) / len(dec_times))
+            p = np.mean(metric_list[0]) if metric_list[0] else 0.0
+            s = np.mean(metric_list[1]) if metric_list[1] else 0.0
+            logging.info("[{}], Eval at Step [{}/{}], FPS {}, PSNR {}, "
+                         "MS-SSIM {}".format(
+                             datetime.now().strftime("%Y/%m/%d %H:%M:%S"),
+                             i + 1, n_batches, round(fps, 1),
+                             round(float(p), 2), round(float(s), 4)))
+
+    results = [np.mean(v) if len(v) else np.zeros(1) for v in metric_list]
+    args.fps = fps
+    all_embeds = torch.cat(embeds)
+    if eval_fps:
+        args.fps = measure_decode_fps(model, all_embeds, bs)
+        _eval_fps_line(all_embeds.device, args.fps, bs)
     return results, (cfg["crop_h"], cfg["crop_w"]), all_embeds
 
 

@@ -124,6 +124,7 @@ def main(argv):
     with open(args.artifact, "rb") as f:
         artifact = pickle.load(f)
     arch, cfg = artifact["arch"], artifact["cfg"]
+    args.arch = arch
 
     dataset = VideoDataSet(cfg, args.data_path, device=device)
     common.split_dataset(args, dataset)

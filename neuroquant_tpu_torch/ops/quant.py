@@ -1,8 +1,9 @@
 """Fake-quantization math: straight-through rounding, uniform affine
 quantizers, scale initialization and AdaRound, as plain functions on
-tensors (the counterpart of ``neuroquant_tpu/ops/quant.py``; the QAT
-quantizers are not ported yet). The per-channel scale search runs batched
-over rows where the JAX version vmaps over C_out.
+tensors (the counterpart of ``neuroquant_tpu/ops/quant.py``), and the
+FFNeRV and HiNeRV quantization-aware-training quantizers. The per-channel
+scale search runs batched over rows where the JAX version vmaps over
+C_out.
 
 Gradients follow JAX's autodiff of the same expressions: rounding passes
 the gradient straight through, and a clip passes half of it at a value
@@ -177,3 +178,56 @@ def adaround_reg(alpha, b):
     """Rounding regularizer sum(1 - |2h(alpha) - 1|^b)."""
     h = adaround_soft_targets(alpha)
     return (1.0 - torch.abs(2.0 * h - 1.0) ** b).sum()
+
+
+# --------------------------------------------------------------------------
+# QAT quantizers: the FFNeRV and HiNeRV baselines of stage 1's --qat_mode
+# --------------------------------------------------------------------------
+def qfn_ste(x, bit: int):
+    """FFNeRV's quantizer: sign-preserving floor-quantize of |x| to
+    2^(bit-1) - 1 levels, the gradient passed straight through."""
+    n = float(2 ** (bit - 1) - 1)
+    out = torch.floor(torch.abs(x) * n) / n * torch.sign(x)
+    return x + (out - x).detach()
+
+
+def quantize_ste_sym(x, n_bits: int, axis=0):
+    """HiNeRV's symmetric quantizer with one scale per slice along `axis`
+    (None: one for the tensor): (integer values, scale)."""
+    quant_range = 2.0 ** n_bits - 1.0
+    if axis is None:
+        x_max = torch.abs(x).amax()
+    else:
+        x_max = torch.abs(x).amax(dim=axis, keepdim=True)
+    x_scale = 2 * x_max / quant_range + 1e-6
+    x_q = _clip(round_ste(x / x_scale), -2.0 ** (n_bits - 1),
+                2.0 ** (n_bits - 1) - 1)
+    return x_q, x_scale
+
+
+def qat_mask(shape, generator=None, device=None):
+    """HiNeRV's training mask: 1 where a uniform draw exceeds 0.9, the
+    weights that stay unquantized this step (the JAX package draws it from
+    ``jax.random.uniform``)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u > 0.9).to(torch.float32)
+
+
+def qat_fake_quant(x, n_bits: int, mode: str, generator=None,
+                   training: bool = True):
+    """The QAT quantizer's forward on a weight in the JAX package's HWIO
+    layout (HiNeRV's scale is per slice of axis 0, the kernel rows).
+    'ffnerv': qfn_ste(tanh(x)); 'hinerv': the dequantized weight, and in
+    training a random tenth of the weights left as they are, the mask
+    drawn by :func:`qat_mask` from `generator`."""
+    if mode == "ffnerv":
+        return qfn_ste(torch.tanh(x), n_bits)
+    if mode == "hinerv":
+        x_q, x_scale = quantize_ste_sym(x, n_bits)
+        x_qr = x_q.detach() * x_scale
+        if training:
+            mask = qat_mask(tuple(x.shape), generator,
+                            x.device).to(x.dtype)
+            return x * mask + x_qr * (1.0 - mask)
+        return x_qr
+    raise ValueError(f"Wrong rounding mode {mode!r}")

@@ -207,9 +207,13 @@ def border_mask(plan: TailPlan, dtype=torch.float32, ch: int | None = None,
                 device=None):
     """Validity mask (1, C, Mp) of the packed head output: spatial borders
     and flat padding are zero; with `ch` (the real packed channel count) the
-    pad rows >= ch are zero too."""
-    m = torch.as_tensor(_mask_np(plan.h, plan.w, plan.pad, plan.mp),
-                        device=device).to(dtype)
+    pad rows >= ch are zero too. The fp32 mask is made once per geometry
+    and device (:func:`_mask_on`) and may come back as that tensor: read
+    it, do not write it. (Copying it from the host on every call, as every
+    tail backward asks for it, would synchronise the host with the card.)"""
+    m = _mask_on(plan.h, plan.w, plan.pad, plan.mp,
+                 str(torch.device("cpu" if device is None else device)))
+    m = m.reshape(1, 1, plan.mp).to(dtype)
     if ch is None or ch == _r8(ch):
         return m
     rows = torch.arange(_r8(ch), device=device)[None, :, None] < ch

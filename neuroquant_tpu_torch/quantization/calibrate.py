@@ -44,6 +44,7 @@ from neuroquant_tpu_torch.quantization.qmodel import (
 )
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.convert import layer_prefix
+from neuroquant_tpu_torch.utils.device import synchronize
 
 LOG_EVERY = 500     # steps between the loss log lines
 
@@ -137,11 +138,6 @@ def _epoch_order(train_ind, seed: int, phase: int, epoch: int):
     g = torch.Generator().manual_seed(((int(seed) * 4 + phase) << 32) + epoch)
     t = torch.as_tensor(np.asarray(train_ind, np.int64))
     return t[torch.randperm(len(t), generator=g)]
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _run_phase(*, loss, state, cali_data, gt, trainable_keys, lr, epochs,
@@ -286,7 +282,7 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
             trainable_keys=("w_delta", "b_delta"), lr=0.001, epochs=epochs1,
             steps_per_epoch=steps_per_epoch, batch_size=batch_size,
             order=order_for(1), log_fn=log_fn)
-        _sync(device)
+        synchronize(device)
         log_fn(f"[calib] phase 1 (delta): {epochs1} epochs x "
                f"{steps_per_epoch} steps in {time.time() - t0:.1f}s")
 
@@ -333,7 +329,7 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
         steps_per_epoch=steps_per_epoch, batch_size=batch_size,
         order=order_for(2), log_fn=log_fn, start_epoch=start_epoch,
         count_offset=count0, epoch_cb=epoch_cb, opt_state0=opt_state0)
-    _sync(device)
+    synchronize(device)
     dt = time.time() - t0
     n_steps = (epochs2 - start_epoch) * steps_per_epoch
     log_fn(f"[calib] phase 2 (alpha): {epochs2} epochs x {steps_per_epoch} "

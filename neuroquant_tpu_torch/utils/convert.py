@@ -108,6 +108,15 @@ def state_dict_from_jax(arch: str, params_np) -> "OrderedDict":
     return sd
 
 
+def save_pth(path: str, model) -> None:
+    """Write `model`'s weights as a reference-layout .pth: its state dict
+    (the reference's key names) as CPU tensors, which the JAX package's
+    ``load_pth`` and the port's ``methods.common.load_pth`` read."""
+    sd = OrderedDict((k, v.detach().cpu().clone())
+                     for k, v in model.state_dict().items())
+    torch.save(sd, path)
+
+
 def state_dict_from_numpy(state_dict, device=None) -> "OrderedDict":
     """A reference-layout state dict of numpy arrays (the quantized
     artifact's ``state_dict``) -> fp32 tensors on `device`."""

@@ -31,3 +31,9 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for `device`'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

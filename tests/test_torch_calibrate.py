@@ -415,6 +415,13 @@ class TestCLI:
             assert calibrate_network.parse_args(
                 ["--config", "c.yaml", "--arch", "hnerv"]).fq_impl == "jnp"
             return
+        if item == "item 8":
+            # ported: the flag parses
+            # (tests/test_torch_regress.py::TestCLI::
+            # test_calibrate_network_dump_vis runs the CLI with it)
+            assert calibrate_network.parse_args(
+                ["--config", "c.yaml", "--arch", "hnerv"] + flag).dump_vis
+            return
         with pytest.raises(NotImplementedError, match=item):
             calibrate_network.parse_args(["--config", "c.yaml", "--arch",
                                           "hnerv", "--device", "cpu"] + flag)

@@ -76,7 +76,8 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tiny_hnerv_cfg,
                                               frame_dir, tmp_path):
     from neuroquant_tpu_torch.analysis import hessian_eigen
     from neuroquant_tpu_torch.data import VideoDataSet
-    from neuroquant_tpu_torch.methods import bit_assign, eval_quantized
+    from neuroquant_tpu_torch.methods import (
+        bit_assign, eval_quantized, regress)
     from neuroquant_tpu_torch.models import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -98,6 +99,10 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch, tiny_hnerv_cfg,
         hessian_eigen.main(["--config", cfg_path, "--arch", "hnerv",
                             "--ckpt", "missing.pth", "--data_path",
                             frame_dir])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        regress.main(["--config", cfg_path, "--arch", "hnerv",
+                      "--data_path", frame_dir, "--outf",
+                      str(tmp_path / "t1")])
     model = build_model("hnerv", tiny_hnerv_cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 

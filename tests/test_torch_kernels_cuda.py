@@ -155,6 +155,108 @@ def test_tail_conv_kernels_launch_shapes(dev, shape):
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
+def _bunny_layers(dev):
+    """The four conv layers of HNeRV Bunny-3M's kernel path, (plan, layer)
+    for the fused prefix block and the tail's three layers."""
+    import os
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.models import build_model, tail_plan_for
+
+    cfg = get_config(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                  "HNeRV", "Bunny_1280x640_3M.yaml"))
+    model = build_model("hnerv", cfg, device=dev)
+    kern = model.blocks[model.pack_start - 1].conv_params()[0]
+    pplan = tf._prefix_plan(cfg["crop_h"] // 16, cfg["crop_w"] // 16,
+                            kern.shape[0], kern.shape[2], kern.shape[3])
+    plan = tail_plan_for("hnerv", cfg)[0]
+    return [(pplan, pplan.layers[0])] + [(plan, l) for l in plan.layers]
+
+
+# the K splits of a stage-1 step's dx passes and the position splits of its
+# dW passes at batch 1: the prefix's dx splits K 8 ways (4 at batch 2)
+BUNNY_B1_SPLITS = {"prefix": (8, 2), "L0": (1, 12), "L1": (1, 4),
+                   "head": (1, 22)}
+
+
+@pytest.mark.parametrize("name", list(BUNNY_B1_SPLITS))
+def test_bunny_backward_at_batch_1(dev, name):
+    """A stage-1 step's dx pass (GELU' epilogue where the layer's input
+    went through GELU) and dW pass at HNeRV Bunny-3M, batch 1, against
+    their plain versions: the launch geometries calibration's batch 2 does
+    not reach."""
+    plan, layer = _bunny_layers(dev)[list(BUNNY_B1_SPLITS).index(name)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    mask = tf.border_mask(plan, device=dev)
+    x = torch.randn((1, layer.cin, plan.mp), generator=gen, device=dev) * mask
+    g = torch.randn((1, layer.cout, plan.mp), generator=gen, device=dev) * mask
+    kk = torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                     generator=gen, device=dev) * 0.05
+    lt = layer.transposed()
+    kt = tf._kk_transpose(kk).contiguous()
+    blocks = tf._k_blocks(plan, lt)
+    nsteps = len(tf._conv_steps(blocks, lt.cin, lt.taps)[0])
+    kblocks = tf._k_blocks(plan, layer)
+    nk = tf.K_STEP * (len(tf._k_steps(kblocks, layer.cin, layer.taps)[0]) + 1)
+    assert (tf._conv_split(lt.cout, plan.mp, 1, nsteps),
+            tf._dw_split(nk, layer.cout, plan.mp)[0]) == \
+        BUNNY_B1_SPLITS[name]
+    om = x if layer.gelu_in else None
+    tf.reset_launch_counts()
+    _assert_close(tf.conv_cf(g.contiguous(), kt, None, plan, lt, out_mul=om),
+                  tf.conv_cf_ref(g, kt, None, plan, lt, blocks=blocks,
+                                 out_mul=om))
+    got = tf.conv_cf_dw(x.contiguous(), g.contiguous(), plan, layer)
+    _assert_close(got, tf.conv_cf_dw_ref(x, g, plan, layer, False, kblocks))
+    torch.cuda.synchronize()
+    assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (1, 1)
+
+
+def test_training_step_runs_on_the_kernels(dev, monkeypatch):
+    """One stage-1 step of the tiny HNeRV at batch 1 on the card: the
+    forward through the encoder and the fused tail, the l2 loss and the
+    backward launch every tail conv, its dx and dW, both entries' pack_cf
+    and unpack_cf and one unpack_frames, and no plain conv or pack runs;
+    every gradient, encoder included, equals the plain unpacked path's
+    (cuDNN) within 1e-4 of its leaf's largest."""
+    from neuroquant_tpu_torch.metrics import loss_fn
+    from neuroquant_tpu_torch.models import build_model, tail_plan_for
+
+    kern = build_model("hnerv", TINY_HNERV, device=dev)
+    plain = build_model("hnerv", dict(TINY_HNERV, fused_tail="off"),
+                        device=dev)
+    plain.load_state_dict(kern.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    img = torch.rand((1, 80, 160, 3), generator=gen, device=dev)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    with monkeypatch.context() as m:
+        for fn in ("conv_cf_ref", "conv_cf_dw_ref", "pack_cf_ref",
+                   "unpack_cf_ref"):
+            m.setattr(tf, fn, refuse)
+        tf.reset_launch_counts()
+        loss_k = loss_fn(kern(img), img, "l2")
+        loss_k.backward()
+        torch.cuda.synchronize()
+        counts = dict(tf.KERNEL_LAUNCHES)
+    loss_p = loss_fn(plain(img), img, "l2")
+    loss_p.backward()
+    n = len(tail_plan_for("hnerv", TINY_HNERV)[0].layers) + 1
+    assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
+                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 1,
+                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
+                      "fq_ada_bwd": 0}
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
+    grads_p = dict(plain.named_parameters())
+    for name, prm in kern.named_parameters():
+        want = grads_p[name].grad
+        assert float((prm.grad - want).abs().max()) <= \
+            1e-4 * float(want.abs().max()), name
+
+
 def _rand(dev, shape, seed, offset=0):
     """Random values of `shape` on the card; with `offset`, a contiguous
     view that starts `offset` floats past a 16-byte boundary."""

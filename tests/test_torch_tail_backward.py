@@ -231,6 +231,32 @@ def test_no_graph_without_gradients(case):
                            tplan).grad_fn is None
 
 
+def test_backward_makes_the_border_mask_once(case, monkeypatch):
+    """The tail's backward masks its cotangent with the border mask made
+    once per geometry and device: a mask built from the host array on
+    every backward is a host-to-device copy on the card, which waits for
+    the card to finish its queue (two per training step, one per
+    forward-mode conv in a Hessian-vector product)."""
+    _, (tplan, tkks, tbms, *_), cf = case
+    calls = []
+    orig = ttf._mask_np
+
+    def counting(*a):
+        calls.append(a)
+        return orig(*a)
+
+    monkeypatch.setattr(ttf, "_mask_np", counting)
+    ttf._mask_on.cache_clear()
+    x = torch.from_numpy(cf(tplan.layers[0].cin)).requires_grad_()
+    for _ in range(3):
+        y = ttf.tail_apply(tplan, x, [k.clone().requires_grad_()
+                                      for k in tkks], tbms)
+        (y * y).sum().backward()
+    assert len(calls) == 1
+    want = orig(tplan.h, tplan.w, tplan.pad, tplan.mp)
+    np.testing.assert_array_equal(ttf.border_mask(tplan).numpy(), want)
+
+
 def test_second_derivative_through_the_tail_raises(case):
     """The tail's backward is first-order, as the JAX tail's custom VJP: a
     gradient taken with create_graph=True carries no graph through the
