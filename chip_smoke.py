@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU, at HNeRV Bunny-3M
-(640x1280, configs/HNeRV/Bunny_1280x640_3M.yaml) with seeded random weights.
+(640x1280, configs/HNeRV/Bunny_1280x640_3M.yaml) and NeRV Bunny-3M
+(configs/NeRV/Bunny_1280x640_3M.yaml) with seeded random weights.
 
   python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -30,11 +31,14 @@ Phases (any failure exits non-zero):
      ``neuroquant_tpu_torch.methods.eval_quantized.main`` on 8 seeded
      1280x720 PNG frames, with --eval_fps
   6. calibration step -- one phase-2 step's loss and gradients, kernel
-     path against the plain unpacked path; its launches; its forward,
-     backward and optimizer times; a profiler window; then the same step
-     with fq_impl='pallas' (the grouped fake-quant kernels) against
-     fq_impl='jnp' on the same kernel tail: loss, gradients, one fq_ada and
-     one fq_ada_bwd launch, its times and profiler window
+     path against the plain unpacked path in fp32 and in float64 on the
+     same fp32 fake-quantized weights; the codes where a float64
+     fake-quant would part from the fp32 one, and the gradients' gap from
+     such a reference at their alphas and elsewhere; its launches; its
+     forward, backward and optimizer times; a profiler window; then the
+     same step with fq_impl='pallas' (the grouped fake-quant kernels)
+     against fq_impl='jnp' on the same kernel tail: loss, gradients, one
+     fq_ada and one fq_ada_bwd launch, its times and profiler window
   7. calibrate -- ``neuroquant_tpu_torch.methods.calibrate_network.main``
      at Bunny-3M on the 8 frames from a .pth of the seeded weights, batch 2,
      80 steps (1 phase-1 and 19 phase-2 epochs): every step's launches (8
@@ -83,6 +87,15 @@ Phases (any failure exits non-zero):
      losses, the [profile] lines, s/step, model_latest.pth and epoch3.pth
      reloaded strictly, and --eval_only --weight epoch3.pth reproducing the
      last eval's PSNR to 1e-3 dB
+ 13. NeRV Bunny-3M at full width and depth, through the phases above: its
+     kernels at the decode's shapes (phase 2) and a training step's at
+     batch 1 and 2 (phase 3: the prefix 36 -> 384 at 40x80, the tail
+     24 -> 96, 96 -> 384 and the head 384 -> 48 at 160x320), the decode
+     (phase 4, launches 4 / 2 / 1), one calibration step (phase 6,
+     launches 8 / 4 / 2 / 2), a stage-1 step and regress (phase 12), the fake-quant
+     kernels at its seven layers (phase 8), calibrate_network on both
+     fq_impls (phases 7 and 9), the bitstream (phase 10) and bit_assign
+     (phase 11)
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -93,8 +106,9 @@ kernels), one calibration step's (tail_conv_dw_cf, unpack_cf) or one
 fq_ada; the backward's fq_uaq_bwd, fq_ada_bwd); per-launch figures under
 "per_launch"; its launches per stage-2 batch and per stage-1 step
 ("per_stage1_step") beside them, and the stage-1 step's batch-1 launch
-shapes under "stage1_per_launch". The last line is {"ok": true, "device":
-...}.
+shapes under "stage1_per_launch"; NeRV's per-launch records (phase 13)
+under "nerv_per_launch", its launches under "nerv_launches". The last line
+is {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -168,6 +182,9 @@ PER_STAGE1_STEP = dict(PER_STEP, unpack_frames=1)
 STAGE1_EPOCHS = 3    # regress.main on the 8 frames: 8 steps an epoch
 STAGE1_PSNR_TOL = 1e-3   # dB, --eval_only against the last in-training eval
 REPO = os.path.dirname(os.path.abspath(__file__))
+HNERV_CONFIG = os.path.join("configs", "HNeRV", "Bunny_1280x640_3M.yaml")
+NERV_CONFIG = os.path.join("configs", "NeRV", "Bunny_1280x640_3M.yaml")
+_CONFIGS = {"hnerv": HNERV_CONFIG, "nerv": NERV_CONFIG}
 
 
 def _card_line() -> str:
@@ -292,37 +309,48 @@ def _seeded_state_dict(model, rng):
 
 
 def _conv_layers(torch, tf, cfg, model):
-    """The four conv layers of the kernel path at HNeRV Bunny-3M: (name,
-    plan, layer, kk, bias, real cin, real cout, library conv: (input NCHW
-    shape at batch 1, weight OIHW shape, padding))."""
+    """The four conv layers of a Bunny-3M model's kernel path (the fused
+    prefix block, the tail's two blocks, the head): (name, plan, layer, kk,
+    bias, real cin, real cout, library conv: (input NCHW shape at batch 1,
+    weight OIHW shape, padding)); the real widths of the unpacked (f=1)
+    layers, None for the packed ones; the two entries' (name, plan, real
+    channels)."""
     from neuroquant_tpu_torch.models.layers import collect_tail_params
 
     t = model.pack_start
     pre = model.blocks[t - 1]
-    ph, pw = cfg["crop_h"] // 16, cfg["crop_w"] // 16      # 40 x 80
+    strides = [int(s) for s in cfg["dec_strides"]]
+    th = cfg["crop_h"] // int(np.prod(strides[t:]))      # 160 x 320
+    tw = cfg["crop_w"] // int(np.prod(strides[t:]))
+    ph, pw = th // pre.stride, tw // pre.stride            # 40 x 80
     pkern, pbias = pre.conv_params()
-    pplan = tf._prefix_plan(ph, pw, pkern.shape[0], pkern.shape[2],
-                            pkern.shape[3])
+    k, pcin, pcout = pkern.shape[0], pkern.shape[2], pkern.shape[3]
+    pplan = tf._prefix_plan(ph, pw, k, pcin, pcout)
     blocks, head = collect_tail_params(model.blocks, model.head_layer, t)
     with torch.no_grad():
-        plan, kks, bms, f, ch = tf.plan_and_pack(ph * 4, pw * 4, blocks,
-                                                 head)
+        plan, kks, bms, f, ch = tf.plan_and_pack(th, tw, blocks, head)
         wrel, brel = tf._relabel(pkern, pbias, pre.stride)
         pl0 = pplan.layers[0]
         pkk = tf._pad_kk(wrel, pl0.cin, pl0.cout).contiguous()
         pbm = torch.nn.functional.pad(brel, (0, pl0.cout - brel.shape[0]))
         pbm = pbm.reshape(pl0.cout, 1)
-    convs = [
-        ("prefix", pplan, pl0, pkk, pbm, 64, 848,
-         ((1, 64, ph, pw), (848, 64, 5, 5), 2)),
-        ("tail L0", plan, plan.layers[0], kks[0], bms[0], 53, 176,
-         ((1, 53, ph * 4, pw * 4), (176, 53, 5, 5), 2)),
-        ("tail L1", plan, plan.layers[1], kks[1], bms[1], None, None,
-         ((1, 44, ph * 8, pw * 8), (148, 44, 5, 5), 2)),
-        ("head", plan, plan.layers[2], kks[2], bms[2], None, None,
-         ((1, 37, ph * 16, pw * 16), (3, 37, 3, 3), 1)),
-    ]
-    return convs, pplan, plan, f, ch
+    convs = [("prefix", pplan, pl0, pkk, pbm, pcin, pcout,
+              ((1, pcin, ph, pw), (pcout, pcin, k, k), (k - 1) // 2))]
+    gh, gw = th, tw
+    for j, (w, _, r) in enumerate(blocks):
+        kj, cin, cout = w.shape[0], w.shape[2], w.shape[3]
+        convs.append((f"tail L{j}", plan, plan.layers[j], kks[j], bms[j],
+                      cin if j == 0 else None, cout if j == 0 else None,
+                      ((1, cin, gh, gw), (cout, cin, kj, kj),
+                       (kj - 1) // 2)))
+        gh, gw = gh * r, gw * r
+    hk, hcin = head[0].shape[0], head[0].shape[2]
+    convs.append(("head", plan, plan.layers[-1], kks[-1], bms[-1], None,
+                  None, ((1, hcin, gh, gw), (3, hcin, hk, hk),
+                         (hk - 1) // 2)))
+    entries = (("prefix entry", pplan, pcin),
+               ("tail entry", plan, blocks[0][0].shape[2]))
+    return convs, pplan, plan, f, ch, entries
 
 
 def _cf_input(torch, tf, p, cin, gen, batch=1):
@@ -330,14 +358,14 @@ def _cf_input(torch, tf, p, cin, gen, batch=1):
     return (x * tf.border_mask(p, device="cuda")).contiguous()
 
 
-def _kernel_phase(torch, tf, cfg, model):
+def _kernel_phase(torch, tf, cfg, model, width_tiled=True):
     """Every kernel at the decode's shapes vs its plain version; returns
-    per-kernel records (launches filled in later)."""
+    per-kernel records (launches filled in later). `width_tiled`: also the
+    width-tiled unpack_frames plan, which is the model's own."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    ph, pw = cfg["crop_h"] // 16, cfg["crop_w"] // 16
-    convs, pplan, plan, f, ch = _conv_layers(torch, tf, cfg, model)
+    convs, pplan, plan, f, ch, entries = _conv_layers(torch, tf, cfg, model)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def cf_input(p, cin):
@@ -345,10 +373,10 @@ def _kernel_phase(torch, tf, cfg, model):
 
     records = {k: {"per_launch": [], "max_abs_err": 0.0}
                for k in ("tail_conv_cf", "pack_cf", "unpack_frames")}
-    emits = {"prefix": "z", "tail L0": "y", "tail L1": "y", "head": "z"}
     with torch.no_grad():
         for name, p, layer, kk, bias, cin, cout, lib in convs:
-            emit = emits[name]
+            # the decode's: a GELU follows the tail's blocks
+            emit = "y" if name.startswith("tail") else "z"
             x = cf_input(p, layer.cin)
             # the operand the decode packs once per model (HNeRV keeps it)
             w_op = tf.conv_w_operand(kk, p, layer)
@@ -396,10 +424,9 @@ def _kernel_phase(torch, tf, cfg, model):
         # step's, outside the decode's sum
         for batch, key in ((1, "per_launch"), (CALIB_BATCH,
                                                "calibration_per_launch")):
-            for name, p, hw, c in (("prefix entry", pplan, (ph, pw), 64),
-                                   ("tail entry", plan, (ph * 4, pw * 4),
-                                    53)):
-                x = torch.randn((batch, *hw, c), generator=gen, device=dev)
+            for name, p, c in entries:
+                x = torch.randn((batch, p.h, p.w, c), generator=gen,
+                                device=dev)
                 ref, out = tf.pack_cf_ref(x, p), tf.pack_cf(x, p)
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max())
@@ -428,28 +455,32 @@ def _kernel_phase(torch, tf, cfg, model):
             assert err <= 1e-6, (ob, err)
             records["unpack_frames"]["max_abs_err"] = max(
                 records["unpack_frames"]["max_abs_err"], err)
-        # a plan whose JAX unpack is the width-tiled _unpack_kernel5 (f=4,
-        # w=480 -> 240-wide tiles): the one kernel covers it
-        wplan, wf = tf.plan_geometry(4, 480, [(3, 17, 224, 4)], (3, 14, 3))
-        zw = torch.randn((2, wplan.layers[-1].cout, wplan.mp), generator=gen,
-                         device=dev)
-        outw = tf.unpack_frames(zw, wplan, wf, 48, "tanh")
-        err = float((outw - tf.unpack_frames_ref(zw, wplan, wf, 48, "tanh"))
-                    .abs().max())
-        print(f"  unpack_frames width-tiled plan (f=4, w=480): max_abs_err "
-              f"{err:.3e} (tol 1e-6)")
-        assert err <= 1e-6, err
-        records["unpack_frames"]["max_abs_err"] = max(
-            records["unpack_frames"]["max_abs_err"], err)
-        zwl = torch.randn((2, 48, wplan.h, wplan.w), generator=gen, device=dev)
-        rec = _layout_record(
-            f"{tuple(zw.shape)}->{tuple(outw.shape)} out_bias=tanh",
-            lambda: tf.unpack_frames(zw, wplan, wf, 48, "tanh"),
-            lambda: tf.unpack_frames_ref(zw, wplan, wf, 48, "tanh"),
-            lambda: F.pixel_shuffle(zwl, wf), 4 * (zwl.numel() + outw.numel()))
-        records["unpack_frames"]["width_tiled"] = rec
-        print(f"  unpack_frames width-tiled plan {rec['shape']}: "
-              f"{_layout_line(rec)} (library: pixel_shuffle)")
+        if width_tiled:
+            # a plan whose JAX unpack is the width-tiled _unpack_kernel5
+            # (f=4, w=480 -> 240-wide tiles): the one kernel covers it
+            wplan, wf = tf.plan_geometry(4, 480, [(3, 17, 224, 4)],
+                                         (3, 14, 3))
+            zw = torch.randn((2, wplan.layers[-1].cout, wplan.mp),
+                             generator=gen, device=dev)
+            outw = tf.unpack_frames(zw, wplan, wf, 48, "tanh")
+            err = float((outw - tf.unpack_frames_ref(zw, wplan, wf, 48,
+                                                     "tanh")).abs().max())
+            print(f"  unpack_frames width-tiled plan (f=4, w=480): "
+                  f"max_abs_err {err:.3e} (tol 1e-6)")
+            assert err <= 1e-6, err
+            records["unpack_frames"]["max_abs_err"] = max(
+                records["unpack_frames"]["max_abs_err"], err)
+            zwl = torch.randn((2, 48, wplan.h, wplan.w), generator=gen,
+                              device=dev)
+            rec = _layout_record(
+                f"{tuple(zw.shape)}->{tuple(outw.shape)} out_bias=tanh",
+                lambda: tf.unpack_frames(zw, wplan, wf, 48, "tanh"),
+                lambda: tf.unpack_frames_ref(zw, wplan, wf, 48, "tanh"),
+                lambda: F.pixel_shuffle(zwl, wf),
+                4 * (zwl.numel() + outw.numel()))
+            records["unpack_frames"]["width_tiled"] = rec
+            print(f"  unpack_frames width-tiled plan {rec['shape']}: "
+                  f"{_layout_line(rec)} (library: pixel_shuffle)")
         ob = cfg["out_bias"]
         zl = torch.randn((1, ch, plan.h, plan.w), generator=gen, device=dev)
         rec = _layout_record(
@@ -464,18 +495,25 @@ def _kernel_phase(torch, tf, cfg, model):
     return records
 
 
-def _decode_phase(torch, tf, cfg, sd, model):
+def _decode_phase(torch, tf, cfg, sd, model, arch="hnerv"):
+    """4 decodes of batch 1, kernel path against the plain unpacked path;
+    launches per decode; latency; a profiler window. HNeRV decodes seeded
+    random embeddings, NeRV the encodings of frames 0-3."""
     from neuroquant_tpu_torch.models import build_model
     from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
 
     dev = torch.device("cuda")
-    plain = build_model("hnerv", dict(cfg, packed_tail="off"), device=dev)
+    plain = build_model(arch, dict(cfg, packed_tail="off"), device=dev)
     plain.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
     assert plain.pack_start is None and model.pack_start == 3
-    eh, ew = model.cfg.embed_hw                          # 2 x 4
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    embeds = torch.randn((4, eh, ew, cfg["enc_channel"][-1]), generator=gen,
-                         device=dev)
+    if arch == "nerv":
+        with torch.no_grad():
+            embeds = model.encode(torch.arange(4, device=dev) / N_FRAMES)
+    else:
+        eh, ew = model.cfg.embed_hw                      # 2 x 4
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        embeds = torch.randn((4, eh, ew, cfg["enc_channel"][-1]),
+                             generator=gen, device=dev)
     with torch.no_grad():
         tf.reset_launch_counts()
         outs = [model.decode(embeds[i:i + 1]) for i in range(4)]
@@ -528,8 +566,7 @@ def _backward_kernel_phase(torch, tf, cfg, model, batch=CALIB_BATCH):
 
     dev = torch.device("cuda")
     B = batch
-    ph, pw = cfg["crop_h"] // 16, cfg["crop_w"] // 16
-    convs, pplan, plan, _, _ = _conv_layers(torch, tf, cfg, model)
+    convs, _, _, _, _, entries = _conv_layers(torch, tf, cfg, model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     records = {k: {"per_launch": [], "max_abs_err": 0.0}
                for k in ("tail_conv_cf", "tail_conv_dw_cf", "unpack_cf")}
@@ -574,8 +611,8 @@ def _backward_kernel_phase(torch, tf, cfg, model, batch=CALIB_BATCH):
                    f"{p.h}x{p.w} batch {B}")
 
             w_op = tf.conv_w_operand(kk, p, layer)
-            # a GELU follows the two middle layers: they emit the pair
-            emit = "zy" if name in ("tail L0", "tail L1") else "z"
+            # a GELU follows the tail's blocks: they emit the pair
+            emit = "zy" if name.startswith("tail") else "z"
             check("tail_conv_cf", f"forward {geo} emit={emit}",
                   tf.conv_cf(x, kk, bias, p, layer, emit, False, w_op),
                   tf.conv_cf_ref(x, kk, bias, p, layer, emit))
@@ -637,9 +674,8 @@ def _backward_kernel_phase(torch, tf, cfg, model, batch=CALIB_BATCH):
                         executed_gmac=tf.conv_executed_macs(p, layer, B)
                         / 1e9, position_splits=splits))
 
-        for name, p, (h, w), c in (("prefix entry", pplan, (ph, pw), 64),
-                                   ("tail entry", plan, (ph * 4, pw * 4),
-                                    53)):
+        for name, p, c in entries:
+            h, w = p.h, p.w
             g = torch.randn((B, tf._r8(c), p.mp), generator=gen, device=dev)
             out, ref = tf.unpack_cf(g, p, c), tf.unpack_cf_ref(g, p, c)
             torch.cuda.synchronize()
@@ -656,57 +692,129 @@ def _backward_kernel_phase(torch, tf, cfg, model, batch=CALIB_BATCH):
     return records
 
 
-def _gradient_phase(torch, tf, cfg, sd, frames_dir):
-    """One phase-2 calibration step at Bunny-3M, batch 2: the kernel path
-    (decode_cf, packed loss) against the plain unpacked path (packed_tail
-    off, NHWC loss, cuDNN, TF32 off) -- the same loss up to a permutation
-    of its terms, so the same value and gradients; the step's launches; and
-    the step's time split into forward, backward and optimizer, with a
-    profiler window for the kernel time by name and the device's busy
-    share. Then the same step with fq_impl='pallas': the grouped fake-quant
-    kernels, forward and backward, give the 'jnp' step's loss and gradients
-    on the same kernel tail, with one fq_ada and one fq_ada_bwd launch
-    more; both steps' times and profiler windows."""
+def _parted_decisions(torch, params, spec, state):
+    """{(layer, alpha leaf): {decision: mask of the codes where the
+    AdaRound soft fake-quant in float64 decides otherwise than in fp32}}
+    over every spec layer's kernel and bias, the decisions being
+    floor(x / delta), the code's clip and h(alpha)'s clip (the plain chain
+    of ``quantize_params``)."""
+    from neuroquant_tpu_torch.ops import quant as Q
+    from neuroquant_tpu_torch.ops.fused_fakequant import _clip_mask
+    from neuroquant_tpu_torch.ops.hadamard import fwht, pad_cin_to_pow2
+    from neuroquant_tpu_torch.quantization.qmodel import _get
+
+    def dom(w):
+        return fwht(pad_cin_to_pow2(w), axis=2) if spec.hadamard else w
+
+    def decisions(x, s, leaf, qmax):
+        d, zp, alpha = (s[f"{leaf}_{k}"].to(x.dtype)
+                        for k in ("delta", "zp", "alpha"))
+        fl = torch.floor(x / d)
+        hp = torch.sigmoid(alpha) * (Q.ZETA - Q.GAMMA) + Q.GAMMA
+        xz = fl + Q.adaround_soft_targets(alpha) + zp
+        return fl, _clip_mask(xz, qmax), _clip_mask(hp, 1.0)
+
+    parted = {}
+    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+                                spec.n_bits):
+        w, b = _get(params, path)
+        for leaf, x in (("w", dom(w)), ("b", b)):
+            args = (state[name], leaf, 2.0 ** bits - 1)
+            d32 = decisions(x, *args)
+            d64 = decisions(dom(w.double()) if leaf == "w" else b.double(),
+                            *args)
+            parted[(name, f"{leaf}_alpha")] = {
+                k: a.double() != c for k, a, c in zip(
+                    ("floor", "clip", "h_clip"), d32, d64)}
+    return parted
+
+
+def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
+    """One phase-2 calibration step of `arch` at Bunny-3M, batch 2: the
+    kernel path (``make_loss``: decode_cf, the packed loss) against the
+    plain unpacked path (packed_tail off, the NHWC loss, cuDNN, TF32 off)
+    in fp32, and in float64 on the same fp32 fake-quantized weights: the
+    loss within LOSS_TOL and every alpha's gradient within GRAD_TOL of its
+    leaf's largest, against float64, and against fp32 unless that path is
+    what misses float64; the step's launches. Then the reading behind
+    that reference: the codes where a float64 fake-quant's decisions
+    (floor, the code's clip, h(alpha)'s clip) part from the fp32 one's,
+    and the gradients' gap from a float64 reference that quantizes in
+    float64, at those codes' alphas and elsewhere. Then the same step with
+    fq_impl='pallas': the grouped fake-quant kernels, forward and
+    backward, give the 'jnp' step's loss and gradients on the same kernel
+    tail, with one fq_ada and one fq_ada_bwd launch more; the step's time
+    split into forward, backward and optimizer on both impls, and a
+    profiler window of each: the kernel time by name and the device's
+    busy share."""
+    from torch.func import functional_call
+
     from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.metrics import lp_loss
     from neuroquant_tpu_torch.models import build_model, tail_plan_for
     from neuroquant_tpu_torch.quantization import (
-        adaround_upgrade, init_quant_state, make_spec)
-    from neuroquant_tpu_torch.quantization.calibrate import make_loss
-    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+        adaround_upgrade, init_quant_state, make_spec, quantize_params)
+    from neuroquant_tpu_torch.quantization.calibrate import (
+        _Decoder, make_loss)
+    from neuroquant_tpu_torch.utils.convert import (
+        layer_prefix, state_dict_from_numpy)
 
     dev = torch.device("cuda")
-    kern = build_model("hnerv", cfg, device=dev)
-    plain = build_model("hnerv", dict(cfg, packed_tail="off"), device=dev)
-    for m in (kern, plain):
+    kern = build_model(arch, cfg, device=dev)
+    plain = build_model(arch, dict(cfg, packed_tail="off"), device=dev)
+    plain64 = build_model(arch, dict(cfg, packed_tail="off"), device=dev)
+    for m in (kern, plain, plain64):
         m.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
         m.eval()
+    plain64.to(torch.float64)
     params = {k: v.detach().clone() for k, v in kern.state_dict().items()}
-    spec = make_spec("hnerv", cfg, channel_wise=True, scale_method="max",
+    spec = make_spec(arch, cfg, channel_wise=True, scale_method="max",
                      hadamard=True).with_bits(PRECISION)
-    spec_fq = make_spec("hnerv", cfg, channel_wise=True, scale_method="max",
+    spec_fq = make_spec(arch, cfg, channel_wise=True, scale_method="max",
                         hadamard=True, fq_impl="pallas").with_bits(PRECISION)
     state = adaround_upgrade(params, spec, init_quant_state(params, spec))
-    frames = VideoDataSet(cfg, frames_dir, device=dev).frames[:CALIB_BATCH]
+    data = VideoDataSet(cfg, frames_dir, device=dev)
+    frames = data.frames[:CALIB_BATCH]
     with torch.no_grad():
-        emb = kern.encode(frames)
-    plan, f, ch = tail_plan_for("hnerv", cfg)
+        emb = kern.encode(kern.model_input(data.frames, data.norm_idx)
+                          [:CALIB_BATCH])
+    plan, f, ch = tail_plan_for(arch, cfg)
     pack = {"gt": tf.pack_targets(frames, plan, f),
             "mask": tf.border_mask(plan, ch=ch, device=dev),
             "denom": cfg["crop_h"] * cfg["crop_w"]}
+    keys = [f"{layer_prefix(path)}.{leaf}" for path in spec.layer_paths
+            for leaf in ("weight", "bias")]
 
     def fresh():
         return {ln: {k: v.clone().requires_grad_(k.endswith("alpha"))
                      for k, v in s.items()} for ln, s in state.items()}
 
-    def step(model, pk, spec=spec):
-        st = fresh()
-        loss = make_loss(model, params, spec, "adaround", 2.0, pk)
-        total, _ = loss(st, pk["gt"] if pk else frames, emb, 1)
+    def grads(total, st):
         total.backward()
         torch.cuda.synchronize()
         return float(total.detach()), {(ln, k): st[ln][k].grad
                                        for ln in st for k in st[ln]
                                        if k.endswith("alpha")}
+
+    def step(model, pk, spec=spec):
+        st = fresh()
+        loss = make_loss(model, params, spec, "adaround", 2.0, pk)
+        return grads(loss(st, pk["gt"] if pk else frames, emb, 1)[0], st)
+
+    def step64(fake_quant):
+        """The float64 plain decode of the weights `fake_quant(state)`
+        makes: its loss and the alphas' gradients."""
+        st = fresh()
+        qp = fake_quant(st)
+        pred = functional_call(_Decoder(plain64, "decode"),
+                               {f"model.{k}": qp[k] for k in keys},
+                               (emb.double(),))
+        return grads(lp_loss(pred, frames.double()), st)
+
+    def worst(a, b):
+        """The largest max|a - b| / max|b| over the leaves."""
+        return max(float((a[key] - b[key]).abs().max())
+                   / max(float(b[key].abs().max()), 1e-30) for key in b)
 
     tf.reset_launch_counts()
     torch.cuda.synchronize()
@@ -718,25 +826,77 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
           f"{peak_mb:.1f} MiB ({held_mb:.1f} MiB held before it)")
     counts = dict(tf.KERNEL_LAUNCHES)
     loss_p, grads_p = step(plain, None)
-    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    worst = max(float((grads_k[key] - grads_p[key]).abs().max())
-                / max(float(grads_p[key].abs().max()), 1e-30)
-                for key in grads_p)
-    print(f"  one step, kernel path vs plain unpacked path: loss {loss_k:.7f} "
-          f"vs {loss_p:.7f} (rel {rel_loss:.2e}, tol {LOSS_TOL:.0e}); "
-          f"gradients: worst leaf max|diff| / max|grad| {worst:.2e} (tol "
+    loss_64, grads_64 = step64(lambda st: {
+        k: v.double() for k, v in quantize_params(
+            params, spec, st, mode="adaround", soft=True).items()})
+    rel_p, rel_64 = (abs(loss_k - loss_p) / abs(loss_p),
+                     abs(loss_k - loss_64) / abs(loss_64))
+    kp, k64, p64 = (worst(grads_k, grads_p), worst(grads_k, grads_64),
+                    worst(grads_p, grads_64))
+    print(f"  one step, kernel path vs plain unpacked path: loss "
+          f"{loss_k:.8f} vs {loss_p:.8f} fp32 (rel {rel_p:.2e}) and "
+          f"{loss_64:.8f} float64 on the same fake-quantized weights (rel "
+          f"{rel_64:.2e}; tol {LOSS_TOL:.0e}); gradients, worst leaf "
+          f"max|diff| / max|grad|: vs fp32 {kp:.2e}, vs float64 {k64:.2e}; "
+          f"the fp32 plain path's own vs float64 {p64:.2e} (tol "
           f"{GRAD_TOL:.0e}); launches {counts}")
     assert counts == PER_STEP, counts
-    assert rel_loss <= LOSS_TOL, (loss_k, loss_p)
-    assert worst <= GRAD_TOL, worst
+    assert rel_p <= LOSS_TOL and rel_64 <= LOSS_TOL, (loss_k, loss_p,
+                                                      loss_64)
+    assert k64 <= GRAD_TOL, k64
+    # against the fp32 plain path too, unless that path is the one off
+    assert kp <= GRAD_TOL or p64 > GRAD_TOL, (kp, p64)
+    del grads_p
+
+    # why the reference quantizes in fp32: the codes whose decisions a
+    # float64 fake-quant changes, and the gradient gap at their alphas and
+    # elsewhere
+    with torch.no_grad():
+        by_kind = _parted_decisions(torch, params, spec, state)
+    parted = {k: d["floor"] | d["clip"] | d["h_clip"]
+              for k, d in by_kind.items()}
+    params64 = {k: v.double() for k, v in params.items()}
+    loss_q64, grads_q64 = step64(lambda st: quantize_params(
+        params64, spec, {ln: {k: v.double() for k, v in s.items()}
+                         for ln, s in st.items()},
+        mode="adaround", soft=True))
+    gap = {k: (grads_k[k].double() - grads_q64[k].double()).abs()
+           / max(float(grads_q64[k].abs().max()), 1e-30) for k in parted}
+    leaf = max(gap, key=lambda k: float(gap[k].max()))
+    at = int(gap[leaf].argmax())
+    q64 = dict(
+        codes=sum(m.numel() for m in parted.values()),
+        parted_codes=sum(int(m.sum()) for m in parted.values()),
+        parted_by_decision={d: sum(int(v[d].sum()) for v in by_kind.values())
+                            for d in ("floor", "clip", "h_clip")},
+        parted_by_leaf={f"{ln}.{k}": int(m.sum())
+                        for (ln, k), m in parted.items() if bool(m.any())},
+        loss=loss_q64, grad_rel_err=float(gap[leaf].max()),
+        grad_rel_err_parted=max((float(g[parted[k]].max())
+                                 for k, g in gap.items()
+                                 if bool(parted[k].any())), default=0.0),
+        grad_rel_err_rest=max(float(g[~parted[k]].max())
+                              for k, g in gap.items()),
+        worst_at=dict(leaf=".".join(leaf), index=at,
+                      kernel_grad=float(grads_k[leaf].flatten()[at]),
+                      float64_grad=float(grads_q64[leaf].flatten()[at]),
+                      parted=[d for d, m in by_kind[leaf].items()
+                              if bool(m.flatten()[at])]))
+    print(f"  a float64 fake-quant parts from the fp32 one at "
+          f"{q64['parted_codes']} of {q64['codes']} codes (by decision "
+          f"{q64['parted_by_decision']}; by leaf {q64['parted_by_leaf']}); "
+          f"the kernel path's gradients against a float64 reference that "
+          f"quantizes in float64: {q64['grad_rel_err']:.2e} of the leaf's "
+          f"largest, {q64['grad_rel_err_parted']:.2e} at those codes' "
+          f"alphas, {q64['grad_rel_err_rest']:.2e} at the others; the "
+          f"largest gap at {q64['worst_at']}")
+    del grads_64, grads_q64, plain64
 
     tf.reset_launch_counts()
     loss_f, grads_f = step(kern, pack, spec_fq)
     counts_f = dict(tf.KERNEL_LAUNCHES)
     rel_f = abs(loss_f - loss_k) / abs(loss_k)
-    worst_f = max(float((grads_f[key] - grads_k[key]).abs().max())
-                  / max(float(grads_k[key].abs().max()), 1e-30)
-                  for key in grads_k)
+    worst_f = worst(grads_f, grads_k)
     print(f"  the same step, fq_impl pallas vs jnp on the kernel tail: loss "
           f"{loss_f:.7f} vs {loss_k:.7f} (rel {rel_f:.2e}, tol "
           f"{FQ_LOSS_TOL:.0e}); gradients: worst leaf max|diff| / max|grad| "
@@ -787,8 +947,11 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir):
     prof = _profile_steps(torch, one)
     print("  the same window, fq_impl pallas:")
     prof_f = _profile_steps(torch, runs[1][0])
-    return dict(loss=loss_k, plain_loss=loss_p, loss_rel_err=rel_loss,
-                grad_rel_err=worst, launches=counts, peak_mib=peak_mb,
+    return dict(loss=loss_k, plain_loss=loss_p, float64_loss=loss_64,
+                loss_rel_err=rel_p, loss_rel_err_float64=rel_64,
+                grad_rel_err=kp, grad_rel_err_float64=k64,
+                plain_grad_rel_err_float64=p64, float64_fake_quant=q64,
+                launches=counts, peak_mib=peak_mb,
                 held_before_mib=held_mb, forward_ms=fwd,
                 backward_ms=bwd, optimizer_ms=upd, profile=prof,
                 fq_pallas=dict(
@@ -849,7 +1012,8 @@ def _profile_steps(torch, one, n=5, what="step", host_rows=0):
                          for r in host]}
 
 
-def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
+def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
+                     arch="hnerv"):
     """``calibrate_network.main --fq_impl <fq_impl>`` at Bunny-3M on the 8
     seeded frames, from a .pth of the seeded weights, under the directory
     `work`: both phases, the four eval blocks, both guards, the artifact;
@@ -872,7 +1036,7 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
     cwd = os.getcwd()
     cap = _Capture()
     try:
-        pth = os.path.join(work, "bunny_seeded.pth")
+        pth = os.path.join(work, f"{arch}_seeded.pth")
         torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
         tcal.make_loss = counting
         os.chdir(work)             # the run directory goes under results/
@@ -880,10 +1044,9 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
         tf.reset_launch_counts()
         t0 = time.time()
         out_path, state, _ = calibrate_network.main([
-            "--config", os.path.join(REPO, "configs", "HNeRV",
-                                     "Bunny_1280x640_3M.yaml"),
-            "--arch", "hnerv", "--data_path", frames_dir, "--vid", "Bunny",
-            "--outf", f"hnerv_{fq_impl}", "--ckpt", pth, "--precision",
+            "--config", os.path.join(REPO, _CONFIGS[arch]),
+            "--arch", arch, "--data_path", frames_dir, "--vid", "Bunny",
+            "--outf", f"{arch}_{fq_impl}", "--ckpt", pth, "--precision",
             *map(str, PRECISION), "--hadamard", "--channel_wise",
             "--batch_size", str(CALIB_BATCH), "--iters_w", str(CALIB_ITERS),
             "--lr", "0.003", "--warmup", "0.2", "--fq_impl", fq_impl])
@@ -944,7 +1107,7 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl):
                 artifact=out_path, fq_impl=fq_impl)
 
 
-def _fq_kernel_phase(torch, tf, cfg, sd):
+def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
     """The grouped fake-quant kernels at the seven Bunny-3M weight shapes,
     with the seeded weights and the scales of ``init_quant_state`` (UAQ)
     and ``adaround_upgrade`` (AdaRound soft and hard, and mixed: AdaRound
@@ -966,8 +1129,8 @@ def _fq_kernel_phase(torch, tf, cfg, sd):
 
     params = state_dict_from_numpy(sd, "cuda")
     kw = dict(channel_wise=True, scale_method="max", hadamard=True)
-    spec = make_spec("hnerv", cfg, **kw).with_bits(PRECISION)
-    spec_fq = make_spec("hnerv", cfg, fq_impl="pallas", **kw).with_bits(
+    spec = make_spec(arch, cfg, **kw).with_bits(PRECISION)
+    spec_fq = make_spec(arch, cfg, fq_impl="pallas", **kw).with_bits(
         PRECISION)
     uaq = init_quant_state(params, spec)
     ada = adaround_upgrade(params, spec, uaq)
@@ -1089,7 +1252,7 @@ def _fq_kernel_phase(torch, tf, cfg, sd):
     # without the transform (C = C_in), and with per-layer (0-d) scales
     for hadamard, cw, label in ((False, True, "no transform"),
                                 (True, False, "per-layer scales")):
-        sp = make_spec("hnerv", cfg, channel_wise=cw, scale_method="max",
+        sp = make_spec(arch, cfg, channel_wise=cw, scale_method="max",
                        hadamard=hadamard).with_bits(PRECISION)
         su = init_quant_state(params, sp)
         sa = adaround_upgrade(params, sp, su)
@@ -1218,7 +1381,8 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
     stream_path = report["bitstream"]
     assert stream_path == art + ".nqtb" and os.path.exists(stream_path)
     with open(art, "rb") as f:
-        codes = pickle.load(f)["int_codes"]
+        artifact = pickle.load(f)
+    codes = artifact["int_codes"]
     n_sym = sum(int(np.asarray(c["w"]).size + np.asarray(c["b"]).size)
                 for c in codes.values())
     t0 = time.perf_counter()
@@ -1232,7 +1396,8 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
         assert np.array_equal(back[name]["w"], np.asarray(c["w"])), name
         assert np.array_equal(back[name]["b"], np.asarray(c["b"])), name
     assert report["weight_stream_bytes"] == len(stream)
-    assert report["pixels"] == N_FRAMES * 640 * 1280, report
+    assert report["pixels"] == (N_FRAMES * artifact["cfg"]["crop_h"]
+                                * artifact["cfg"]["crop_w"]), report
     tf.reset_launch_counts()
     results = eval_quantized.main(["--artifact", art, "--data_path",
                                    frames_dir, "--from_bitstream",
@@ -1261,7 +1426,7 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
                 decode_s=t2 - t1, psnr=psnr, launches=launches)
 
 
-def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work):
+def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
     """Stage 2 at Bunny-3M, batch 2: one batch's Hv on the kernels
     (``fused_tail: pallas_hvp``, the forward-mode tail) against the plain
     unpacked path in fp32 and in float64, with its launches; then
@@ -1281,23 +1446,27 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work):
 
     dev = torch.device("cuda")
     params = state_dict_from_numpy(sd, dev)
-    frames = VideoDataSet(cfg, frames_dir, device=dev).frames
-    spec = make_spec("hnerv", cfg, channel_wise=True, scale_method="max"
-                     ).with_bits(bit_assign.HNERV_CANDIDATES["candidate2"])
+    data = VideoDataSet(cfg, frames_dir, device=dev)
+    frames = data.frames
+    cands = (bit_assign.NERV_CANDIDATES if arch == "nerv"
+             else bit_assign.HNERV_CANDIDATES)
+    spec = make_spec(arch, cfg, channel_wise=True, scale_method="max"
+                     ).with_bits(cands["candidate2"])
     vec = get_perturbation(params, spec, init_quant_state(params, spec))
     batch = sens.draw_batches(N_FRAMES, CALIB_BATCH, 903)[:1]
     hv = {}
     for route, ft, dtype in (("pallas_hvp", "pallas_hvp", torch.float32),
                              ("off", "off", torch.float32),
                              ("off fp64", "off", torch.float64)):
-        model = build_model("hnerv", dict(cfg, fused_tail=ft), device=dev)
+        model = build_model(arch, dict(cfg, fused_tail=ft), device=dev)
         model.load_state_dict(params, strict=True)
         model.to(dtype)
         torch.cuda.synchronize()
         tf.reset_launch_counts()
         t0 = time.time()
         hv[route] = sens.hessian_vector_product(
-            model, spec, [v.to(dtype) for v in vec], frames.to(dtype), batch)
+            model, spec, [v.to(dtype) for v in vec], frames.to(dtype),
+            data.norm_idx, batch)
         torch.cuda.synchronize()
         if route == "pallas_hvp":
             one_batch_s, per_batch = time.time() - t0, dict(tf.KERNEL_LAUNCHES)
@@ -1326,7 +1495,7 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work):
     assert per_batch["unpack_frames"] == 0, per_batch
     del hv, vec, params, frames
 
-    pth = os.path.join(work, "bunny_seeded.pth")
+    pth = os.path.join(work, f"{arch}_seeded.pth")
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
     sc, hvp, fisher = (bit_assign.sensitivity_criterion,
                        sens.hessian_vector_product, sens.fisher_gradient)
@@ -1380,10 +1549,9 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work):
             tf.reset_launch_counts()
             t0 = time.time()
             best = bit_assign.main([
-                "--config", os.path.join(REPO, "configs", "HNeRV",
-                                         "Bunny_1280x640_3M.yaml"),
-                "--arch", "hnerv", "--data_path", frames_dir, "--vid",
-                "Bunny", "--outf", f"stage2_{i}", "--ckpt", pth,
+                "--config", os.path.join(REPO, _CONFIGS[arch]),
+                "--arch", arch, "--data_path", frames_dir, "--vid",
+                "Bunny", "--outf", f"stage2_{arch}_{i}", "--ckpt", pth,
                 "--batch_size", str(CALIB_BATCH), "--channel_wise",
                 "--init", "max", *extra])
             torch.cuda.synchronize()
@@ -1440,7 +1608,7 @@ def _unpack_frames_backward(torch, tf, cfg, model):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    _, _, plan, f, ch = _conv_layers(torch, tf, cfg, model)
+    _, _, plan, f, ch, _ = _conv_layers(torch, tf, cfg, model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     ob = cfg["out_bias"]
     z = torch.randn((1, plan.layers[-1].cout, plan.mp), generator=gen,
@@ -1495,7 +1663,7 @@ def _unpack_frames_backward(torch, tf, cfg, model):
     return dict(forward=fwd, backward=bwd, backward_max_abs_err=err)
 
 
-def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
+def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
     """One stage-1 step at Bunny-3M, batch 1: HNeRV's forward (encoder,
     fused prefix and tail on the kernels, unpack_frames), the config's loss
     and the backward, against the plain unpacked path (``fused_tail:
@@ -1510,23 +1678,26 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
     from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
 
     dev = torch.device("cuda")
-    img = VideoDataSet(cfg, frames_dir, device=dev).frames[:1].clone()
+    data = VideoDataSet(cfg, frames_dir, device=dev)
+    img = data.frames[:1].clone()
 
     def model_for(ft, dtype=torch.float32):
-        m = build_model("hnerv", dict(cfg, fused_tail=ft), device=dev)
+        m = build_model(arch, dict(cfg, fused_tail=ft), device=dev)
         m.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
         return m.to(dtype)
+
+    kern = model_for("auto")
+    inp = kern.model_input(data.frames, data.norm_idx)[:1].clone()
 
     def step(model, dtype=torch.float32):
         model.zero_grad(set_to_none=True)
         x = img.to(dtype)
-        loss = loss_fn(model(x), x, cfg["loss"])
+        loss = loss_fn(model(inp.to(dtype)), x, cfg["loss"])
         loss.backward()
         torch.cuda.synchronize()
         return float(loss.detach()), {n: p.grad for n, p in
                                       model.named_parameters()}
 
-    kern = model_for("auto")
     tf.reset_launch_counts()
     loss_k, g_k = step(kern)
     counts = dict(tf.KERNEL_LAUNCHES)
@@ -1545,8 +1716,8 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
 
     (kp, kp_leaf), (k64, k64_leaf), (p64, p64_leaf) = (
         worst(g_k, g_p), worst(g_k, g_64), worst(g_p, g_64))
-    enc = max(worst({n: g_k[n]}, {n: g_64[n]})[0] for n in g_64
-              if n.startswith("encoder."))
+    enc = max((worst({n: g_k[n]}, {n: g_64[n]})[0] for n in g_64
+               if n.startswith("encoder.")), default=0.0)
     rel_p = abs(loss_k - loss_p) / abs(loss_p)
     rel_64 = abs(loss_k - loss_64) / abs(loss_64)
     print(f"  one stage-1 step (batch 1), kernel path vs plain unpacked path: "
@@ -1569,7 +1740,7 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
     def one(times=None):
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(kern(img), img, cfg["loss"])
+        loss = loss_fn(kern(inp), img, cfg["loss"])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         loss.backward()
@@ -1602,7 +1773,7 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
     def loop_step():
         """A step as regress's loop runs it: no synchronize."""
         opt.zero_grad(set_to_none=True)
-        loss_fn(kern(img), img, cfg["loss"]).backward()
+        loss_fn(kern(inp), img, cfg["loss"]).backward()
         opt.step()
 
     torch.cuda.synchronize()
@@ -1624,7 +1795,7 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir):
                 profile=prof)
 
 
-def _stage1_run_phase(torch, tf, frames_dir, card, work):
+def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
     """``regress.main`` at Bunny-3M on the 8 seeded frames, from a copy of
     the config with only epoch (STAGE1_EPOCHS) and eval_freq (1) changed,
     with --profile: every training step's launches (counted at each loss
@@ -1639,9 +1810,8 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work):
     from neuroquant_tpu_torch.methods import common, regress
     from neuroquant_tpu_torch.models import build_model
 
-    base = get_config(os.path.join(REPO, "configs", "HNeRV",
-                                   "Bunny_1280x640_3M.yaml"))
-    cfg_path = os.path.join(work, "bunny_stage1.yaml")
+    base = get_config(os.path.join(REPO, _CONFIGS[arch]))
+    cfg_path = os.path.join(work, f"{arch}_stage1.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(dict(base, epoch=STAGE1_EPOCHS, eval_freq=1), f)
     epochs, evals = [], []
@@ -1670,7 +1840,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work):
         evals.append([float(np.mean(v)) for v in out[0]])
         return out
 
-    argv = ["--config", cfg_path, "--arch", "hnerv", "--data_path",
+    argv = ["--config", cfg_path, "--arch", arch, "--data_path",
             frames_dir, "--vid", "Bunny"]
     cwd = os.getcwd()
     cap = _Capture()
@@ -1684,17 +1854,19 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work):
         torch.cuda.reset_peak_memory_stats()
         tf.reset_launch_counts()
         t0 = time.time()
-        model = regress.main(argv + ["--outf", "stage1", "--profile"])
+        model = regress.main(argv + ["--outf", f"stage1_{arch}",
+                                     "--profile"])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(tf.KERNEL_LAUNCHES)
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         run_dir = os.path.dirname(glob.glob(os.path.join(
-            work, "results", "stage1", "*", "Encoder_*", "epoch*.pth"))[0])
+            work, "results", f"stage1_{arch}", "*", "Encoder_*",
+            "epoch*.pth"))[0])
         trained = {k: v.detach() for k, v in model.state_dict().items()}
         del model
         for name in ("model_latest.pth", f"epoch{STAGE1_EPOCHS}.pth"):
-            fresh = build_model("hnerv", base, device="cuda", seed=1)
+            fresh = build_model(arch, base, device="cuda", seed=1)
             sd = torch.load(os.path.join(run_dir, name), map_location="cuda",
                             weights_only=True)
             fresh.load_state_dict(sd, strict=True)
@@ -1703,7 +1875,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work):
             print(f"  {name}: {len(sd)} tensors, loaded strictly, equal to "
                   f"the trained model's")
         n_train_evals = len(evals)
-        regress.main(argv + ["--outf", "stage1_eval", "--eval_only",
+        regress.main(argv + ["--outf", f"stage1_eval_{arch}", "--eval_only",
                              "--weight", os.path.join(
                                  run_dir, f"epoch{STAGE1_EPOCHS}.pth")])
         torch.cuda.synchronize()
@@ -1733,8 +1905,8 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work):
     assert len(epoch_s) == STAGE1_EPOCHS, epoch_s
     assert len(evals) == n_train_evals + 1 == STAGE1_EPOCHS + 1, evals
     last, again = evals[n_train_evals - 1][0], evals[-1][0]
-    print(f"  regress.main: {STAGE1_EPOCHS} epochs x {steps} steps at batch "
-          f"{base['batch_size']} "
+    print(f"  regress.main --arch {arch}: {STAGE1_EPOCHS} epochs x {steps} "
+          f"steps at batch {base['batch_size']} "
           f"in {wall:.1f} s wall (evals included); every step's launches "
           f"{PER_STAGE1_STEP}; losses "
           f"{' '.join(f'{x:.5f}' for e in epochs for x in e['losses'])}; "
@@ -1753,6 +1925,70 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work):
                 losses=[float(x) for e in epochs for x in e["losses"]],
                 eval_psnr=[e[0] for e in evals[:-1]], eval_only_psnr=again,
                 profile_lines=prof_lines, peak_mib=peak_mb)
+
+
+def _nerv_phase(torch, tf, card, frames_dir, work):
+    """Phase 13: NeRV Bunny-3M (configs/NeRV/Bunny_1280x640_3M.yaml, full
+    width and depth, seeded weights, the 8 seeded frames): its kernel
+    shapes, decode, calibration step, stage 1, calibration on both
+    fq_impls, bitstream and stage 2, through the phases above."""
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    t0 = time.time()
+    cfg = validate_config(get_config(os.path.join(REPO, NERV_CONFIG)),
+                          "nerv")
+    cfg["workers"] = 0
+    # what setup_run sets for the 8 frames: the encoding's exact table
+    cfg["n_frames"] = N_FRAMES
+    model = build_model("nerv", cfg, device="cuda")
+    sd = _seeded_state_dict(model, np.random.RandomState(SEED + 13))
+    model.load_state_dict(state_dict_from_numpy(sd, "cuda"), strict=True)
+    model.eval()
+    assert model.pack_start == 3, model.pack_start
+    out = {}
+    print("[nerv: kernels at the decode's shapes]")
+    out["kernels"] = _kernel_phase(torch, tf, cfg, model, width_tiled=False)
+    for b in (1, CALIB_BATCH):
+        print(f"[nerv: kernels of a training step, batch {b}]")
+        out[f"kernels_b{b}"] = _backward_kernel_phase(torch, tf, cfg, model,
+                                                      batch=b)
+    print("[nerv: decode]")
+    out["decode"] = _decode_phase(torch, tf, cfg, sd, model, arch="nerv")
+    del model
+    print("[nerv: calibration step]")
+    out["step"] = _gradient_phase(torch, tf, cfg, sd, frames_dir,
+                                  arch="nerv")
+    print("[nerv: stage-1 step]")
+    out["stage1_step"] = _stage1_step_phase(torch, tf, cfg, sd, frames_dir,
+                                            arch="nerv")
+    print("[nerv: stage 1, regress]")
+    out["stage1"] = _stage1_run_phase(torch, tf, frames_dir, card, work,
+                                      arch="nerv")
+    print("[nerv: fake-quant kernels]")
+    out["fq"] = _fq_kernel_phase(torch, tf, cfg, sd, arch="nerv")
+    for fq_impl in ("jnp", "pallas"):
+        print(f"[nerv: calibrate, --fq_impl {fq_impl}]")
+        out[f"calibrate_{fq_impl}"] = _calibrate_phase(
+            torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
+            arch="nerv")
+    worst = max(abs(a - b) for a, b in zip(
+        out["calibrate_pallas"]["psnr_blocks"],
+        out["calibrate_jnp"]["psnr_blocks"]))
+    print(f"  PSNR blocks, fq_impl pallas vs jnp: max diff {worst:.3f} dB "
+          f"(tol {PSNR_TOL})")
+    assert worst <= PSNR_TOL, worst
+    print("[nerv: bitstream]")
+    out["bitstream"] = _bitstream_phase(torch, tf, out["calibrate_pallas"],
+                                        frames_dir, card)
+    assert out["bitstream"]["report"]["embed_bits"] == 0
+    print("[nerv: stage 2, bit_assign]")
+    out["stage2"] = _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work,
+                                  arch="nerv")
+    out["seconds"] = time.time() - t0
+    print(f"  phase 13 (NeRV) took {out['seconds']:.1f} s; card {card}")
+    return out
 
 
 def _write_frames(path: str, rng):
@@ -1827,6 +2063,45 @@ def _serving_phase(torch, tf, cfg, sd, card, frames):
     return dict(psnr=psnr, msssim=msssim, fps=fps, launches=launches)
 
 
+def _add_nerv_records(kernels, nerv):
+    """Add phase 13's records to each entry of the kernels line: per launch
+    ("nerv_per_launch"), NeRV's decode shapes (batch 1), a training step's
+    at batch 1 and 2, its seven fake-quant layers; its launches per decode,
+    calibration step, stage-1 step and HVP batch, and over its stage-1 and
+    calibrate_network runs (fq_impl pallas for the fake-quant entries);
+    its largest error against the plain versions. Every kernel must have
+    run in NeRV's calibrate_network --fq_impl pallas run."""
+    nk, b1, b2 = nerv["kernels"], nerv["kernels_b1"], nerv["kernels_b2"]
+    per = {
+        "tail_conv_cf": nk["tail_conv_cf"]["per_launch"]
+        + b1["tail_conv_cf"]["per_launch"] + b2["tail_conv_cf"]["per_launch"],
+        "tail_conv_dw_cf": b1["tail_conv_dw_cf"]["per_launch"]
+        + b2["tail_conv_dw_cf"]["per_launch"],
+        "pack_cf": nk["pack_cf"]["per_launch"]
+        + nk["pack_cf"]["calibration_per_launch"],
+        "unpack_cf": b1["unpack_cf"]["per_launch"]
+        + b2["unpack_cf"]["per_launch"],
+        "unpack_frames": nk["unpack_frames"]["per_launch"]}
+    for k in kernels:
+        name = k["name"]
+        fq = name.startswith("fq_")
+        k["nerv_per_launch"] = nerv["fq"][name]["per_launch"] if fq else \
+            per[name]
+        k["nerv_max_abs_err"] = max(
+            r.get(name, {"max_abs_err": 0.0})["max_abs_err"]
+            for r in (nk, b1, b2, nerv["fq"]))
+        run = nerv["calibrate_pallas" if fq else "calibrate_jnp"]
+        k["nerv_launches"] = {
+            "calibrate_run": run["launches"][name],
+            "per_decode": nerv["decode"]["launches"][name] // 4,
+            "per_calibration_step": nerv["step"]["launches"][name],
+            "per_stage1_step": nerv["stage1_step"]["launches"][name],
+            "stage1_run": nerv["stage1"]["launches"][name],
+            "stage2_hvp_batch": nerv["stage2"]["runs"]["omega pallas"][
+                "launches_per_batch"][name]}
+        assert nerv["calibrate_pallas"]["launches"][name] > 0, name
+
+
 def main() -> int:
     import torch
 
@@ -1868,8 +2143,8 @@ def main() -> int:
         elif "Compiling entry function" in line and "tail_conv" in line:
             print("   ", line.strip()[:160])
 
-    cfg = validate_config(get_config(os.path.join(
-        REPO, "configs", "HNeRV", "Bunny_1280x640_3M.yaml")), "hnerv")
+    cfg = validate_config(get_config(os.path.join(REPO, HNERV_CONFIG)),
+                          "hnerv")
     cfg["workers"] = 0
     rng = np.random.RandomState(SEED)
     model = build_model("hnerv", cfg, device="cuda")
@@ -1919,6 +2194,8 @@ def main() -> int:
         s1step = _stage1_step_phase(torch, tf, cfg, sd, frames_dir)
         print("[stage 1: regress]")
         s1run = _stage1_run_phase(torch, tf, frames_dir, card, work)
+        del model
+        nerv = _nerv_phase(torch, tf, card, frames_dir, work)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2009,6 +2286,7 @@ def main() -> int:
         kernels[i]["stage1_per_launch"] = s1records[name]["per_launch"]
     kernels[4]["stage1_per_launch"] = [s1unpack["forward"],
                                        s1unpack["backward"]]
+    _add_nerv_records(kernels, nerv)
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
@@ -2022,7 +2300,9 @@ def main() -> int:
                       "quantize_params": frecords["quantize_params"],
                       "calibrate_fq_pallas": calib_fq, "bitstream": stream,
                       "stage2": stage2, "stage1_step": s1step,
-                      "stage1": s1run}))
+                      "stage1": s1run,
+                      "nerv": {k: v for k, v in nerv.items()
+                               if not k.startswith(("kernels", "fq"))}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,10 +24,11 @@ import sys
 import numpy as np
 
 
-def make_hvp(model, spec, frames, batch_idx):
+def make_hvp(model, spec, frames, norm_idx, batch_idx):
     """(matvec(flat_v) -> flat_Hv, total_dim, unflatten, hvp, kernels): the
     spec layers' HWIO kernels flattened in layer order; hvp takes and
-    returns a list of HWIO tensors."""
+    returns a list of HWIO tensors. `norm_idx`: the frames' normalized
+    indices, which NeRV encodes."""
     import torch
 
     from neuroquant_tpu_torch.quantization.qmodel import _get
@@ -41,7 +42,8 @@ def make_hvp(model, spec, frames, batch_idx):
     batches = [np.asarray(batch_idx)]
 
     def hvp(vs):
-        return hessian_vector_product(model, spec, vs, frames, batches)
+        return hessian_vector_product(model, spec, vs, frames, norm_idx,
+                                      batches)
 
     def unflatten(flat):
         out, off = [], 0
@@ -124,8 +126,10 @@ def main(argv):
     spec = make_spec(args.arch, cfg)
     batch_idx = np.arange(min(args.batch, len(dataset)))
 
-    matvec, dim, _, hvp, kernels = make_hvp(model, spec, dataset.frames,
-                                            batch_idx)
+    # NeRV's cfg has no n_frames here, as in the JAX tool, so its encoding
+    # is the plain fp32 formula
+    matvec, dim, _, hvp, kernels = make_hvp(
+        model, spec, dataset.frames, dataset.norm_idx, batch_idx)
     logging.info("Hessian dim: %d", dim)
     max_eig, min_eig = extremal_eigenvalues(matvec, dim, tol=args.tol)
     print(f"max_eig={max_eig:.6e} min_eig={min_eig:.6e} "

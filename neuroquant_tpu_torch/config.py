@@ -11,6 +11,9 @@ _COMMON_KEYS = (
 )
 
 _ARCH_KEYS = {
+    "nerv": ("base", "level", "dec_in_channel", "dec_kernels", "dec_strides",
+             "channel_reduce", "channel_lbound", "dec_norm", "dec_acts",
+             "out_bias"),
     "hnerv": ("stage_block", "enc_strides", "enc_channel", "dec_in_channel",
               "dec_kernels", "dec_strides", "channel_reduce", "channel_lbound",
               "dec_norm", "dec_acts", "out_bias"),

@@ -44,6 +44,10 @@ HNERV_CANDIDATES = {
     "candidate1": [2, 3, 4, 6, 4, 4, 2],
     "candidate2": [6, 5, 4, 5, 5, 6, 6],
 }
+NERV_CANDIDATES = {
+    "candidate1": [5, 6, 3, 4, 5, 4, 3],
+    "candidate2": [6, 5, 5, 6, 7, 6, 7],
+}
 
 
 def parse_args(argv):
@@ -177,7 +181,7 @@ def assign(args, cfg):
     def score(spec, log_fn=logging.info):
         return sensitivity_criterion(
             args.mode, args.arch, model, params, spec,
-            init_quant_state(params, spec), dataset.frames, None,
+            init_quant_state(params, spec), dataset.frames, dataset.norm_idx,
             args.batch_size, seed=args.seed, log_fn=log_fn, remat=args.remat)
 
     if args.search == "lagrangian":
@@ -204,6 +208,8 @@ def assign(args, cfg):
         candidate_dict = {
             f"candidate{i + 1}": [int(b) for b in c.split(",")]
             for i, c in enumerate(args.candidates.split(";"))}
+    elif args.arch.lower() == "nerv":
+        candidate_dict = NERV_CANDIDATES
     else:
         candidate_dict = HNERV_CANDIDATES
 

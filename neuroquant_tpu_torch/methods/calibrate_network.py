@@ -310,7 +310,10 @@ def calibrate(args, cfg):
         "quant_state": _np(state),
         "int_codes": _np(codes),
         "avg_bits": float(args.qbits),
-        "embeddings": cali_data.detach().cpu().numpy(),
+        # the per-frame embeddings, the content half of the bitstream: none
+        # for NeRV, whose input is the frame index
+        "embeddings": (cali_data.detach().cpu().numpy()
+                       if args.arch.lower() != "nerv" else None),
     }
     suffix = "CW" if args.channel_wise else "LW"
     out_path = "{}/{}_W{}_prob{}_{}-init_{}.pth".format(

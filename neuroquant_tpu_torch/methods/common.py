@@ -56,14 +56,6 @@ def measure_decode_fps(model, embeds, batch_size: int = 1,
     return n_iters * batch_size / best
 
 
-def model_input(arch: str, frames, norm_idx, idx):
-    """What the model takes for frames `idx` (indices or a slice): NeRV
-    the frames' normalized indices, the other archs the frames."""
-    if arch.lower() == "nerv":
-        return norm_idx[idx]
-    return frames[idx]
-
-
 def _eval_fps_line(device, fps: float, bs: int) -> None:
     logging.info("[eval_fps] {} decode throughput: {} FPS (batch {})"
                  .format(device_name(device), round(fps, 1), bs))
@@ -81,6 +73,7 @@ def evaluate(model, dataset, args, cfg, dump_vis: bool = False,
         return _evaluate_vis(model, dataset, args, cfg, eval_fps,
                              visual_dir_name)
     frames = dataset.frames
+    inputs = model.model_input(frames, dataset.norm_idx)
     n = len(dataset)
     bs = cfg["batch_size"]
     val_ind = set(args.val_ind_list)
@@ -89,8 +82,7 @@ def evaluate(model, dataset, args, cfg, dump_vis: bool = False,
     for i in range(n_batches):
         idx = slice(i * bs, min((i + 1) * bs, n))
         img = frames[idx]
-        emb = model.encode(model_input(args.arch, frames, dataset.norm_idx,
-                                       idx))
+        emb = model.encode(inputs[idx])
         out = model.decode(emb)
         ps.append(psnr_fn_single(out, img))
         ss.append(msssim_fn_single(out, img))
@@ -134,6 +126,7 @@ def _evaluate_vis(model, dataset, args, cfg, eval_fps: bool,
     from PIL import Image
 
     frames = dataset.frames
+    inputs = model.model_input(frames, dataset.norm_idx)
     n = len(dataset)
     bs = cfg["batch_size"]
     val_ind = set(args.val_ind_list)
@@ -149,8 +142,7 @@ def _evaluate_vis(model, dataset, args, cfg, eval_fps: bool,
     for i in range(n_batches):
         idx = slice(i * bs, min((i + 1) * bs, n))
         img = frames[idx]
-        emb = model.encode(model_input(args.arch, frames, dataset.norm_idx,
-                                       idx))
+        emb = model.encode(inputs[idx])
         if cuda:
             torch.cuda.synchronize(frames.device)
         t0 = time.perf_counter()
@@ -209,11 +201,15 @@ def seed_all(seed: int = 903):
 
 
 def setup_run(args, cfg, device=None):
-    """Build the model (weights from ``args.seed``), count its parameters
-    and append the reference's ``Encoder_..M_Decoder_..M_Total_..M``
-    directory to ``args.outf``."""
+    """Build the model (weights from ``args.seed``; NeRV's cfg gains
+    ``n_frames``), count its parameters and append the reference's
+    ``Encoder_..M_Decoder_..M_Total_..M`` directory to ``args.outf``."""
     from neuroquant_tpu_torch.models import build_model, param_counts
 
+    if args.arch.lower() == "nerv":
+        # the position encoding's exact table over the frame grid; set in
+        # place, so that the caller's cfg (and the artifact) carry it
+        cfg["n_frames"] = args.full_data_length
     model = build_model(args.arch, cfg, device=device, seed=args.seed)
     final_size = cfg["crop_h"] * cfg["crop_w"]
     enc_p, dec_p, tot_p = param_counts(args.arch, cfg, model, final_size,

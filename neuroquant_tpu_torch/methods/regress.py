@@ -1,10 +1,11 @@
-"""Stage 1: fp32 per-video overfitting of encoder and decoder, the
+"""Stage 1: fp32 per-video overfitting of HNeRV or NeRV, the
 counterpart of ``neuroquant_tpu/methods/regress.py``: the same flags, config
 keys, output-directory scheme, log lines and reference-layout ``.pth``
 checkpoints.
 
-Each step is ``HNeRV.forward`` (encode, then decode on the fused tail's CUDA
-kernels, forward and backward), the loss, ``torch.optim.Adam`` and the
+Each step is the model's forward (encode the frames, HNeRV, or their
+normalized indices, NeRV; then decode on the fused tail's CUDA kernels,
+forward and backward), the loss, ``torch.optim.Adam`` and the
 step's PSNR; the lr of each step is the schedule's at the count of earlier
 updates. The clip stays on the device and each epoch's frame order comes
 from a ``torch.Generator`` seeded from ``--seed``; per-step losses and PSNRs
@@ -14,6 +15,7 @@ Run (on the GPU; ``--device cpu`` for the CPU):
   python -m neuroquant_tpu_torch.methods.regress \\
       --config configs/HNeRV/Bunny_1280x640_3M.yaml --arch hnerv \\
       --data_path <frames> --vid Bunny --outf hnerv
+  (NeRV: --config configs/NeRV/Bunny_1280x640_3M.yaml --arch nerv)
 """
 
 from __future__ import annotations
@@ -148,7 +150,7 @@ def epoch_order(train_ind, seed: int, epoch: int):
     return t[torch.randperm(len(t), generator=g)]
 
 
-def make_train_epoch(model, arch, loss_type, opt, schedule, frames,
+def make_train_epoch(model, loss_type, opt, schedule, frames,
                      norm_idx, steps_per_epoch, batch_size,
                      qat_fn=None, qat_generator=None):
     """run_epoch(order, step0) -> (losses, psnrs), each (steps_per_epoch,)
@@ -158,6 +160,7 @@ def make_train_epoch(model, arch, loss_type, opt, schedule, frames,
     loss, the backward and Adam, and keeps the loss and the batch's mean
     PSNR of the step's prediction."""
     params = dict(model.named_parameters())
+    inputs = model.model_input(frames, norm_idx)
 
     def predict(inp):
         if qat_fn is None:
@@ -179,7 +182,7 @@ def make_train_epoch(model, arch, loss_type, opt, schedule, frames,
                 group["lr"] = schedule(step0 + s)
             opt.zero_grad(set_to_none=True)
             img = frames[idx]
-            pred = predict(common.model_input(arch, frames, norm_idx, idx))
+            pred = predict(inputs[idx])
             loss = loss_fn(pred, img, loss_type)
             loss.backward()
             opt.step()
@@ -277,7 +280,7 @@ def _fit(args, cfg, model, dataset, train_ind, device, writer,
         logging.info(f"QAT enabled: mode={args.qat_mode} "
                      f"bits={args.qat_bits}")
 
-    run_epoch = make_train_epoch(model, args.arch, cfg["loss"], opt, schedule,
+    run_epoch = make_train_epoch(model, cfg["loss"], opt, schedule,
                                  dataset.frames, dataset.norm_idx,
                                  steps_per_epoch, bs, qat_fn, qat_gen)
 

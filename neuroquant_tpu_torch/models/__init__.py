@@ -12,14 +12,16 @@ import numpy as np
 import torch
 
 from neuroquant_tpu_torch.models.hnerv import HNeRV, HNeRVConfig
+from neuroquant_tpu_torch.models.nerv import NeRV, NeRVConfig
 from neuroquant_tpu_torch.utils.device import resolve_device
 
-__all__ = ["HNeRV", "HNeRVConfig", "build_model", "quant_layer_paths",
-           "param_counts", "example_input", "tail_plan_for",
-           "require_ported"]
+__all__ = ["HNeRV", "HNeRVConfig", "NeRV", "NeRVConfig", "build_model",
+           "quant_layer_paths", "param_counts", "example_input",
+           "tail_plan_for", "require_ported"]
+
+_MODELS = {"hnerv": (HNeRV, HNeRVConfig), "nerv": (NeRV, NeRVConfig)}
 
 _NOT_PORTED = {
-    "nerv": "NeRV is ROADMAP queue A item 9",
     "pnerv": "PNeRV1/PNeRV2 are ROADMAP queue A item 12",
     "pnerv1": "PNeRV1/PNeRV2 are ROADMAP queue A item 12",
     "pnerv2": "PNeRV1/PNeRV2 are ROADMAP queue A item 12",
@@ -39,10 +41,11 @@ def build_model(arch: str, cfg: dict, device=None, seed: int = 0):
     drawn from a torch.Generator seeded with `seed`."""
     arch = arch.lower()
     require_ported(arch)
-    if arch != "hnerv":
+    if arch not in _MODELS:
         raise ValueError(f"model arch wrong: {arch!r}")
     device = resolve_device(device)
-    model = HNeRV(HNeRVConfig.from_cfg(cfg))
+    model_cls, cfg_cls = _MODELS[arch]
+    model = model_cls(cfg_cls.from_cfg(cfg))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
 
@@ -68,19 +71,29 @@ def param_counts(arch: str, cfg: dict, model, final_size: int,
                  full_data_length: int):
     """(encoder_M, decoder_M, total_M) with the reference's accounting: the
     decoder counts decoder[0] and the blocks (no head); HNeRV's total adds
-    the stored per-frame embeddings."""
-    if arch.lower() != "hnerv":
+    the stored per-frame embeddings, NeRV's is its decoder (its encoder
+    has no parameters)."""
+    arch = arch.lower()
+    if arch not in _MODELS:
         raise NotImplementedError(f"param_counts for arch {arch!r}")
     enc = _size(model.encoder) / 1e6
     dec = _size(model.decoder) / 1e6
+    if arch == "nerv":
+        return enc, dec, dec
     embed = (float(cfg["enc_channel"][-1]) / np.prod(cfg["enc_strides"]) ** 2
              * final_size * full_data_length)
     return enc, dec, dec + embed / 1e6
 
 
 def example_input(arch: str, cfg: dict, batch: int = 1, device=None):
-    """A zero input of the right shape for a forward pass."""
-    if arch.lower() != "hnerv":
+    """An input of the right shape for a forward pass: NeRV's `batch`
+    normalized indices linspace(0, 1, batch, endpoint=False), else zero
+    frames."""
+    arch = arch.lower()
+    if arch == "nerv":
+        return torch.arange(batch, dtype=torch.float32,
+                            device=resolve_device(device)) / batch
+    if arch != "hnerv":
         raise NotImplementedError(f"example_input for arch {arch!r}")
     return torch.zeros((batch, cfg["crop_h"], cfg["crop_w"], 3),
                        dtype=torch.float32, device=resolve_device(device))
@@ -92,9 +105,10 @@ def tail_plan_for(arch: str, cfg: dict):
     from neuroquant_tpu_torch.ops.packed_decode import resolve_pack_start
     from neuroquant_tpu_torch.ops.tail_fused import plan_geometry
 
-    if arch.lower() != "hnerv":
+    arch = arch.lower()
+    if arch not in _MODELS:
         raise NotImplementedError(f"tail_plan_for for arch {arch!r}")
-    c = HNeRVConfig.from_cfg(cfg)
+    c = _MODELS[arch][1].from_cfg(cfg)
     if c.dec_acts != "gelu":
         return None
     chans = c.decoder_channels()

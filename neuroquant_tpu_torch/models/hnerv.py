@@ -1,31 +1,22 @@
 """HNeRV: ConvNeXt content encoder -> tiny embedding -> conv/pixel-shuffle
-decoder (the counterpart of ``neuroquant_tpu/models/hnerv.py``; NHWC)."""
+decoder (the counterpart of ``neuroquant_tpu/models/hnerv.py``; NHWC). The
+decoder is the one NeRV shares (``models/decoder.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from neuroquant_tpu_torch.models.layers import (
-    Conv2d, ConvNeXt, NeRVBlock, collect_tail_params, fuses_prefix_block,
-    out_img, run_prefix_blocks)
-from neuroquant_tpu_torch.ops.packed_decode import (
-    depth_to_space, resolve_pack_start)
-from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
-from neuroquant_tpu_torch.ops.tail_fused import (
-    cf_to_nhwc, pack_cf, pack_prefix_block, plan_and_pack, prefix_cf_to_nhwc,
-    prepare_tail, resolve_impl, run_fused_tail_cf, run_fused_tail_frames,
-    tail_apply_fo)
+from neuroquant_tpu_torch.models.decoder import DecoderShape, NeRVDecoder
+from neuroquant_tpu_torch.models.layers import Conv2d, ConvNeXt
 
 
 @dataclasses.dataclass(frozen=True)
-class HNeRVConfig:
+class HNeRVConfig(DecoderShape):
     crop_h: int
     crop_w: int
     stage_block: int
@@ -70,250 +61,25 @@ class HNeRVConfig:
 
     fc_w = fc_h
 
-    def decoder_channels(self):
-        chans, in_c = [], self.dec_in_channel
-        for _ in self.dec_strides:
-            out_c = int(max(round(in_c / self.channel_reduce),
-                            self.channel_lbound))
-            chans.append(out_c)
-            in_c = out_c
-        return chans
-
     @property
     def embed_hw(self) -> Tuple[int, int]:
         s = int(np.prod(self.enc_strides))
         return self.crop_h // s, self.crop_w // s
 
 
-def _shuffle(x, r):
-    return None if x is None else pixel_shuffle(x, r)
-
-
-def _add(a, b):
-    return b if a is None else a if b is None else a + b
-
-
-def _conv_jvp(conv: Conv2d, x, dx, dw):
-    """An NHWC conv and its tangent, for input tangent dx and weight
-    tangent dw (OIHW; either may be None): conv(dx, W) + conv(x, dW)."""
-    def raw(inp, weight):
-        return F.conv2d(inp.permute(0, 3, 1, 2), weight, None, conv.stride,
-                        conv.padding, groups=conv.groups).permute(0, 2, 3, 1)
-
-    return conv(x), _add(None if dx is None else raw(dx, conv.weight),
-                         None if dw is None else raw(x, dw))
-
-
-def _gelu_jvp(x, dx):
-    """The exact-erf GELU of the unpacked blocks and its tangent,
-    (Phi(x) + x phi(x)) dx."""
-    if dx is None:
-        return F.gelu(x), None
-    cdf = 0.5 * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
-    pdf = torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
-    return F.gelu(x), (cdf + x * pdf) * dx
-
-
-def _out_img_jvp(x, dx, out_bias: str):
-    y = out_img(x, out_bias)
-    if dx is None:
-        return y, None
-    if out_bias == "tanh":
-        return y, 0.5 * (1.0 - torch.tanh(x) ** 2) * dx
-    if out_bias == "sigmoid":
-        return y, y * (1.0 - y) * dx
-    return y, dx
-
-
-class HNeRV(nn.Module):
+class HNeRV(NeRVDecoder):
     def __init__(self, cfg: HNeRVConfig):
-        super().__init__()
-        self.cfg = c = cfg
-        self.encoder = ConvNeXt(c.stage_block, c.enc_strides, c.enc_channel)
-        chans = c.decoder_channels()
-        decoder = [Conv2d(c.enc_channel[-1], c.dec_in_channel, 1)]
-        for ks, stride, cin, cout in zip(c.dec_kernels, c.dec_strides,
-                                         [c.dec_in_channel] + chans[:-1],
-                                         chans):
-            decoder.append(NeRVBlock(cin, cout, ks, stride, norm=c.dec_norm,
-                                     act=c.dec_acts))
-        self.decoder = nn.ModuleList(decoder)
-        self.head_layer = Conv2d(chans[-1], 3, 3, padding=1)
-        self.pack_start = resolve_pack_start(
-            c.packed_tail, c.dec_kernels, c.dec_strides, c.dec_norm,
-            [c.dec_in_channel] + chans[:-1], chans, c.crop_h, c.crop_w)
-        self._packed = {}   # _kernel_weights: key -> (weight version, wts)
-
-    @property
-    def blocks(self):
-        return list(self.decoder)[1:]
+        super().__init__(cfg, ConvNeXt(cfg.stage_block, cfg.enc_strides,
+                                       cfg.enc_channel), cfg.enc_channel[-1])
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
-        """The JAX package's init: torch's default U(+-1/sqrt(fan_in)) for
-        the decoder convs, truncated N(0, 0.02) and zero biases in the
-        encoder (LayerNorms stay at ones/zeros, gamma at 1e-6)."""
-        for m in self.decoder.modules():
-            if isinstance(m, Conv2d):
-                m.reset_parameters(generator)
-        self.head_layer.reset_parameters(generator)
+        """The JAX package's init: the decoder's (``NeRVDecoder``), then
+        truncated N(0, 0.02) and zero biases in the encoder (LayerNorms
+        stay at ones/zeros, gamma at 1e-6)."""
+        super().reset_parameters(generator)
         for m in self.encoder.modules():
             if isinstance(m, (Conv2d, nn.Linear)):
                 nn.init.trunc_normal_(m.weight, std=0.02, a=-2.0, b=2.0,
                                       generator=generator)
                 nn.init.zeros_(m.bias)
-
-    def encode(self, img):
-        """NHWC frames -> (B, crop_h/prod(s), crop_w/prod(s), enc_channel[-1])."""
-        return self.encoder(img)
-
-    def _fused_impl(self):
-        if self.pack_start is None or self.cfg.dec_acts != "gelu":
-            return None
-        return resolve_impl(self.cfg.fused_tail)
-
-    def _kernel_weights(self, key, build):
-        """``build()``: the fused prefix's or tail's weights packed for the
-        kernels, kept across decodes until the decoder's weights change.
-        ``load_state_dict`` and every in-place update bump a parameter's
-        version counter, and a moved or replaced parameter has a new
-        address; either rebuilds. With gradients on it always rebuilds, so
-        no kept tensor carries a graph."""
-        if torch.is_grad_enabled():
-            return build()
-        params = (*self.decoder.parameters(), *self.head_layer.parameters())
-        version = tuple((p.data_ptr(), p._version) for p in params)
-        hit = self._packed.get(key)
-        if hit is None or hit[0] != version:
-            hit = self._packed[key] = (version, build())
-        return hit[1]
-
-    def _prefix(self, img_embed, impl):
-        """decoder0 + blocks[:pack_start] -> the tail-entry NHWC activation."""
-        c = self.cfg
-        x = pixel_shuffle(self.decoder[0](img_embed), (c.fc_h, c.fc_w))
-        return run_prefix_blocks(self.blocks, self.pack_start, x, impl,
-                                 fused_prefix=c.fused_prefix,
-                                 dec_norm=c.dec_norm,
-                                 memo=self._kernel_weights)
-
-    def _tail_weights(self, x):
-        h, w = int(x.shape[1]), int(x.shape[2])
-        return self._kernel_weights(("tail", h, w), lambda: prepare_tail(
-            h, w, *collect_tail_params(self.blocks, self.head_layer,
-                                       self.pack_start)))
-
-    def decode_cf(self, img_embed):
-        """Decode to the packed channels-first head output with `out_bias`
-        applied, (B, ch8, Mp): the calibration loss runs in this domain
-        against ``tail_fused.pack_targets``-packed frames (the
-        depth-to-space is a permutation, so a sum of elementwise losses is
-        the same), without the unpack. Always on the fused tail: the kernels
-        are the port's one implementation of it (the JAX package takes its
-        jnp twin where its kernels are off)."""
-        if self.pack_start is None or self.cfg.dec_acts != "gelu":
-            raise ValueError("decode_cf requires a packed GELU tail (use "
-                             "decode instead)")
-        x = self._prefix(img_embed, "fused")
-        z, _, _, _ = run_fused_tail_cf(x, self._tail_weights(x))
-        return out_img(z, self.cfg.out_bias)
-
-    def decode_jvp(self, img_embed, dws=None):
-        """Embedding -> (frames, their tangent) for tangents ``dws`` on the
-        decoder's conv kernels: one OIHW tensor per conv, in decode order
-        (decoder[0], each block's conv, the head: the quantized layers), or
-        None for no tangent (the tangent comes back None).
-
-        On the fused tail (``fused_tail`` other than off) the last prefix
-        block and the tail run :func:`tail_fused.tail_apply_fo` on the
-        kernels, the tangent entering through ``pack_cf`` (linear) and the
-        kernels' tangents packed by the same gather as the kernels; the
-        head's output is unpacked by plain tensor ops, as the JAX package's
-        HVP execution does. Otherwise the plain unpacked chain carries the
-        tangent on cuDNN convs. Every op of either graph is first-order
-        autograd, so a gradient of the tangent (a Hessian-vector product)
-        differentiates each kernel once."""
-        c = self.cfg
-        if c.dec_acts != "gelu":
-            raise NotImplementedError(
-                f"decode_jvp: dec_acts={c.dec_acts!r} (only gelu)")
-        blocks = self.blocks
-        if dws is None:
-            dws = (None,) * (len(blocks) + 2)
-        if len(dws) != len(blocks) + 2:
-            raise ValueError(f"decode_jvp: {len(dws)} tangents for "
-                             f"{len(blocks) + 2} convs")
-        impl = self._fused_impl()
-        t = len(blocks) if impl is None else self.pack_start
-        x, dx = _conv_jvp(self.decoder[0], img_embed, None, dws[0])
-        x, dx = (_shuffle(x, (c.fc_h, c.fc_w)),
-                 _shuffle(dx, (c.fc_h, c.fc_w)))
-        fused = fuses_prefix_block(blocks, t, impl, c.fused_prefix,
-                                   c.dec_norm)
-        for j in range(t - 1 if fused else t):
-            conv, r = blocks[j].conv[0], blocks[j].stride
-            x, dx = _conv_jvp(conv, x, dx, dws[j + 1])
-            x, dx = _gelu_jvp(_shuffle(x, r), _shuffle(dx, r))
-        if impl is None:
-            x, dx = _conv_jvp(self.head_layer, x, dx, dws[-1])
-            return _out_img_jvp(x, dx, c.out_bias)
-
-        def entry(x, dx, plan):
-            return (pack_cf(x.contiguous(), plan),
-                    None if dx is None else pack_cf(dx.contiguous(), plan))
-
-        def hwio(dw):
-            return None if dw is None else dw.permute(2, 3, 1, 0)
-
-        h, w = int(x.shape[1]), int(x.shape[2])
-        if fused:
-            blk = blocks[t - 1]
-            plan, kks, bms, r, _ = pack_prefix_block(h, w, *blk.conv_params(),
-                                                     blk.stride)
-            dkks = (None,) if dws[t] is None else pack_prefix_block(
-                h, w, hwio(dws[t]), None, r)[1]
-            x_cf, dx_cf = entry(x, dx, plan)
-            z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
-            x = prefix_cf_to_nhwc(z, plan, r, blk.out_channel)
-            dx = (None if dz is None
-                  else prefix_cf_to_nhwc(dz, plan, r, blk.out_channel))
-            x, dx = _gelu_jvp(x, dx)
-            h, w = int(x.shape[1]), int(x.shape[2])
-        tail, head = collect_tail_params(blocks, self.head_layer, t)
-        plan, kks, bms, f, ch = plan_and_pack(h, w, tail, head)
-        dkks = (None,) * len(kks)
-        if dws[t + 1] is not None:
-            dkks = plan_and_pack(
-                h, w, [(hwio(dws[j + 1]), None, blocks[j].stride)
-                       for j in range(t, len(blocks))],
-                (hwio(dws[-1]), None))[1]
-        x_cf, dx_cf = entry(x, dx, plan)
-        z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
-        y, dy = _out_img_jvp(cf_to_nhwc(z, plan, ch),
-                             None if dz is None else cf_to_nhwc(dz, plan, ch),
-                             c.out_bias)
-        return (depth_to_space(y, f),
-                None if dy is None else depth_to_space(dy, f))
-
-    def decode(self, img_embed):
-        """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).
-
-        The kernel path runs the high-resolution tail packed from the pack
-        start on, channels-first, on the CUDA kernels (ops/tail_fused.py),
-        with the last prefix block fused too. With ``packed_tail: off`` or
-        ``fused_tail: off`` the plain unpacked conv/shuffle chain runs; with
-        ``fused_tail: pallas_hvp`` the value of :meth:`decode_jvp`."""
-        c = self.cfg
-        impl = self._fused_impl()
-        if impl == "pallas_hvp":
-            return self.decode_jvp(img_embed)[0]
-        if impl is not None:
-            x = self._prefix(img_embed, impl)
-            return run_fused_tail_frames(x, self._tail_weights(x), c.out_bias)
-        x = pixel_shuffle(self.decoder[0](img_embed), (c.fc_h, c.fc_w))
-        for blk in self.blocks:
-            x = blk(x)
-        return out_img(self.head_layer(x), c.out_bias)
-
-    def forward(self, img):
-        return self.decode(self.encode(img))

@@ -1,5 +1,6 @@
-"""Model primitives for HNeRV on NHWC tensors, with the reference's torch
-parameter names (the HNeRV part of ``neuroquant_tpu/models/layers.py``).
+"""Model primitives for HNeRV and NeRV on NHWC tensors, with the reference's
+torch parameter names (the HNeRV and NeRV part of
+``neuroquant_tpu/models/layers.py``).
 
 Parameters keep torch's layouts (OIHW conv weights, (out, in) Linear
 weights), so a reference ``.pth`` or a checkpoint written by the JAX
@@ -11,6 +12,7 @@ PyTorch's channels-last layout, and back.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Sequence
 
 import torch
@@ -130,6 +132,50 @@ class NeRVBlock(nn.Module):
         return self.act_fn(self.conv(x))
 
 
+@lru_cache(maxsize=16)
+def _pe_table(base: float, level: int, n_frames: int, device: str):
+    """The (n_frames, 2*level) encoding of the frame grid idx / n_frames on
+    `device`, made once: the reference's float32 bases ``base **
+    arange(level) * pi``, float64 positions, products and sin/cos, cast to
+    float32."""
+    bases = ((base ** torch.arange(level)) * math.pi).double()
+    pos = torch.arange(n_frames, dtype=torch.float64)[:, None] / n_frames
+    v = pos * bases
+    return torch.cat([torch.sin(v), torch.cos(v)], dim=-1).float().to(device)
+
+
+class PositionEncoding(nn.Module):
+    """NeRV's index embedding, [sin, cos](pos * base**arange(level) * pi)
+    -> (B, 1, 1, 2*level), parameter-free.
+
+    With n_frames > 0 (pos on the grid idx / n_frames, the only positions
+    the pipeline evaluates) each frame's row comes from a table with the
+    reference's exact semantics (:func:`_pe_table`), bit for bit the JAX
+    package's; the row is clip(round(pos * n_frames), 0, n_frames - 1),
+    half to even. Without n_frames the plain fp32 formula runs, for any
+    pos."""
+
+    def __init__(self, base: float, level: int, n_frames: int = 0):
+        super().__init__()
+        self.base, self.level, self.n_frames = float(base), int(level), \
+            int(n_frames)
+
+    def forward(self, pos):
+        pos = pos.to(torch.float32).reshape(-1, 1)
+        b = pos.shape[0]
+        if self.n_frames > 0:
+            table = _pe_table(self.base, self.level, self.n_frames,
+                              str(pos.device))
+            idx = torch.clamp(torch.round(pos[:, 0] * self.n_frames),
+                              0, self.n_frames - 1).to(torch.int64)
+            return table[idx].reshape(b, 1, 1, -1)
+        bases = (self.base ** torch.arange(self.level, dtype=torch.float32,
+                                           device=pos.device)) * math.pi
+        v = pos * bases
+        return torch.cat([torch.sin(v), torch.cos(v)], dim=-1).reshape(
+            b, 1, 1, -1)
+
+
 class ConvNeXtBlock(nn.Module):
     """dwconv 7x7 -> LN -> Linear 4x -> GELU -> Linear -> gamma -> residual."""
 
@@ -191,7 +237,7 @@ def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
     a 1-layer channels-first plan on the tail kernels (pack_cf +
     tail_conv_cf); its PixelShuffle becomes one relabel of that output.
     ``memo(key, build)`` returns ``build()``, the block's packed weights,
-    or a copy kept from an earlier call (``HNeRV._kernel_weights``).
+    or a copy kept from an earlier call (``NeRVDecoder._kernel_weights``).
     Gradients pass: the fused block runs through the tail's and
     ``pack_cf``'s autograd Functions, the relabel back is plain torch.
 

@@ -1317,7 +1317,7 @@ def resolve_impl(fused_tail: str) -> str | None:
 
 class TailWeights(NamedTuple):
     """A channels-first plan with its weights in the layouts the kernels
-    read. Packing them is per model, not per decode: ``HNeRV`` keeps one
+    read. Packing them is per model, not per decode: the decoder keeps one
     until its weights change."""
     plan: TailPlan
     kks: tuple          # canonical (side, side, cin8, cout8) kernels

@@ -16,8 +16,8 @@ The phases train different leaves of one QuantState (``_split_state``). A
 step fake-quantizes the decoder's weights from the state, decodes a batch of
 calibration embeddings with them (``torch.func.functional_call``) and takes
 the loss against the frames; by default in the packed channels-first domain
-(``HNeRV.decode_cf`` against ``tail_fused.pack_targets``), where the decoder
-tail runs forward and backward on the CUDA kernels.
+(the model's ``decode_cf`` against ``tail_fused.pack_targets``), where the
+decoder tail runs forward and backward on the CUDA kernels.
 
 An epoch is a Python loop over its shuffled batches (the JAX package scans
 one jitted epoch). Shuffles come from a ``torch.Generator`` seeded from the
@@ -230,7 +230,8 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
     """Returns (calibrated QuantState, mode); decode the result with
     ``quantize_params(..., mode=mode, soft=False)``.
 
-    model: the HNeRV module, whose decoder the state's layers replace;
+    model: the HNeRV or NeRV module, whose decoder the state's layers
+    replace;
     params: its fp32 state dict (what the fake-quant reads); cali_data:
     the calibration embeddings in frame order; frames: the NHWC clip.
     rounding="adaround" runs both phases (mode 'adaround'); "nearest" runs

@@ -4,8 +4,8 @@
 Omega scores the quantization perturbation v = w - UAQ(w) against the loss
 Hessian over <= 10 random batches: omega = sum over layers of
 (sum_b H_b v) . v. The Hessian-vector product is reverse-over-forward,
-Hv = grad(w -> jvp(loss, w, v)): ``HNeRV.decode_jvp`` carries the tangent
-beside the value, through the fused tail's kernels on ``fused_tail:
+Hv = grad(w -> jvp(loss, w, v)): the model's ``decode_jvp`` carries the
+tangent beside the value, through the fused tail's kernels on ``fused_tail:
 pallas_hvp`` (``tail_fused.tail_apply_fo``) or through the plain unpacked
 decode's cuDNN convs on ``off``, and ``torch.autograd.grad`` of the
 directional derivative differentiates that first-order graph once. With
@@ -39,7 +39,7 @@ MAX_BATCHES = 10
 
 def _decoder_conv_keys(model):
     """State-dict keys of the decoder's conv weights in decode order: the
-    order of ``HNeRV.decode_jvp``'s tangents."""
+    order of ``decode_jvp``'s tangents."""
     return (["decoder.0.weight"]
             + [f"decoder.{j + 1}.conv.0.weight"
                for j in range(len(model.blocks))] + ["head_layer.weight"])
@@ -59,16 +59,19 @@ def draw_batches(n: int, batch_size: int, seed: int):
     return perm[:n_batches * batch_size].reshape(n_batches, batch_size)
 
 
-def _frames_of(frames, idx):
-    return frames[torch.as_tensor(np.array(idx, dtype=np.int64),
-                                  device=frames.device)]
+def _batch_of(model, frames, norm_idx, idx):
+    """(frames[idx], the model's input for them)."""
+    idx = torch.as_tensor(np.array(idx, dtype=np.int64),
+                          device=frames.device)
+    return frames[idx], model.model_input(frames, norm_idx)[idx]
 
 
-def hessian_vector_product(model, spec: QuantSpec, vec, frames, batches,
-                           remat: bool = False):
+def hessian_vector_product(model, spec: QuantSpec, vec, frames, norm_idx,
+                           batches, remat: bool = False):
     """sum_b H_b v of the reconstruction MSE w.r.t. the spec layers'
     kernels, over the frame batches `batches`. vec and the result: one HWIO
-    tensor per spec layer (the JAX layout)."""
+    tensor per spec layer (the JAX layout). `norm_idx`: the frames'
+    normalized indices, which NeRV encodes (HNeRV the frames)."""
     keys = [f"{layer_prefix(p)}.weight" for p in spec.layer_paths]
     params = dict(model.named_parameters())
     tangent = {k: v.permute(3, 2, 0, 1) for k, v in zip(keys, vec)}
@@ -76,32 +79,33 @@ def hessian_vector_product(model, spec: QuantSpec, vec, frames, batches,
            for k in _decoder_conv_keys(model)]
     kernels = _kernels(model, spec)
 
-    def dirderiv(img):
+    def dirderiv(img, inp):
         # d/de mse(w + e v) at e = 0: forward mode through the decode
         with torch.no_grad():
-            emb = model.encode(img)
+            emb = model.encode(inp)
         pred, dpred = model.decode_jvp(emb, dws)
         return (2.0 * (pred - img) * dpred).mean()
 
     acc = [torch.zeros_like(v) for v in vec]
     for idx in batches:
-        img = _frames_of(frames, idx)
-        dl = (checkpoint(dirderiv, img, use_reentrant=False) if remat
-              else dirderiv(img))
+        img, inp = _batch_of(model, frames, norm_idx, idx)
+        dl = (checkpoint(dirderiv, img, inp, use_reentrant=False) if remat
+              else dirderiv(img, inp))
         for a, h in zip(acc, torch.autograd.grad(dl, kernels)):
             a += h.permute(2, 3, 1, 0)
     return acc
 
 
-def fisher_gradient(model, spec: QuantSpec, frames, batches):
+def fisher_gradient(model, spec: QuantSpec, frames, norm_idx, batches):
     """sum_b of the reconstruction MSE's gradient w.r.t. the spec layers'
-    kernels (HWIO), on the model's decode."""
+    kernels (HWIO), on the model's decode; `norm_idx` as in
+    :func:`hessian_vector_product`."""
     kernels = _kernels(model, spec)
     acc = [torch.zeros_like(k.permute(2, 3, 1, 0)) for k in kernels]
     for idx in batches:
-        img = _frames_of(frames, idx)
+        img, inp = _batch_of(model, frames, norm_idx, idx)
         with torch.no_grad():
-            emb = model.encode(img)
+            emb = model.encode(inp)
         loss = ((model.decode(emb) - img) ** 2).mean()
         for a, g in zip(acc, torch.autograd.grad(loss, kernels)):
             a += g.permute(2, 3, 1, 0)
@@ -115,21 +119,23 @@ def sensitivity_criterion(mode: str, arch: str, model, params,
                           batches=None):
     """Sensitivity score of the (spec, state) bit allocation: (total,
     per-layer scores); lower is better. `params` (a state dict) is loaded
-    into `model`. `norm_idx` is NeRV's input (not ported: HNeRV encodes the
-    frames). `batches`: (n, batch_size) frame indices to use instead of
-    drawing them from `seed`."""
+    into `model`. `norm_idx`: the frames' normalized indices, NeRV's input
+    (HNeRV encodes the frames). `batches`: (n, batch_size) frame indices to
+    use instead of drawing them from `seed`."""
+    arch = arch.lower()
     require_ported(arch)
-    if arch.lower() != "hnerv":
+    if arch not in ("hnerv", "nerv"):
         raise ValueError(f"model arch wrong: {arch!r}")
     model.load_state_dict(params)
     vec = get_perturbation(params, spec, state)
     if batches is None:
         batches = draw_batches(int(frames.shape[0]), batch_size, seed)
     if mode == "omega":
-        hv = hessian_vector_product(model, spec, vec, frames, batches, remat)
+        hv = hessian_vector_product(model, spec, vec, frames, norm_idx,
+                                    batches, remat)
         per_layer = [float((h * v).sum()) for h, v in zip(hv, vec)]
     elif mode == "fisher_diag":
-        g = fisher_gradient(model, spec, frames, batches)
+        g = fisher_gradient(model, spec, frames, norm_idx, batches)
         per_layer = [float((v ** 2 * gg ** 2).sum())
                      for v, gg in zip(vec, g)]
     else:

@@ -121,7 +121,7 @@ def main() -> int:
         x = frames.to(dtype)
 
         def run():
-            return hessian_vector_product(model, spec, v, x, batch)
+            return hessian_vector_product(model, spec, v, x, None, batch)
 
         hv[route] = run()                   # warm-up (and the kernel build)
         torch.cuda.synchronize()

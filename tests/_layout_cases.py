@@ -1,4 +1,5 @@
-"""Launch shapes of the two layout kernels (pack_cf, unpack_frames), shared
+"""Launch shapes of the three layout kernels (pack_cf, unpack_cf,
+unpack_frames), shared
 by the CPU emulation tests (test_torch_layout_tiles.py) and the card tests
 (test_torch_kernels_cuda.py). Plans come from shapes alone."""
 
@@ -6,6 +7,9 @@ from neuroquant_tpu_torch.ops import tail_fused as tf
 
 BUNNY_BLOCKS = [(5, 53, 176, 2), (5, 44, 148, 2)]
 BUNNY_HEAD = (3, 37, 3)
+# NeRV Bunny-3M: the tail from 160 x 320 (24 -> 24 * 4, twice), head 24 -> 3
+NERV_BLOCKS = [(3, 24, 96, 2), (3, 24, 96, 2)]
+NERV_HEAD = (3, 24, 3)
 
 
 def plan(name):
@@ -14,6 +18,10 @@ def plan(name):
         return tf.plan_geometry(160, 320, BUNNY_BLOCKS, BUNNY_HEAD)
     if name == "bunny_prefix":       # its fused prefix block, 40 x 80
         return tf._prefix_plan(40, 80, 5, 64, 848), 1
+    if name == "nerv_bunny":         # NeRV Bunny-3M tail, 160 x 320, f=4
+        return tf.plan_geometry(160, 320, NERV_BLOCKS, NERV_HEAD)
+    if name == "nerv_bunny_prefix":  # its fused prefix block 36 -> 384
+        return tf._prefix_plan(40, 80, 3, 36, 384), 1
     if name == "uvg":                # HNeRV UVG-3M tail, 160 x 320, f=6
         return tf.plan_geometry(160, 320, [(5, 53, 396, 3), (5, 44, 148, 2)],
                                 BUNNY_HEAD)
@@ -38,6 +46,8 @@ def plan(name):
 PACK_CASES = [
     ("bunny", 53, 1), ("bunny", 53, 2),                 # the tail entry
     ("bunny_prefix", 64, 1), ("bunny_prefix", 64, 2),   # the prefix entry
+    ("nerv_bunny", 24, 1), ("nerv_bunny", 24, 2),       # NeRV's entries
+    ("nerv_bunny_prefix", 36, 1), ("nerv_bunny_prefix", 36, 2),
     ("small", 5, 2), ("small", 8, 2), ("small", 13, 2),
     ("tiny", 17, 2),
     *((f"f2_w{w}", c, 2) for w in (13, 131) for c in (1, 3, 5, 13, 53, 64,
@@ -47,6 +57,7 @@ PACK_CASES = [
 # unpack_frames: (plan, frame channels c, batch)
 UNPACK_CASES = [
     ("bunny", 3, 1), ("bunny", 3, 2), ("uvg", 3, 1),
+    ("nerv_bunny", 3, 1), ("nerv_bunny", 3, 2),
     ("small", 3, 2), ("tiny", 3, 2), ("width_tiled", 3, 2),
     *((f"f{f}_w{w}", 3, 2) for f in (2, 3, 4, 6) for w in (13, 37, 301)),
     *((f"f{f}_w37", c, 1) for f in (2, 4) for c in (1, 5, 13)),

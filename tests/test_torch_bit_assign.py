@@ -122,7 +122,7 @@ def test_bit_assign_search_runs(ckpt, frame_dir, monkeypatch):
     assert np.isfinite(score)
 
 
-@pytest.mark.parametrize("arch,item", [("nerv", "item 9"),
+@pytest.mark.parametrize("arch,item", [("pnerv2", "item 12"),
                                        ("pnerv1", "item 12")])
 def test_bit_assign_refuses_unported_archs(arch, item):
     from neuroquant_tpu_torch.methods import bit_assign

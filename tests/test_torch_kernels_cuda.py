@@ -32,6 +32,12 @@ TINY_HNERV = dict(
     dec_strides=[5, 4, 4], dec_norm="none", dec_acts="gelu", out_bias="tanh",
     loss="l2", epoch=4, workers=0, eval_freq=2, batch_size=2,
     learning_rate=0.002)
+TINY_NERV = dict(
+    crop_h=80, crop_w=160, diff_enc=False, base=1.25, level=16,
+    channel_reduce=2, channel_lbound=6, dec_in_channel=32,
+    dec_kernels=[3, 3, 3], dec_strides=[5, 4, 4], dec_norm="none",
+    dec_acts="gelu", out_bias="tanh", loss="l2", epoch=4, workers=0,
+    eval_freq=2, batch_size=2, learning_rate=0.002, n_frames=8)
 
 
 @pytest.fixture(scope="module")
@@ -245,6 +251,106 @@ def test_training_step_runs_on_the_kernels(dev, monkeypatch):
     loss_p = loss_fn(plain(img), img, "l2")
     loss_p.backward()
     n = len(tail_plan_for("hnerv", TINY_HNERV)[0].layers) + 1
+    assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
+                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 1,
+                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
+                      "fq_ada_bwd": 0}
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
+    grads_p = dict(plain.named_parameters())
+    for name, prm in kern.named_parameters():
+        want = grads_p[name].grad
+        assert float((prm.grad - want).abs().max()) <= \
+            1e-4 * float(want.abs().max()), name
+
+
+def _nerv_bunny_layers():
+    """NeRV Bunny-3M's four conv layers on the kernels, (plan, layer): the
+    fused prefix block 36 -> 24 * 16 at 40x80 (cin 36 padded to 40) and the
+    tail's 24 -> 96 (f=1), 96 -> 384 (f=2, union-sparse) and head 384 -> 48
+    (f=4) at 160x320."""
+    import os
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.models import tail_plan_for
+
+    cfg = get_config(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                  "NeRV", "Bunny_1280x640_3M.yaml"))
+    pplan = tf._prefix_plan(40, 80, 3, 36, 384)
+    plan = tail_plan_for("nerv", cfg)[0]
+    return [(pplan, pplan.layers[0])] + [(plan, l) for l in plan.layers]
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("li", [0, 1, 2, 3],
+                         ids=["prefix", "L3", "L4", "head"])
+def test_nerv_bunny_conv_passes(dev, li, batch):
+    """Each NeRV Bunny-3M conv's forward (z, and the pair zy), its dx pass
+    (GELU' epilogue where its input went through GELU) and its dW pass at
+    stage 1's batch 1 and calibration's batch 2, against their plain
+    versions: the odd prefix width, the ragged K of 9 * 24 rows, grids with
+    fewer tiles than the card holds blocks."""
+    plan, layer = _nerv_bunny_layers()[li]
+    gen = torch.Generator(device=dev).manual_seed(17 + li)
+    mask = tf.border_mask(plan, device=dev)
+    x = torch.randn((batch, layer.cin, plan.mp), generator=gen,
+                    device=dev) * mask
+    g = torch.randn((batch, layer.cout, plan.mp), generator=gen,
+                    device=dev) * mask
+    kk = torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                     generator=gen, device=dev) * 0.05
+    bias = torch.randn((layer.cout, 1), generator=gen, device=dev) * 0.1
+    blocks = tf._k_blocks(plan, layer)
+    tf.reset_launch_counts()
+    for emit in ("z", "zy"):
+        _assert_close(tf.conv_cf(x, kk, bias, plan, layer, emit),
+                      tf.conv_cf_ref(x, kk, bias, plan, layer, emit,
+                                     blocks=blocks))
+    lt = layer.transposed()
+    kt = tf._kk_transpose(kk).contiguous()
+    om = x if layer.gelu_in else None
+    _assert_close(tf.conv_cf(g, kt, None, plan, lt, out_mul=om),
+                  tf.conv_cf_ref(g, kt, None, plan, lt,
+                                 blocks=tf._k_blocks(plan, lt), out_mul=om))
+    _assert_close(tf.conv_cf_dw(x, g, plan, layer),
+                  tf.conv_cf_dw_ref(x, g, plan, layer, False, blocks))
+    torch.cuda.synchronize()
+    assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (3, 1)
+
+
+def test_nerv_training_step_runs_on_the_kernels(dev, monkeypatch):
+    """One stage-1 step of the tiny NeRV at batch 1 on the card: the
+    position encoding's table, layer 0's (1, 2) shuffle, the fused prefix
+    block and the tail, the l2 loss and the backward launch every tail
+    conv, its dx and dW, both entries' pack_cf and unpack_cf and one
+    unpack_frames, no plain conv or pack; every gradient equals the plain
+    unpacked path's (cuDNN) within 1e-4 of its leaf's largest."""
+    from neuroquant_tpu_torch.metrics import loss_fn
+    from neuroquant_tpu_torch.models import build_model, tail_plan_for
+
+    kern = build_model("nerv", TINY_NERV, device=dev)
+    plain = build_model("nerv", dict(TINY_NERV, fused_tail="off"),
+                        device=dev)
+    plain.load_state_dict(kern.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(6)
+    img = torch.rand((1, 80, 160, 3), generator=gen, device=dev)
+    idx = torch.tensor([3 / 8], device=dev)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    with monkeypatch.context() as m:
+        for fn in ("conv_cf_ref", "conv_cf_dw_ref", "pack_cf_ref",
+                   "unpack_cf_ref"):
+            m.setattr(tf, fn, refuse)
+        tf.reset_launch_counts()
+        loss_k = loss_fn(kern(idx), img, "l2")
+        loss_k.backward()
+        torch.cuda.synchronize()
+        counts = dict(tf.KERNEL_LAUNCHES)
+    loss_p = loss_fn(plain(idx), img, "l2")
+    loss_p.backward()
+    n = len(tail_plan_for("nerv", TINY_NERV)[0].layers) + 1
     assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
                       "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 1,
                       "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
@@ -509,10 +615,10 @@ def test_hvp_on_the_kernels_matches_the_plain_path(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     frames = torch.rand((2, 80, 160, 3), generator=gen, device=dev)
     tf.reset_launch_counts()
-    got = hessian_vector_product(kern, spec, vec, frames, [[0, 1]])
+    got = hessian_vector_product(kern, spec, vec, frames, None, [[0, 1]])
     torch.cuda.synchronize()
     counts = dict(tf.KERNEL_LAUNCHES)
-    want = hessian_vector_product(plain, spec, vec, frames, [[0, 1]])
+    want = hessian_vector_product(plain, spec, vec, frames, None, [[0, 1]])
     for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf"):
         assert counts[k] > 0, counts
     assert counts["unpack_frames"] == 0, counts

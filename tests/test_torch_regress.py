@@ -142,7 +142,7 @@ class TestTrainingStep:
         topt = torch.optim.Adam(tm.parameters(), lr=lr, eps=1e-8)
         tframes = torch.from_numpy(s["frames"])
         trun = regress.make_train_epoch(
-            tm, "hnerv", "l2", topt,
+            tm, "l2", topt,
             tsched.make_lr_schedule(LR_TYPE, lr, epochs * spe), tframes,
             torch.arange(n, dtype=torch.float32) / n, spe, bs)
         losses = []
@@ -511,7 +511,7 @@ class TestCLI:
     @pytest.mark.parametrize("flag,item", [
         (["--mesh_devices", "2"], "item 14"),
         (["--matmul_precision", "bfloat16"], "item 16"),
-        (["--arch", "nerv"], "item 9"), (["--arch", "pnerv2"], "item 12")])
+        (["--arch", "pnerv1"], "item 12"), (["--arch", "pnerv2"], "item 12")])
     def test_unported_flags_name_their_item(self, flag, item):
         with pytest.raises(NotImplementedError, match=item):
             regress.main(["--config", "c.yaml", "--arch", "hnerv",

@@ -299,7 +299,8 @@ def test_omega_matches_jax(setup, omega_jax, route):
     model = s["tm"][route]
     vec = [torch.from_numpy(v.copy()) for v in j["vec"]]
     hv = hessian_vector_product(model, s["tspec"], vec,
-                                torch.from_numpy(s["frames"]), s["batches"])
+                                torch.from_numpy(s["frames"]), None,
+                                s["batches"])
     for got, want in zip(hv, j["hv"]):
         _close(got.numpy(), want, 1e-4)
     lines = []
@@ -320,9 +321,9 @@ def test_remat_gives_the_same_hv(setup):
     vec = get_perturbation(s["sd"], s["tspec"], s["tstate"])
     frames = torch.from_numpy(s["frames"])
     a = hessian_vector_product(s["tm"]["pallas_hvp"], s["tspec"], vec,
-                               frames, s["batches"][:1])
+                               frames, None, s["batches"][:1])
     b = hessian_vector_product(s["tm"]["pallas_hvp"], s["tspec"], vec,
-                               frames, s["batches"][:1], remat=True)
+                               frames, None, s["batches"][:1], remat=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
