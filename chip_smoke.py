@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU, at HNeRV Bunny-3M
-(640x1280, configs/HNeRV/Bunny_1280x640_3M.yaml) and NeRV Bunny-3M
-(configs/NeRV/Bunny_1280x640_3M.yaml) with seeded random weights.
+(640x1280, configs/HNeRV/Bunny_1280x640_3M.yaml), NeRV Bunny-3M
+(configs/NeRV/Bunny_1280x640_3M.yaml) and PNeRV Bunny-3M
+(configs/PNeRV/Bunny_1280x640_3M.yaml) with seeded random weights.
 
   python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -96,6 +97,18 @@ Phases (any failure exits non-zero):
      kernels at its seven layers (phase 8), calibrate_network on both
      fq_impls (phases 7 and 9), the bitstream (phase 10) and bit_assign
      (phase 11)
+ 14. PNeRV1 Bunny-3M at full width and depth, its fusion stages in bf16
+     as the config says, through the same phases: the post-fusion tail's
+     kernels (the block 104 -> 400 at 320x640, the head 400 -> 16 at f=2;
+     pack_cf and unpack_cf at c = 100; the sigmoid unpack_frames), the
+     decode (launches 2 / 1 / 1; once more with fp32 fusion stages), the
+     calibration and stage-1 steps with fp32 fusion stages at fp32's
+     tolerances and with the config's bf16 at BF16_TOL (launches 4 / 2 /
+     1 / 1, and 2 + 2 fake-quant launches a pallas step: 19 layers in 16 +
+     3), regress, the fake-quant kernels at the 19 layers, calibrate_network
+     on both fq_impls, the bitstream, bit_assign with two toy allocations
+     (with and without --remat); then PNeRV2: decode, one calibration step
+     (one fake-quant launch for its 15 layers) and calibrate_network
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -107,8 +120,10 @@ fq_ada; the backward's fq_uaq_bwd, fq_ada_bwd); per-launch figures under
 "per_launch"; its launches per stage-2 batch and per stage-1 step
 ("per_stage1_step") beside them, and the stage-1 step's batch-1 launch
 shapes under "stage1_per_launch"; NeRV's per-launch records (phase 13)
-under "nerv_per_launch", its launches under "nerv_launches". The last line
-is {"ok": true, "device": ...}.
+under "nerv_per_launch", its launches under "nerv_launches"; PNeRV1's
+(phase 14) under "pnerv_per_launch" and "pnerv_launches", PNeRV2's
+launches under "pnerv2_launches". The last line is {"ok": true,
+"device": ...}.
 """
 
 from __future__ import annotations
@@ -175,6 +190,26 @@ STAGE2_TOL = 1e-4
 # plain path in fp32 is held to GRAD_TOL: cuDNN's algorithms for the 5x5
 # convs at 160x320 and 320x640 lose more)
 HV64_TOL = 1e-4
+# a PNeRV leaf whose gradient comes from cuDNN on both routes (the encoder,
+# the excitation conv, the fusion stages): where the plain fp32 route
+# misses float64 by more than the check's tolerance, the kernel route is
+# held to CUDNN64_X times that miss (the same cuDNN fp32 convs, on inputs
+# that part in fp32's last bits), that miss to CUDNN64_TOL (cuDNN's fp32
+# HVP missed float64 by up to 7.8e-3 of a leaf at HNeRV's shapes), and
+# the kernel route to the plain fp32 route within the fp32 tolerance
+CUDNN64_X = 2.0
+CUDNN64_TOL = 1e-2
+# PNeRV1's fusion stages in bf16 (its config's bsm_dtype): the kernel and the
+# plain paths run the same bf16 ops on inputs that part in fp32's last bits
+# (and cuDNN's bf16 backward parts from run to run), so bf16's rounding
+# (2^-8) parts some of a stage's values and cotangents by a unit, and a
+# leaf upstream (KFc, BatchNorm, the blocks' convs) sums such cotangents
+# over 320x640 positions: gradients and per-layer scores are held to eight
+# units there (of the leaf's largest, of the layer's sum|Hv*v|; up to
+# 7.5e-3 on an NVIDIA H100 at Bunny-3M, 1.1e-2 on the CPU at a smaller
+# config of the same structure), and to GRAD_TOL, FQ_GRAD_TOL, HV64_TOL and
+# STAGE2_TOL with the stages in fp32
+BF16_TOL = 2.0 ** -5
 # a stage-1 step's launches (batch 1): the calibration step's, the prefix's
 # dx included (the gradient reaches the encoder), and the unpack of the
 # frames the loss reads; its backward is the plain VJP, as in JAX
@@ -184,7 +219,100 @@ STAGE1_PSNR_TOL = 1e-3   # dB, --eval_only against the last in-training eval
 REPO = os.path.dirname(os.path.abspath(__file__))
 HNERV_CONFIG = os.path.join("configs", "HNeRV", "Bunny_1280x640_3M.yaml")
 NERV_CONFIG = os.path.join("configs", "NeRV", "Bunny_1280x640_3M.yaml")
-_CONFIGS = {"hnerv": HNERV_CONFIG, "nerv": NERV_CONFIG}
+PNERV_CONFIG = os.path.join("configs", "PNeRV", "Bunny_1280x640_3M.yaml")
+_CONFIGS = {"hnerv": HNERV_CONFIG, "nerv": NERV_CONFIG,
+            "pnerv": PNERV_CONFIG, "pnerv2": PNERV_CONFIG}
+# PNeRV's post-fusion tail runs from pack start 0 with no fused prefix: a
+# step's launches are its two convs forward and their dx passes, their two
+# dW passes, one pack_cf and its backward; a decode's two convs, one pack_cf
+# and one unpack_frames
+PNERV_PER_STEP = dict(PER_STEP, tail_conv_cf=4, tail_conv_dw_cf=2, pack_cf=1,
+                      unpack_cf=1)
+PER_DECODE = {k: 0 for k in PER_STEP}
+PER_DECODE.update(tail_conv_cf=4, pack_cf=2, unpack_frames=1)
+PNERV_PER_DECODE = dict(PER_DECODE, tail_conv_cf=2, pack_cf=1)
+FQ_GROUP = 16        # layers one fake-quant launch takes (MAX_LAYERS)
+# the port's own kernels, by their CUDA function names, in a profile
+PORT_KERNELS = ("tail_conv", "dw_reduce", "pack_cf", "unpack_cf",
+                "unpack_frames", "fq_kernel")
+
+
+def _is_pnerv(arch: str) -> bool:
+    return arch.startswith("pnerv")
+
+
+def _on_cudnn(arch: str, cfg: dict, name: str) -> bool:
+    """Whether state-dict leaf `name` of `arch` gets its gradient from cuDNN
+    on both routes: PNeRV's leaves outside its post-fusion tail (the last
+    block and the head, the only layers on the port's kernels)."""
+    if not _is_pnerv(arch):
+        return False
+    tail = (f"dec_layers.{len(cfg['kfc_strides']) - 1}.", "dec_head_layers.")
+    return not name.startswith(tail)
+
+
+def _hold_to_float64(errs, tol64, tol_plain, cudnn):
+    """Leaf by leaf, `errs` {name: (kernel route vs float64, plain fp32
+    route vs float64, kernel route vs plain fp32 route)}: the kernel route
+    within `tol64` of float64; a leaf on cuDNN on both routes
+    (`cudnn(name)`) whose plain route misses float64 by more than `tol64`
+    within CUDNN64_X times that miss, the miss within CUDNN64_TOL, and the
+    kernel route within `tol_plain` of the plain route."""
+    for name, (k64, p64, kp) in errs.items():
+        if cudnn(name) and p64 > tol64:
+            print(f"    {name} on cuDNN on both routes: {k64:.2e} against "
+                  f"float64, the plain route's own {p64:.2e} (held to "
+                  f"{CUDNN64_X} x {p64:.2e}, that to {CUDNN64_TOL:.0e}); "
+                  f"{kp:.2e} from the plain route (tol {tol_plain:.0e})")
+            assert (k64 <= CUDNN64_X * p64 and p64 <= CUDNN64_TOL
+                    and kp <= tol_plain), (name, k64, p64, kp)
+        else:
+            assert k64 <= tol64, (name, k64, p64)
+
+
+def _per_step(arch: str) -> dict:
+    """A calibration step's launches on the tail's kernels."""
+    return PNERV_PER_STEP if _is_pnerv(arch) else PER_STEP
+
+
+def _per_decode(arch: str) -> dict:
+    return PNERV_PER_DECODE if _is_pnerv(arch) else PER_DECODE
+
+
+def _per_stage1_step(arch: str) -> dict:
+    return dict(_per_step(arch), unpack_frames=1)
+
+
+def _n_layers(arch: str, cfg) -> int:
+    from neuroquant_tpu_torch.models import quant_layer_paths
+
+    return len(quant_layer_paths(arch, cfg))
+
+
+def _fq_launches(arch: str, cfg) -> int:
+    """Grouped fake-quant launches per quantize_params call: one for every
+    FQ_GROUP layers (PNeRV1's 19 take two)."""
+    return -(-_n_layers(arch, cfg) // FQ_GROUP)
+
+
+def _fq_phases(arch: str, cfg):
+    """A --fq_impl pallas step's launches, phase 1 and phase 2."""
+    n = _fq_launches(arch, cfg)
+    return (dict(_per_step(arch), fq_uaq=n, fq_uaq_bwd=n),
+            dict(_per_step(arch), fq_ada=n, fq_ada_bwd=n))
+
+
+def _precision(arch: str, cfg) -> list:
+    """The bits of every quantized layer: PRECISION, and for PNeRV's 15 or
+    19 layers PRECISION's pattern repeated."""
+    if not _is_pnerv(arch):
+        return list(PRECISION)
+    return [PRECISION[i % len(PRECISION)] for i in range(_n_layers(arch, cfg))]
+
+
+def _out_bias(cfg) -> str:
+    """The head's out_img: the config's, PNeRV's sigmoid (no key)."""
+    return str(cfg.get("out_bias", "sigmoid"))
 
 
 def _card_line() -> str:
@@ -192,6 +320,20 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+_SECTION = {"label": None, "t0": 0.0}
+
+
+def _section(label=None):
+    """Print a section's header, and the seconds since the last header
+    (``_section()`` closes the last section)."""
+    now = time.time()
+    if _SECTION["label"] is not None:
+        print(f"  ({_SECTION['label']}: {now - _SECTION['t0']:.1f} s)")
+    _SECTION.update(label=label, t0=now)
+    if label is not None:
+        print(f"[{label}]")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -309,33 +451,43 @@ def _seeded_state_dict(model, rng):
 
 
 def _conv_layers(torch, tf, cfg, model):
-    """The four conv layers of a Bunny-3M model's kernel path (the fused
-    prefix block, the tail's two blocks, the head): (name, plan, layer, kk,
-    bias, real cin, real cout, library conv: (input NCHW shape at batch 1,
-    weight OIHW shape, padding)); the real widths of the unpacked (f=1)
-    layers, None for the packed ones; the two entries' (name, plan, real
-    channels)."""
+    """The conv layers of a Bunny-3M model's kernel path: HNeRV's and NeRV's
+    four (the fused prefix block, the tail's two blocks, the head), PNeRV's
+    two (its post-fusion tail's block and head, from pack start 0): (name,
+    plan, layer, kk, bias, real cin, real cout, library conv: (input NCHW
+    shape at batch 1, weight OIHW shape, padding)); the real widths of the
+    unpacked (f=1) layers, None for the packed ones; the entries' (name,
+    plan, real channels)."""
     from neuroquant_tpu_torch.models.layers import collect_tail_params
 
-    t = model.pack_start
-    pre = model.blocks[t - 1]
-    strides = [int(s) for s in cfg["dec_strides"]]
-    th = cfg["crop_h"] // int(np.prod(strides[t:]))      # 160 x 320
-    tw = cfg["crop_w"] // int(np.prod(strides[t:]))
-    ph, pw = th // pre.stride, tw // pre.stride            # 40 x 80
-    pkern, pbias = pre.conv_params()
-    k, pcin, pcout = pkern.shape[0], pkern.shape[2], pkern.shape[3]
-    pplan = tf._prefix_plan(ph, pw, k, pcin, pcout)
-    blocks, head = collect_tail_params(model.blocks, model.head_layer, t)
+    convs, entries, pplan = [], [], None
+    if hasattr(model, "tail_packed"):            # PNeRV
+        t, blocks_m, head_m = (model.n_fused, model.dec_layers,
+                               model.dec_head_layers)
+        r = blocks_m[t].stride
+        th, tw = cfg["crop_h"] // r, cfg["crop_w"] // r  # 320 x 640
+    else:
+        t, blocks_m, head_m = model.pack_start, model.blocks, model.head_layer
+        pre = model.blocks[t - 1]
+        strides = [int(s) for s in cfg["dec_strides"]]
+        th = cfg["crop_h"] // int(np.prod(strides[t:]))      # 160 x 320
+        tw = cfg["crop_w"] // int(np.prod(strides[t:]))
+        ph, pw = th // pre.stride, tw // pre.stride            # 40 x 80
+        pkern, pbias = pre.conv_params()
+        k, pcin, pcout = pkern.shape[0], pkern.shape[2], pkern.shape[3]
+        pplan = tf._prefix_plan(ph, pw, k, pcin, pcout)
+        with torch.no_grad():
+            wrel, brel = tf._relabel(pkern, pbias, pre.stride)
+            pl0 = pplan.layers[0]
+            pkk = tf._pad_kk(wrel, pl0.cin, pl0.cout).contiguous()
+            pbm = torch.nn.functional.pad(brel, (0, pl0.cout - brel.shape[0]))
+            pbm = pbm.reshape(pl0.cout, 1)
+        convs.append(("prefix", pplan, pl0, pkk, pbm, pcin, pcout,
+                      ((1, pcin, ph, pw), (pcout, pcin, k, k), (k - 1) // 2)))
+        entries.append(("prefix entry", pplan, pcin))
+    blocks, head = collect_tail_params(blocks_m, head_m, t)
     with torch.no_grad():
         plan, kks, bms, f, ch = tf.plan_and_pack(th, tw, blocks, head)
-        wrel, brel = tf._relabel(pkern, pbias, pre.stride)
-        pl0 = pplan.layers[0]
-        pkk = tf._pad_kk(wrel, pl0.cin, pl0.cout).contiguous()
-        pbm = torch.nn.functional.pad(brel, (0, pl0.cout - brel.shape[0]))
-        pbm = pbm.reshape(pl0.cout, 1)
-    convs = [("prefix", pplan, pl0, pkk, pbm, pcin, pcout,
-              ((1, pcin, ph, pw), (pcout, pcin, k, k), (k - 1) // 2))]
     gh, gw = th, tw
     for j, (w, _, r) in enumerate(blocks):
         kj, cin, cout = w.shape[0], w.shape[2], w.shape[3]
@@ -348,9 +500,8 @@ def _conv_layers(torch, tf, cfg, model):
     convs.append(("head", plan, plan.layers[-1], kks[-1], bms[-1], None,
                   None, ((1, hcin, gh, gw), (3, hcin, hk, hk),
                          (hk - 1) // 2)))
-    entries = (("prefix entry", pplan, pcin),
-               ("tail entry", plan, blocks[0][0].shape[2]))
-    return convs, pplan, plan, f, ch, entries
+    entries.append(("tail entry", plan, blocks[0][0].shape[2]))
+    return convs, pplan, plan, f, ch, tuple(entries)
 
 
 def _cf_input(torch, tf, p, cin, gen, batch=1):
@@ -481,7 +632,7 @@ def _kernel_phase(torch, tf, cfg, model, width_tiled=True):
             records["unpack_frames"]["width_tiled"] = rec
             print(f"  unpack_frames width-tiled plan {rec['shape']}: "
                   f"{_layout_line(rec)} (library: pixel_shuffle)")
-        ob = cfg["out_bias"]
+        ob = _out_bias(cfg)
         zl = torch.randn((1, ch, plan.h, plan.w), generator=gen, device=dev)
         rec = _layout_record(
             f"{tuple(z.shape)}->{tuple(out.shape)} out_bias={ob}",
@@ -497,23 +648,29 @@ def _kernel_phase(torch, tf, cfg, model, width_tiled=True):
 
 def _decode_phase(torch, tf, cfg, sd, model, arch="hnerv"):
     """4 decodes of batch 1, kernel path against the plain unpacked path;
-    launches per decode; latency; a profiler window. HNeRV decodes seeded
-    random embeddings, NeRV the encodings of frames 0-3."""
+    launches per decode; latency; a profiler window. HNeRV and PNeRV decode
+    seeded random embeddings, NeRV the encodings of frames 0-3. PNeRV1 with
+    bf16 fusion stages also decodes with them in fp32: the gap and the
+    time."""
     from neuroquant_tpu_torch.models import build_model
     from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
 
     dev = torch.device("cuda")
     plain = build_model(arch, dict(cfg, packed_tail="off"), device=dev)
     plain.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
-    assert plain.pack_start is None and model.pack_start == 3
+    if _is_pnerv(arch):
+        assert not plain.tail_packed and model.tail_packed
+    else:
+        assert plain.pack_start is None and model.pack_start == 3
     if arch == "nerv":
         with torch.no_grad():
             embeds = model.encode(torch.arange(4, device=dev) / N_FRAMES)
     else:
         eh, ew = model.cfg.embed_hw                      # 2 x 4
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-        embeds = torch.randn((4, eh, ew, cfg["enc_channel"][-1]),
-                             generator=gen, device=dev)
+        c = (cfg["emd_channel"] if _is_pnerv(arch)
+             else cfg["enc_channel"][-1])
+        embeds = torch.randn((4, eh, ew, c), generator=gen, device=dev)
     with torch.no_grad():
         tf.reset_launch_counts()
         outs = [model.decode(embeds[i:i + 1]) for i in range(4)]
@@ -528,14 +685,26 @@ def _decode_phase(torch, tf, cfg, sd, model, arch="hnerv"):
         print(f"  4 decodes: kernel path vs plain unpacked path max_abs_err "
               f"{err:.3e} (tol {DECODE_TOL:.0e}); launches {counts}")
         assert err <= DECODE_TOL, err
-        assert counts == {"tail_conv_cf": 16, "tail_conv_dw_cf": 0,
-                          "pack_cf": 8, "unpack_cf": 0,
-                          "unpack_frames": 4, "fq_uaq": 0,
-                          "fq_ada": 0, "fq_uaq_bwd": 0,
-                          "fq_ada_bwd": 0}, counts
+        assert counts == {k: 4 * v for k, v in _per_decode(arch).items()
+                          }, counts
         e1 = embeds[:1]
         k_ms = _time_ms(lambda: model.decode(e1), iters=20)
         p_ms = _time_ms(lambda: plain.decode(e1), iters=20)
+        fp32 = None
+        if _is_pnerv(arch) and cfg.get("bsm_dtype") == "bfloat16" \
+                and getattr(model, "shortcuts", False):
+            m32 = build_model(arch, dict(cfg, bsm_dtype="float32"),
+                              device=dev)
+            m32.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
+            gap = max(float((m32.decode(embeds[i:i + 1]) - o).abs().max())
+                      for i, o in enumerate(outs))
+            fp32 = dict(decode_ms=_time_ms(lambda: m32.decode(e1), iters=20),
+                        max_abs_gap_to_bf16=gap)
+            print(f"  bsm_dtype float32 against the config's bfloat16: "
+                  f"max|frame difference| {gap:.3e} over the 4 decodes; "
+                  f"decode {fp32['decode_ms']:.3f} ms (bfloat16 "
+                  f"{k_ms:.3f} ms)")
+            del m32
         # the card's busy time per decode and what it spends by kernel; the
         # idle share against the window's wall time (the profiler's own host
         # cost included) and against the decode's time without it
@@ -550,7 +719,7 @@ def _decode_phase(torch, tf, cfg, sd, model, arch="hnerv"):
               f"window, {100 * prof['idle_share_of_decode_ms']:.1f}% of the "
               f"{k_ms:.3f} ms decode")
     return dict(decode_ms=k_ms, plain_decode_ms=p_ms, max_abs_err=err,
-                launches=counts, profile=prof)
+                launches=counts, profile=prof, fp32_fusion=fp32)
 
 
 def _backward_kernel_phase(torch, tf, cfg, model, batch=CALIB_BATCH):
@@ -715,9 +884,9 @@ def _parted_decisions(torch, params, spec, state):
         return fl, _clip_mask(xz, qmax), _clip_mask(hp, 1.0)
 
     parted = {}
-    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
-                                spec.n_bits):
-        w, b = _get(params, path)
+    for name, pre, bits in zip(spec.layer_names, spec.layer_keys,
+                               spec.n_bits):
+        w, b = _get(params, pre)
         for leaf, x in (("w", dom(w)), ("b", b)):
             args = (state[name], leaf, 2.0 ** bits - 1)
             d32 = decisions(x, *args)
@@ -729,7 +898,8 @@ def _parted_decisions(torch, params, spec, state):
     return parted
 
 
-def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
+def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv",
+                    grad_tol=GRAD_TOL, fq_grad_tol=FQ_GRAD_TOL, timing=True):
     """One phase-2 calibration step of `arch` at Bunny-3M, batch 2: the
     kernel path (``make_loss``: decode_cf, the packed loss) against the
     plain unpacked path (packed_tail off, the NHWC loss, cuDNN, TF32 off)
@@ -746,7 +916,11 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
     tail, with one fq_ada and one fq_ada_bwd launch more; the step's time
     split into forward, backward and optimizer on both impls, and a
     profiler window of each: the kernel time by name and the device's
-    busy share."""
+    busy share. `grad_tol`: the gradients' tolerance against the plain
+    path; `fq_grad_tol` that of fq_impl pallas against jnp (both BF16_TOL
+    with bf16 fusion stages); with `timing` False the checks
+    alone, without the float64 fake-quant reading, the times and the
+    profiles."""
     from torch.func import functional_call
 
     from neuroquant_tpu_torch.data import VideoDataSet
@@ -756,8 +930,7 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
         adaround_upgrade, init_quant_state, make_spec, quantize_params)
     from neuroquant_tpu_torch.quantization.calibrate import (
         _Decoder, make_loss)
-    from neuroquant_tpu_torch.utils.convert import (
-        layer_prefix, state_dict_from_numpy)
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
 
     dev = torch.device("cuda")
     kern = build_model(arch, cfg, device=dev)
@@ -768,10 +941,11 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
         m.eval()
     plain64.to(torch.float64)
     params = {k: v.detach().clone() for k, v in kern.state_dict().items()}
+    bits = _precision(arch, cfg)
     spec = make_spec(arch, cfg, channel_wise=True, scale_method="max",
-                     hadamard=True).with_bits(PRECISION)
+                     hadamard=True).with_bits(bits)
     spec_fq = make_spec(arch, cfg, channel_wise=True, scale_method="max",
-                        hadamard=True, fq_impl="pallas").with_bits(PRECISION)
+                        hadamard=True, fq_impl="pallas").with_bits(bits)
     state = adaround_upgrade(params, spec, init_quant_state(params, spec))
     data = VideoDataSet(cfg, frames_dir, device=dev)
     frames = data.frames[:CALIB_BATCH]
@@ -782,7 +956,7 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
     pack = {"gt": tf.pack_targets(frames, plan, f),
             "mask": tf.border_mask(plan, ch=ch, device=dev),
             "denom": cfg["crop_h"] * cfg["crop_w"]}
-    keys = [f"{layer_prefix(path)}.{leaf}" for path in spec.layer_paths
+    keys = [f"{pre}.{leaf}" for pre in spec.layer_keys
             for leaf in ("weight", "bias")]
 
     def fresh():
@@ -839,14 +1013,39 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
           f"{rel_64:.2e}; tol {LOSS_TOL:.0e}); gradients, worst leaf "
           f"max|diff| / max|grad|: vs fp32 {kp:.2e}, vs float64 {k64:.2e}; "
           f"the fp32 plain path's own vs float64 {p64:.2e} (tol "
-          f"{GRAD_TOL:.0e}); launches {counts}")
-    assert counts == PER_STEP, counts
+          f"{grad_tol:.1e}); launches {counts}")
+    assert counts == _per_step(arch), counts
     assert rel_p <= LOSS_TOL and rel_64 <= LOSS_TOL, (loss_k, loss_p,
                                                       loss_64)
-    assert k64 <= GRAD_TOL, k64
+    assert k64 <= grad_tol, k64
     # against the fp32 plain path too, unless that path is the one off
-    assert kp <= GRAD_TOL or p64 > GRAD_TOL, (kp, p64)
+    assert kp <= grad_tol or p64 > grad_tol, (kp, p64)
     del grads_p
+
+    # the same step with fq_impl='pallas': the same fake-quantized weights
+    # bit for bit, so the gradients part only by the cuDNN bf16 stages'
+    # own run-to-run rounding where there are such stages
+    tf.reset_launch_counts()
+    loss_f, grads_f = step(kern, pack, spec_fq)
+    counts_f = dict(tf.KERNEL_LAUNCHES)
+    rel_f = abs(loss_f - loss_k) / abs(loss_k)
+    worst_f = worst(grads_f, grads_k)
+    print(f"  the same step, fq_impl pallas vs jnp on the kernel tail: loss "
+          f"{loss_f:.7f} vs {loss_k:.7f} (rel {rel_f:.2e}, tol "
+          f"{FQ_LOSS_TOL:.0e}); gradients: worst leaf max|diff| / max|grad| "
+          f"{worst_f:.2e} (tol {fq_grad_tol:.1e}); launches {counts_f}")
+    assert counts_f == _fq_phases(arch, cfg)[1], counts_f
+    assert rel_f <= FQ_LOSS_TOL, (loss_f, loss_k)
+    assert worst_f <= fq_grad_tol, worst_f
+    out = dict(loss=loss_k, plain_loss=loss_p, float64_loss=loss_64,
+               loss_rel_err=rel_p, loss_rel_err_float64=rel_64,
+               grad_rel_err=kp, grad_rel_err_float64=k64,
+               plain_grad_rel_err_float64=p64, grad_tol=grad_tol,
+               launches=counts, peak_mib=peak_mb, held_before_mib=held_mb,
+               fq_pallas=dict(loss_rel_err=rel_f, grad_rel_err=worst_f,
+                              launches=counts_f))
+    if not timing:
+        return out
 
     # why the reference quantizes in fp32: the codes whose decisions a
     # float64 fake-quant changes, and the gradient gap at their alphas and
@@ -892,19 +1091,6 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
           f"largest gap at {q64['worst_at']}")
     del grads_64, grads_q64, plain64
 
-    tf.reset_launch_counts()
-    loss_f, grads_f = step(kern, pack, spec_fq)
-    counts_f = dict(tf.KERNEL_LAUNCHES)
-    rel_f = abs(loss_f - loss_k) / abs(loss_k)
-    worst_f = worst(grads_f, grads_k)
-    print(f"  the same step, fq_impl pallas vs jnp on the kernel tail: loss "
-          f"{loss_f:.7f} vs {loss_k:.7f} (rel {rel_f:.2e}, tol "
-          f"{FQ_LOSS_TOL:.0e}); gradients: worst leaf max|diff| / max|grad| "
-          f"{worst_f:.2e} (tol {FQ_GRAD_TOL:.0e}); launches {counts_f}")
-    assert counts_f == FQ_PHASE2, counts_f
-    assert rel_f <= FQ_LOSS_TOL, (loss_f, loss_k)
-    assert worst_f <= FQ_GRAD_TOL, worst_f
-
     def timed(spec):
         """(one step as a callable, its mean forward, backward and optimizer
         ms over 10 steps): forward, backward, Adam over the alphas."""
@@ -947,16 +1133,10 @@ def _gradient_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
     prof = _profile_steps(torch, one)
     print("  the same window, fq_impl pallas:")
     prof_f = _profile_steps(torch, runs[1][0])
-    return dict(loss=loss_k, plain_loss=loss_p, float64_loss=loss_64,
-                loss_rel_err=rel_p, loss_rel_err_float64=rel_64,
-                grad_rel_err=kp, grad_rel_err_float64=k64,
-                plain_grad_rel_err_float64=p64, float64_fake_quant=q64,
-                launches=counts, peak_mib=peak_mb,
-                held_before_mib=held_mb, forward_ms=fwd,
+    return dict(out, float64_fake_quant=q64, forward_ms=fwd,
                 backward_ms=bwd, optimizer_ms=upd, profile=prof,
                 fq_pallas=dict(
-                    loss_rel_err=rel_f, grad_rel_err=worst_f,
-                    launches=counts_f,
+                    out["fq_pallas"],
                     step_ms_jnp=[sum(runs[i][1:]) for i in (0, 3)],
                     step_ms_pallas=[sum(runs[i][1:]) for i in (1, 2)],
                     forward_ms=runs[1][1], backward_ms=runs[1][2],
@@ -990,8 +1170,11 @@ def _profile_steps(torch, one, n=5, what="step", host_rows=0):
         print("  profiler: no device time in the trace (not measured)")
         return None
     rows.sort(reverse=True)
+    port = sum(r[0] for r in rows if any(k in r[2] for k in PORT_KERNELS))
     print(f"  profiler over {n} {what}s: device busy {busy:.1f} ms of "
-          f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f}%); per {what}:")
+          f"{wall_ms:.1f} ms wall ({100 * busy / wall_ms:.1f}%); the port's "
+          f"kernels {100 * port * n / busy:.1f}% of the busy time, cuDNN and "
+          f"the rest {100 * (1 - port * n / busy):.1f}%; per {what}:")
     for ms, cnt, key in rows[:14]:
         print(f"    {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
     host = sorted(((e.self_cpu_time_total / 1e3 / n, e.count // n, e.key)
@@ -1005,6 +1188,7 @@ def _profile_steps(torch, one, n=5, what="step", host_rows=0):
             print(f"    {ms:8.4f} ms  x{cnt:<4d} {key[:90]}")
     return {f"wall_ms_per_{what}": wall_ms / n,
             f"busy_ms_per_{what}": busy / n, "busy_share": busy / wall_ms,
+            "port_kernel_share_of_busy": port * n / busy,
             "idle_share": 1 - busy / wall_ms,
             "top": [dict(ms=r[0], launches=r[1], name=r[2][:120])
                     for r in rows[:14]],
@@ -1047,7 +1231,7 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
             "--config", os.path.join(REPO, _CONFIGS[arch]),
             "--arch", arch, "--data_path", frames_dir, "--vid", "Bunny",
             "--outf", f"{arch}_{fq_impl}", "--ckpt", pth, "--precision",
-            *map(str, PRECISION), "--hadamard", "--channel_wise",
+            *map(str, _precision(arch, cfg)), "--hadamard", "--channel_wise",
             "--batch_size", str(CALIB_BATCH), "--iters_w", str(CALIB_ITERS),
             "--lr", "0.003", "--warmup", "0.2", "--fq_impl", fq_impl])
         torch.cuda.synchronize()
@@ -1067,9 +1251,10 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
     out_path = os.path.join(work, out_path)
     steps = [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
     assert len(snaps) == CALIB_ITERS, len(snaps)
+    per_step = _per_step(arch)
     if fq_impl == "pallas":
         # phase 1's steps quantize on fq_uaq, phase 2's on fq_ada
-        phase1, phase2 = FQ_PHASE1, FQ_PHASE2
+        phase1, phase2 = _fq_phases(arch, cfg)
         n1 = sum(d == phase1 for d in steps)
         assert 0 < n1 < len(steps), (n1, steps[:2])
         # the last diff of phase 1 spans the hand-off between the phases
@@ -1079,9 +1264,9 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
             d for d in steps[n1:] if d != phase2][:3]
         per_step = f"phase 1 ({n1} steps) {phase1}, phase 2 {phase2}"
     else:
-        assert all(d == PER_STEP for d in steps), [d for d in steps
-                                                   if d != PER_STEP][:3]
-        per_step = str(PER_STEP)
+        assert all(d == per_step for d in steps), [d for d in steps
+                                                   if d != per_step][:3]
+        per_step = str(per_step)
     text = "\n".join(cap.lines)
     psnrs = [float(v) for v in re.findall(r"best_pred_seen_psnr: ([\d.]+)",
                                           text)]
@@ -1107,7 +1292,7 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
                 artifact=out_path, fq_impl=fq_impl)
 
 
-def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
+def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv", full=True):
     """The grouped fake-quant kernels at the seven Bunny-3M weight shapes,
     with the seeded weights and the scales of ``init_quant_state`` (UAQ)
     and ``adaround_upgrade`` (AdaRound soft and hard, and mixed: AdaRound
@@ -1119,7 +1304,10 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
     pass timed against its bound as the calibration's phases call it
     (phase 1: UAQ, ddelta; phase 2: soft AdaRound, dalpha); then the whole
     ``quantize_params`` call on both fq_impls, forward alone and forward
-    plus backward, with its launches. Returns per-kernel records."""
+    plus backward, with its launches. `full` False leaves out the runs
+    without the transform and with per-layer scales (the same kernel code
+    at other shapes) and the whole call's times. Returns per-kernel
+    records."""
     from neuroquant_tpu_torch.ops import fused_fakequant as ff
     from neuroquant_tpu_torch.ops.hadamard import next_power_of_two
     from neuroquant_tpu_torch.quantization import (
@@ -1129,14 +1317,16 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
 
     params = state_dict_from_numpy(sd, "cuda")
     kw = dict(channel_wise=True, scale_method="max", hadamard=True)
-    spec = make_spec(arch, cfg, **kw).with_bits(PRECISION)
+    spec = make_spec(arch, cfg, **kw).with_bits(_precision(arch, cfg))
     spec_fq = make_spec(arch, cfg, fq_impl="pallas", **kw).with_bits(
-        PRECISION)
+        _precision(arch, cfg))
+    # launches per grouped call: one per FQ_GROUP layers
+    nl, nw = _fq_launches(arch, cfg), spec.num_layers
     uaq = init_quant_state(params, spec)
     ada = adaround_upgrade(params, spec, uaq)
     mixed = adaround_upgrade(params, spec, uaq,
                              only=tuple(spec.layer_names[::2]))
-    weights = [_get(params, p)[0] for p in spec.layer_paths]
+    weights = [_get(params, pre)[0] for pre in spec.layer_keys]
     records = {k: {"per_launch": [], "max_abs_err": 0.0}
                for k in ("fq_uaq", "fq_ada", "fq_uaq_bwd", "fq_ada_bwd")}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -1161,7 +1351,7 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
             outs = ff.fake_quant_group(layers, hadamard)
         torch.cuda.synchronize()
         launched = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
-        assert launched == {kname(layers): 1}, (label, launched)
+        assert launched == {kname(layers): nl}, (label, launched)
         top, flips, tol = 0.0, 0, 0.0
         for (w, d, z, a, bits, soft), got in zip(layers, outs):
             want = ff.fake_quant_ref(w, d, z, a, bits, hadamard, soft)
@@ -1171,7 +1361,7 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
             flips += int((err > 0.5 * d / math.sqrt(c)).sum())
             top = max(top, float(err.max()))
             tol = max(tol, FQ_TOL * max(1.0, float(want.abs().max())))
-        print(f"  forward, {label}: one {kname(layers)} launch for "
+        print(f"  forward, {label}: {nl} {kname(layers)} launch(es) for "
               f"{len(layers)} layers; max_abs_err {top:.3e} (tol {tol:.1e}), "
               f"flipped rounding decisions {flips} (must be 0)")
         assert top <= tol and flips == 0, (label, top, tol, flips)
@@ -1196,7 +1386,7 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
         torch.cuda.synchronize()
         launched = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
         name = kname(layers)
-        assert launched == {name: 1, name + "_bwd": 1}, (label, launched)
+        assert launched == {name: nl, name + "_bwd": nl}, (label, launched)
         got = iter(got)
         worst = {"closed form": 0.0, "autograd": 0.0}
         top, unequal = 0.0, 0
@@ -1231,7 +1421,7 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
                         top = max(top, float(err.max()))
                         if i in (0, 3):
                             unequal += int((g != r).sum())
-        print(f"  backward, {label}: one {name}_bwd launch; against the "
+        print(f"  backward, {label}: {nl} {name}_bwd launch(es); against the "
               f"closed form {worst['closed form']:.2e}, autograd "
               f"{worst['autograd']:.2e} (of the largest dw / dalpha, tol "
               f"{FQ_TOL:.0e}; of the channel's term magnitudes for ddelta / "
@@ -1240,29 +1430,29 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
         records[name + "_bwd"]["max_abs_err"] = max(
             records[name + "_bwd"]["max_abs_err"], top)
 
-    # the seven layers in one group: UAQ, soft, hard, mixed
+    # the model's layers in one group: UAQ, soft, hard, mixed
     for label, state, soft in (("uaq", uaq, True), ("adaround soft", ada,
                                                     True),
                                ("adaround hard", ada, False),
                                ("mixed rounding", mixed, True)):
         layers = group(state, soft)
-        check_forward(f"7 Bunny-3M layers, {label}", layers, True)
+        check_forward(f"{nw} Bunny-3M layers, {label}", layers, True)
         if label != "adaround hard":
-            check_backward(f"7 Bunny-3M layers, {label}", layers, True)
+            check_backward(f"{nw} Bunny-3M layers, {label}", layers, True)
     # without the transform (C = C_in), and with per-layer (0-d) scales
-    for hadamard, cw, label in ((False, True, "no transform"),
-                                (True, False, "per-layer scales")):
+    sweeps = ((False, True, "no transform"), (True, False, "per-layer scales"))
+    for hadamard, cw, label in sweeps if full else ():
         sp = make_spec(arch, cfg, channel_wise=cw, scale_method="max",
-                       hadamard=hadamard).with_bits(PRECISION)
+                       hadamard=hadamard).with_bits(_precision(arch, cfg))
         su = init_quant_state(params, sp)
         sa = adaround_upgrade(params, sp, su)
         assert su[sp.layer_names[4]]["w_delta"].dim() == (4 if cw else 0)
         for mode, state, soft in (("uaq", su, True), ("soft", sa, True),
                                   ("hard", sa, False)):
             layers = group(state, soft, bits=sp.n_bits)
-            check_forward(f"7 layers, {label}, {mode}", layers, hadamard)
+            check_forward(f"{nw} layers, {label}, {mode}", layers, hadamard)
             if mode != "hard":
-                check_backward(f"7 layers, {label}, {mode}", layers,
+                check_backward(f"{nw} layers, {label}, {mode}", layers,
                                hadamard)
 
     # the passes timed as the calibration's phases call them: the forward
@@ -1299,9 +1489,9 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
         tf.reset_launch_counts()
         run()
         torch.cuda.synchronize()
-        assert tf.KERNEL_LAUNCHES[name] == 1, dict(tf.KERNEL_LAUNCHES)
+        assert tf.KERNEL_LAUNCHES[name] == nl, dict(tf.KERNEL_LAUNCHES)
         bound_ms, by = _bound(nbytes, 0)
-        rec = dict(shape="the seven Bunny-3M layers, one launch",
+        rec = dict(shape=f"the {nw} {arch} Bunny-3M layers, {nl} launch(es)",
                    ms=_time_ms(run), plain_ms=_time_ms(plain),
                    device_ms=_device_ms(run),
                    plain_device_ms=_device_ms(plain), library_ms=None,
@@ -1309,14 +1499,15 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
         records[name]["per_launch"].append(rec)
         share = ("not measured" if rec["device_ms"] is None
                  else f"{100 * bound_ms / rec['device_ms']:.0f}% of the bound")
-        print(f"  {name}, 7 layers: {rec['ms']:.4f} ms back to back, "
+        print(f"  {name}, {nw} layers: {rec['ms']:.4f} ms back to back, "
               f"{rec['device_ms']} ms on the device ({share}); bound "
               f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB) by {by}; plain "
               f"{rec['plain_ms']:.4f} ms, {rec['plain_device_ms']} on the "
               f"device; no single PyTorch call computes the chain")
 
-    # the whole quantize_params call, 7 layers: what a calibration step pays
-    keys = [k for k in params if k.startswith(("decoder.", "head_layer."))]
+    # the whole quantize_params call: what a calibration step pays
+    keys = [f"{pre}.{leaf}" for pre in spec.layer_keys
+            for leaf in ("weight", "bias")]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cot = {k: torch.randn(params[k].shape, generator=gen, device="cuda")
            for k in keys}
@@ -1343,30 +1534,29 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv"):
         torch.cuda.synchronize()
         launched = {k: v for k, v in tf.KERNEL_LAUNCHES.items() if v}
         name = "fq_uaq" if mode == "uaq" else "fq_ada"
-        assert launched == {name: 1, name + "_bwd": 1}, launched
+        assert launched == {name: nl, name + "_bwd": nl}, launched
         worst = max(float((a - b).abs().max())
                     / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(g_f, g_j))
         assert worst <= FQ_GRAD_TOL, (mode, worst)
         # in turns: jnp, pallas, pallas, jnp
         t = {}
-        for label, fn in (("forward", forward), ("forward_backward", both)):
+        for label, fn in (("forward", forward), ("forward_backward", both)
+                          ) if full else ():
             ms = [_time_ms(lambda: fn(sp), iters=10)
                   for sp in (spec, spec_fq, spec_fq, spec)]
             t[label] = dict(jnp_ms=[ms[0], ms[3]], pallas_ms=[ms[1], ms[2]])
         calls[mode] = dict(t, grad_rel_err=worst, launches=launched)
-        print(f"  quantize_params mode={mode}, 7 layers: forward jnp "
-              f"{t['forward']['jnp_ms']} ms, pallas "
-              f"{t['forward']['pallas_ms']} ms; forward + backward jnp "
-              f"{t['forward_backward']['jnp_ms']} ms, pallas "
-              f"{t['forward_backward']['pallas_ms']} ms; launches "
-              f"{launched}; gradients pallas vs jnp {worst:.2e} (tol "
-              f"{FQ_GRAD_TOL:.0e})")
+        times = "; ".join(f"{label} jnp {v['jnp_ms']} ms, pallas "
+                          f"{v['pallas_ms']} ms" for label, v in t.items())
+        print(f"  quantize_params mode={mode}, {nw} layers: "
+              f"{times or 'not timed'}; launches {launched}; gradients "
+              f"pallas vs jnp {worst:.2e} (tol {FQ_GRAD_TOL:.0e})")
     records["quantize_params"] = calls
     return records
 
 
-def _bitstream_phase(torch, tf, calib, frames_dir, card):
+def _bitstream_phase(torch, tf, calib, frames_dir, card, arch="hnerv"):
     """``compress.main`` on the calibration's artifact, then
     ``eval_quantized.main --from_bitstream`` on the stream."""
     from neuroquant_tpu_torch.coding import codec
@@ -1408,14 +1598,13 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
     assert math.isfinite(psnr), psnr
     assert abs(psnr - calib["eval_psnr"]) <= STREAM_PSNR_TOL, (
         psnr, calib["eval_psnr"])
-    # every decode call is 4 conv, 2 pack_cf and 1 unpack_frames launches;
-    # a stream decodes without any fake-quant
+    # every decode call is one decode's launches (4 conv, 2 pack_cf and 1
+    # unpack_frames; PNeRV 2, 1 and 1); a stream decodes without any
+    # fake-quant
     n = launches["unpack_frames"]
     assert n > 0, launches
-    assert launches == {"tail_conv_cf": 4 * n, "tail_conv_dw_cf": 0,
-                        "pack_cf": 2 * n, "unpack_cf": 0, "unpack_frames": n,
-                        "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
-                        "fq_ada_bwd": 0}, launches
+    assert launches == {k: n * v for k, v in _per_decode(arch).items()
+                        }, launches
     print(f"  stream {len(stream)} bytes for {n_sym} symbols, bpp "
           f"{report['bpp']} (embeddings {report['embed_bits']} bits); native "
           f"coder encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s wall (host)")
@@ -1426,7 +1615,8 @@ def _bitstream_phase(torch, tf, calib, frames_dir, card):
                 decode_s=t2 - t1, psnr=psnr, launches=launches)
 
 
-def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
+def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv",
+                  hv_cfg=None, score_tol=STAGE2_TOL):
     """Stage 2 at Bunny-3M, batch 2: one batch's Hv on the kernels
     (``fused_tail: pallas_hvp``, the forward-mode tail) against the plain
     unpacked path in fp32 and in float64, with its launches; then
@@ -1434,8 +1624,12 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
     seeded weights on the 8 seeded frames, toy candidates, once per route
     (omega on --hvp_impl xla and pallas, fisher_diag on the production
     tail): the same winner, per-layer omega scores of the two HVP routes
-    within STAGE2_TOL of the layer's sum of |Hv * v|, each route's seconds
-    per candidate and per batch, its launches per batch, its peak memory."""
+    within `score_tol` of the layer's sum of |Hv * v|, each route's seconds
+    per candidate and per batch, its launches per batch, its peak memory.
+    `hv_cfg`: the config of the one-batch Hv check, if not `cfg` (PNeRV1's
+    with fp32 fusion stages). Against float64 the Hv is held leaf by leaf
+    to HV64_TOL, a PNeRV layer on cuDNN on both routes as
+    :func:`_hold_to_float64` says."""
     from neuroquant_tpu_torch.data import VideoDataSet
     from neuroquant_tpu_torch.methods import bit_assign
     from neuroquant_tpu_torch.models import build_model
@@ -1448,8 +1642,14 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
     params = state_dict_from_numpy(sd, dev)
     data = VideoDataSet(cfg, frames_dir, device=dev)
     frames = data.frames
-    cands = (bit_assign.NERV_CANDIDATES if arch == "nerv"
-             else bit_assign.HNERV_CANDIDATES)
+    if _is_pnerv(arch):
+        # PNeRV has no default candidates: two toy allocations
+        bits = _precision(arch, cfg)
+        cands = {"candidate1": bits, "candidate2": [4] * len(bits)}
+    else:
+        cands = (bit_assign.NERV_CANDIDATES if arch == "nerv"
+                 else bit_assign.HNERV_CANDIDATES)
+    cand_arg = ";".join(",".join(map(str, c)) for c in cands.values())
     spec = make_spec(arch, cfg, channel_wise=True, scale_method="max"
                      ).with_bits(cands["candidate2"])
     vec = get_perturbation(params, spec, init_quant_state(params, spec))
@@ -1458,7 +1658,8 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
     for route, ft, dtype in (("pallas_hvp", "pallas_hvp", torch.float32),
                              ("off", "off", torch.float32),
                              ("off fp64", "off", torch.float64)):
-        model = build_model(arch, dict(cfg, fused_tail=ft), device=dev)
+        model = build_model(arch, dict(hv_cfg or cfg, fused_tail=ft),
+                            device=dev)
         model.load_state_dict(params, strict=True)
         model.to(dtype)
         torch.cuda.synchronize()
@@ -1489,7 +1690,10 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
           f"{' '.join(f'{e:.2e}' for e in plain_err64)}; "
           f"{one_batch_s:.3f} s; launches {per_batch}")
     assert hv_err <= GRAD_TOL, hv_err
-    assert max(leaf_err64) <= HV64_TOL, leaf_err64
+    _hold_to_float64(
+        {f"{pre}.weight": e for pre, e in zip(
+            spec.layer_keys, zip(leaf_err64, plain_err64, leaf_err))},
+        HV64_TOL, GRAD_TOL, lambda n: _on_cudnn(arch, cfg, n))
     for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf"):
         assert per_batch[k] > 0, per_batch
     assert per_batch["unpack_frames"] == 0, per_batch
@@ -1535,6 +1739,11 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
               ("omega pallas", ["--mode", "omega", "--hvp_impl", "pallas"]),
               ("fisher_diag", ["--mode", "fisher_diag", "--hvp_impl",
                                "pallas"]))
+    if _is_pnerv(arch):
+        # the JAX package needed --remat for PNeRV's batch-2 HVP: the peak
+        # both ways
+        routes += (("omega pallas remat", ["--mode", "omega", "--hvp_impl",
+                                           "pallas", "--remat"]),)
     runs = {}
     cwd = os.getcwd()
     try:
@@ -1553,7 +1762,7 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
                 "--arch", arch, "--data_path", frames_dir, "--vid",
                 "Bunny", "--outf", f"stage2_{arch}_{i}", "--ckpt", pth,
                 "--batch_size", str(CALIB_BATCH), "--channel_wise",
-                "--init", "max", *extra])
+                "--init", "max", "--candidates", cand_arg, *extra])
             torch.cuda.synchronize()
             runs[route] = dict(best=list(best[:2]), score=best[2],
                                wall_s=time.time() - t0,
@@ -1586,14 +1795,28 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv"):
         for sa, sb, mag in zip(a["per_layer"], b["per_layer"], call["mags"]):
             worst = max(worst, abs(sa - sb) / max(mag, 1e-30))
     print(f"  per-layer omega scores, pallas vs xla: worst |diff| / sum|Hv*v| "
-          f"{worst:.2e} (tol {STAGE2_TOL:.0e})")
-    assert worst <= STAGE2_TOL, worst
+          f"{worst:.2e} (tol {score_tol:.1e})")
+    assert worst <= score_tol, worst
+    if "omega pallas remat" in runs:
+        rem = runs["omega pallas remat"]
+        same = max(abs(sa - sb) / max(mag, 1e-30)
+                   for a, b, call in zip(rem["candidates"], pal["candidates"],
+                                         pal["calls"])
+                   for sa, sb, mag in zip(a["per_layer"], b["per_layer"],
+                                          call["mags"]))
+        print(f"  --remat: peak {rem['peak_mib']:.1f} MiB against "
+              f"{pal['peak_mib']:.1f} without, "
+              f"{rem['calls'][0]['seconds']:.4f} s a batch against "
+              f"{pal['calls'][0]['seconds']:.4f}; per-layer scores "
+              f"{same:.2e} of sum|Hv*v| apart (tol {score_tol:.1e})")
+        assert same <= score_tol, same
     pb = pal["launches_per_batch"]
     for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf"):
         assert pb[k] > 0, pb
     assert pb["unpack_frames"] == 0, pb
     assert not any(xla["launches_per_batch"].values()), xla
     return dict(hv_one_batch_rel_err=leaf_err, hv_fp64_rel_err=leaf_err64,
+                score_tol=score_tol,
                 plain_fp64_rel_err=plain_err64, one_batch_s=one_batch_s,
                 launches_one_batch=per_batch, omega_rel_err=worst,
                 runs=runs)
@@ -1610,7 +1833,7 @@ def _unpack_frames_backward(torch, tf, cfg, model):
     dev = torch.device("cuda")
     _, _, plan, f, ch, _ = _conv_layers(torch, tf, cfg, model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    ob = cfg["out_bias"]
+    ob = _out_bias(cfg)
     z = torch.randn((1, plan.layers[-1].cout, plan.mp), generator=gen,
                     device=dev).requires_grad_()
     out = tf.unpack_frames(z, plan, f, ch, ob)
@@ -1663,15 +1886,19 @@ def _unpack_frames_backward(torch, tf, cfg, model):
     return dict(forward=fwd, backward=bwd, backward_max_abs_err=err)
 
 
-def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
+def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv",
+                       grad_tol=GRAD_TOL, timing=True):
     """One stage-1 step at Bunny-3M, batch 1: HNeRV's forward (encoder,
     fused prefix and tail on the kernels, unpack_frames), the config's loss
     and the backward, against the plain unpacked path (``fused_tail:
     off``, cuDNN) in fp32 and in float64: the loss within LOSS_TOL and
     every leaf's gradient, encoder included, within GRAD_TOL of its
-    largest (against float64 where cuDNN's fp32 is what misses); the
+    largest against float64 (a PNeRV leaf on cuDNN on both routes as
+    :func:`_hold_to_float64` says), and against the fp32 plain path
+    unless that path is what misses float64; the
     step's launches; its forward / backward / optimizer split over 10
-    steps with Adam; a profiler window; its peak memory."""
+    steps with Adam; a profiler window; its peak memory. `grad_tol` and
+    `timing` as in :func:`_gradient_phase`."""
     from neuroquant_tpu_torch.data import VideoDataSet
     from neuroquant_tpu_torch.metrics import loss_fn
     from neuroquant_tpu_torch.models import build_model
@@ -1708,16 +1935,20 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
     loss_64, g_64 = step(plain64, torch.float64)
     del plain64
 
-    def worst(a, b):
-        errs = {n: float((a[n].double() - b[n].double()).abs().max())
+    def leaf_errs(a, b):
+        return {n: float((a[n].double() - b[n].double()).abs().max())
                 / max(float(b[n].abs().max()), 1e-30) for n in b}
+
+    def worst(errs):
         name = max(errs, key=errs.get)
         return errs[name], name
 
+    e_kp, e_k64, e_p64 = (leaf_errs(g_k, g_p), leaf_errs(g_k, g_64),
+                          leaf_errs(g_p, g_64))
     (kp, kp_leaf), (k64, k64_leaf), (p64, p64_leaf) = (
-        worst(g_k, g_p), worst(g_k, g_64), worst(g_p, g_64))
-    enc = max((worst({n: g_k[n]}, {n: g_64[n]})[0] for n in g_64
-               if n.startswith("encoder.")), default=0.0)
+        worst(e_kp), worst(e_k64), worst(e_p64))
+    enc = max((e for n, e in e_k64.items()
+               if n.startswith(("encoder.", "enc_layers."))), default=0.0)
     rel_p = abs(loss_k - loss_p) / abs(loss_p)
     rel_64 = abs(loss_k - loss_64) / abs(loss_64)
     print(f"  one stage-1 step (batch 1), kernel path vs plain unpacked path: "
@@ -1726,13 +1957,22 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
           f"gradients, worst leaf max|diff| / max|grad|: vs fp32 {kp:.2e} "
           f"({kp_leaf}), vs float64 {k64:.2e} ({k64_leaf}; encoder "
           f"{enc:.2e}); the fp32 plain path's own vs float64 {p64:.2e} "
-          f"({p64_leaf}) (tol {GRAD_TOL:.0e}); launches {counts}")
-    assert counts == PER_STAGE1_STEP, counts
+          f"({p64_leaf}) (tol {grad_tol:.1e}); launches {counts}")
+    assert counts == _per_stage1_step(arch), counts
     assert min(rel_p, rel_64) <= LOSS_TOL, (loss_k, loss_p, loss_64)
-    assert k64 <= GRAD_TOL, (k64, k64_leaf)
+    _hold_to_float64({n: (e_k64[n], e_p64[n], e_kp[n]) for n in e_k64},
+                     grad_tol, grad_tol, lambda n: _on_cudnn(arch, cfg, n))
     # against the fp32 plain path too, unless that path is the one off
-    assert kp <= GRAD_TOL or p64 > GRAD_TOL, (kp, p64)
+    assert kp <= grad_tol or p64 > grad_tol, (kp, p64)
     del g_p, g_64
+    out = dict(loss=loss_k, plain_loss=loss_p, float64_loss=loss_64,
+               loss_rel_err=rel_p, loss_rel_err_float64=rel_64,
+               grad_rel_err=kp, grad_rel_err_float64=k64,
+               encoder_grad_rel_err_float64=enc,
+               plain_grad_rel_err_float64=p64, grad_tol=grad_tol,
+               launches=counts)
+    if not timing:
+        return out
 
     opt = torch.optim.Adam(kern.parameters(), lr=cfg["learning_rate"],
                            eps=1e-8)
@@ -1785,12 +2025,7 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv"):
     print(f"  stage-1 step, 20 back to back as the training loop runs them "
           f"(one synchronize at the end): {steady_ms:.3f} ms a step")
     prof = _profile_steps(torch, loop_step, host_rows=10)
-    return dict(loss=loss_k, plain_loss=loss_p, float64_loss=loss_64,
-                loss_rel_err=rel_p, loss_rel_err_float64=rel_64,
-                grad_rel_err=kp, grad_rel_err_float64=k64,
-                encoder_grad_rel_err_float64=enc,
-                plain_grad_rel_err_float64=p64, launches=counts,
-                forward_ms=fwd, backward_ms=bwd, optimizer_ms=upd,
+    return dict(out, forward_ms=fwd, backward_ms=bwd, optimizer_ms=upd,
                 step_ms=steady_ms, peak_mib=peak_mb, held_mib=held_mb,
                 profile=prof)
 
@@ -1885,6 +2120,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
         logging.getLogger().removeHandler(cap)
         os.chdir(cwd)
     assert len(epochs) == STAGE1_EPOCHS, len(epochs)
+    per_step = _per_stage1_step(arch)
     steps = None
     for e in epochs:
         sn = e["snaps"]
@@ -1892,9 +2128,9 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
         # [forward of step 0, steps 0..n-2 through the forward of the next,
         # backward of the last]
         ends = {k: diffs[0][k] + diffs[-1][k] for k in diffs[0]}
-        assert all(d == PER_STAGE1_STEP for d in diffs[1:-1]), [
-            d for d in diffs[1:-1] if d != PER_STAGE1_STEP][:3]
-        assert ends == PER_STAGE1_STEP, ends
+        assert all(d == per_step for d in diffs[1:-1]), [
+            d for d in diffs[1:-1] if d != per_step][:3]
+        assert ends == per_step, ends
         assert np.isfinite(e["losses"]).all(), e["losses"]
         steps = len(diffs) - 1
     text = "\n".join(cap.lines)
@@ -1908,7 +2144,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
     print(f"  regress.main --arch {arch}: {STAGE1_EPOCHS} epochs x {steps} "
           f"steps at batch {base['batch_size']} "
           f"in {wall:.1f} s wall (evals included); every step's launches "
-          f"{PER_STAGE1_STEP}; losses "
+          f"{per_step}; losses "
           f"{' '.join(f'{x:.5f}' for e in epochs for x in e['losses'])}; "
           f"s/step by epoch (Time/epoch / {steps}; epoch 2 profiled) "
           f"{' / '.join(f'{t / steps:.4f}' for t in epoch_s)}; run "
@@ -1920,7 +2156,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
     assert math.isfinite(again) and abs(again - last) <= STAGE1_PSNR_TOL, (
         again, last)
     return dict(epochs=STAGE1_EPOCHS, steps_per_epoch=steps, wall_s=wall,
-                launches=launches, per_step=PER_STAGE1_STEP,
+                launches=launches, per_step=per_step,
                 s_per_step=[t / steps for t in epoch_s],
                 losses=[float(x) for e in epochs for x in e["losses"]],
                 eval_psnr=[e[0] for e in evals[:-1]], eval_only_psnr=again,
@@ -1948,28 +2184,29 @@ def _nerv_phase(torch, tf, card, frames_dir, work):
     model.eval()
     assert model.pack_start == 3, model.pack_start
     out = {}
-    print("[nerv: kernels at the decode's shapes]")
+    _section("nerv: kernels at the decode's shapes")
     out["kernels"] = _kernel_phase(torch, tf, cfg, model, width_tiled=False)
     for b in (1, CALIB_BATCH):
-        print(f"[nerv: kernels of a training step, batch {b}]")
+        _section(f"nerv: kernels of a training step, batch {b}")
         out[f"kernels_b{b}"] = _backward_kernel_phase(torch, tf, cfg, model,
                                                       batch=b)
-    print("[nerv: decode]")
+    _section("nerv: decode")
     out["decode"] = _decode_phase(torch, tf, cfg, sd, model, arch="nerv")
     del model
-    print("[nerv: calibration step]")
+    _section("nerv: calibration step")
     out["step"] = _gradient_phase(torch, tf, cfg, sd, frames_dir,
-                                  arch="nerv")
-    print("[nerv: stage-1 step]")
+                                  arch="nerv", timing=False)
+    _section("nerv: stage-1 step")
     out["stage1_step"] = _stage1_step_phase(torch, tf, cfg, sd, frames_dir,
                                             arch="nerv")
-    print("[nerv: stage 1, regress]")
+    _section("nerv: stage 1, regress")
     out["stage1"] = _stage1_run_phase(torch, tf, frames_dir, card, work,
                                       arch="nerv")
-    print("[nerv: fake-quant kernels]")
-    out["fq"] = _fq_kernel_phase(torch, tf, cfg, sd, arch="nerv")
+    _section("nerv: fake-quant kernels")
+    out["fq"] = _fq_kernel_phase(torch, tf, cfg, sd, arch="nerv",
+                                 full=False)
     for fq_impl in ("jnp", "pallas"):
-        print(f"[nerv: calibrate, --fq_impl {fq_impl}]")
+        _section(f"nerv: calibrate, --fq_impl {fq_impl}")
         out[f"calibrate_{fq_impl}"] = _calibrate_phase(
             torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
             arch="nerv")
@@ -1979,15 +2216,113 @@ def _nerv_phase(torch, tf, card, frames_dir, work):
     print(f"  PSNR blocks, fq_impl pallas vs jnp: max diff {worst:.3f} dB "
           f"(tol {PSNR_TOL})")
     assert worst <= PSNR_TOL, worst
-    print("[nerv: bitstream]")
+    _section("nerv: bitstream")
     out["bitstream"] = _bitstream_phase(torch, tf, out["calibrate_pallas"],
                                         frames_dir, card)
     assert out["bitstream"]["report"]["embed_bits"] == 0
-    print("[nerv: stage 2, bit_assign]")
+    _section("nerv: stage 2, bit_assign")
     out["stage2"] = _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work,
                                   arch="nerv")
+    _section()
     out["seconds"] = time.time() - t0
     print(f"  phase 13 (NeRV) took {out['seconds']:.1f} s; card {card}")
+    return out
+
+
+def _pnerv_phase(torch, tf, card, frames_dir, work):
+    """Phase 14: PNeRV1 Bunny-3M (configs/PNeRV/Bunny_1280x640_3M.yaml, full
+    width and depth, bf16 fusion stages as the config says, seeded weights,
+    the 8 seeded frames): its tail's kernel shapes, decode (and one decode
+    with fp32 fusion stages), calibration step, stage 1, the fake-quant
+    kernels at its 19 layers (two launches), calibration on both fq_impls,
+    bitstream and stage 2 (with and without --remat); then PNeRV2 at the
+    same width: decode, a calibration step and calibrate_network."""
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    t0 = time.time()
+    cfg = validate_config(get_config(os.path.join(REPO, PNERV_CONFIG)),
+                          "pnerv")
+    cfg["workers"] = 0
+    assert cfg["bsm_dtype"] == "bfloat16", cfg["bsm_dtype"]
+    model = build_model("pnerv", cfg, device="cuda")
+    sd = _seeded_state_dict(model, np.random.RandomState(SEED + 14))
+    model.load_state_dict(state_dict_from_numpy(sd, "cuda"), strict=True)
+    model.eval()
+    assert model.tail_packed and model.cfg.bsm_dtype == "bfloat16"
+    assert _n_layers("pnerv", cfg) == 19 and _fq_launches("pnerv", cfg) == 2
+    out = {}
+    _section("pnerv: kernels at the decode's shapes")
+    out["kernels"] = _kernel_phase(torch, tf, cfg, model, width_tiled=False)
+    for b in (1, CALIB_BATCH):
+        _section(f"pnerv: kernels of a training step, batch {b}")
+        out[f"kernels_b{b}"] = _backward_kernel_phase(torch, tf, cfg, model,
+                                                      batch=b)
+    _section("pnerv: decode")
+    out["decode"] = _decode_phase(torch, tf, cfg, sd, model, arch="pnerv")
+    del model
+    # the checks at fp32's tolerances with the fusion stages in fp32, then
+    # the config's bf16 stages at BF16_TOL, timed
+    cfg32 = dict(cfg, bsm_dtype="float32")
+    _section("pnerv: calibration step, fp32 fusion stages")
+    out["step_fp32_fusion"] = _gradient_phase(
+        torch, tf, cfg32, sd, frames_dir, arch="pnerv", timing=False)
+    _section("pnerv: calibration step")
+    out["step"] = _gradient_phase(torch, tf, cfg, sd, frames_dir,
+                                  arch="pnerv", grad_tol=BF16_TOL,
+                                  fq_grad_tol=BF16_TOL)
+    _section("pnerv: stage-1 step, fp32 fusion stages")
+    out["stage1_step_fp32_fusion"] = _stage1_step_phase(
+        torch, tf, cfg32, sd, frames_dir, arch="pnerv", timing=False)
+    _section("pnerv: stage-1 step")
+    out["stage1_step"] = _stage1_step_phase(torch, tf, cfg, sd, frames_dir,
+                                            arch="pnerv", grad_tol=BF16_TOL)
+    _section("pnerv: stage 1, regress")
+    out["stage1"] = _stage1_run_phase(torch, tf, frames_dir, card, work,
+                                      arch="pnerv")
+    _section("pnerv: fake-quant kernels, 19 layers in 16 + 3")
+    out["fq"] = _fq_kernel_phase(torch, tf, cfg, sd, arch="pnerv",
+                                 full=False)
+    for fq_impl in ("jnp", "pallas"):
+        _section(f"pnerv: calibrate, --fq_impl {fq_impl}")
+        out[f"calibrate_{fq_impl}"] = _calibrate_phase(
+            torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
+            arch="pnerv")
+    worst = max(abs(a - b) for a, b in zip(
+        out["calibrate_pallas"]["psnr_blocks"],
+        out["calibrate_jnp"]["psnr_blocks"]))
+    print(f"  PSNR blocks, fq_impl pallas vs jnp: max diff {worst:.3f} dB "
+          f"(tol {PSNR_TOL})")
+    assert worst <= PSNR_TOL, worst
+    _section("pnerv: bitstream")
+    out["bitstream"] = _bitstream_phase(torch, tf, out["calibrate_pallas"],
+                                        frames_dir, card, arch="pnerv")
+    assert out["bitstream"]["report"]["embed_bits"] > 0
+    _section("pnerv: stage 2, bit_assign")
+    out["stage2"] = _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work,
+                                  arch="pnerv", hv_cfg=cfg32,
+                                  score_tol=BF16_TOL)
+
+    # PNeRV2: no KFc shortcuts, 15 layers (one fake-quant launch)
+    model2 = build_model("pnerv2", cfg, device="cuda")
+    sd2 = _seeded_state_dict(model2, np.random.RandomState(SEED + 15))
+    model2.load_state_dict(state_dict_from_numpy(sd2, "cuda"), strict=True)
+    model2.eval()
+    assert _n_layers("pnerv2", cfg) == 15 and _fq_launches("pnerv2", cfg) == 1
+    _section("pnerv2: decode")
+    out["pnerv2_decode"] = _decode_phase(torch, tf, cfg, sd2, model2,
+                                         arch="pnerv2")
+    del model2
+    _section("pnerv2: calibration step")
+    out["pnerv2_step"] = _gradient_phase(torch, tf, cfg, sd2, frames_dir,
+                                         arch="pnerv2", timing=False)
+    _section("pnerv2: calibrate, --fq_impl pallas")
+    out["pnerv2_calibrate"] = _calibrate_phase(
+        torch, tf, cfg, sd2, frames_dir, card, work, "pallas", arch="pnerv2")
+    _section()
+    out["seconds"] = time.time() - t0
+    print(f"  phase 14 (PNeRV) took {out['seconds']:.1f} s; card {card}")
     return out
 
 
@@ -2063,14 +2398,15 @@ def _serving_phase(torch, tf, cfg, sd, card, frames):
     return dict(psnr=psnr, msssim=msssim, fps=fps, launches=launches)
 
 
-def _add_nerv_records(kernels, nerv):
-    """Add phase 13's records to each entry of the kernels line: per launch
-    ("nerv_per_launch"), NeRV's decode shapes (batch 1), a training step's
-    at batch 1 and 2, its seven fake-quant layers; its launches per decode,
-    calibration step, stage-1 step and HVP batch, and over its stage-1 and
-    calibrate_network runs (fq_impl pallas for the fake-quant entries);
-    its largest error against the plain versions. Every kernel must have
-    run in NeRV's calibrate_network --fq_impl pallas run."""
+def _add_model_records(kernels, nerv, key="nerv"):
+    """Add phase 13's (NeRV's) or phase 14's (PNeRV1's, `key` 'pnerv')
+    records to each entry of the kernels line: per launch
+    ("<key>_per_launch"), the model's decode shapes (batch 1), a training
+    step's at batch 1 and 2, its fake-quant layers; its launches per
+    decode, calibration step, stage-1 step and HVP batch, and over its
+    stage-1 and calibrate_network runs (fq_impl pallas for the fake-quant
+    entries); its largest error against the plain versions. Every kernel
+    must have run in its calibrate_network --fq_impl pallas run."""
     nk, b1, b2 = nerv["kernels"], nerv["kernels_b1"], nerv["kernels_b2"]
     per = {
         "tail_conv_cf": nk["tail_conv_cf"]["per_launch"]
@@ -2085,13 +2421,13 @@ def _add_nerv_records(kernels, nerv):
     for k in kernels:
         name = k["name"]
         fq = name.startswith("fq_")
-        k["nerv_per_launch"] = nerv["fq"][name]["per_launch"] if fq else \
+        k[f"{key}_per_launch"] = nerv["fq"][name]["per_launch"] if fq else \
             per[name]
-        k["nerv_max_abs_err"] = max(
+        k[f"{key}_max_abs_err"] = max(
             r.get(name, {"max_abs_err": 0.0})["max_abs_err"]
             for r in (nk, b1, b2, nerv["fq"]))
         run = nerv["calibrate_pallas" if fq else "calibrate_jnp"]
-        k["nerv_launches"] = {
+        k[f"{key}_launches"] = {
             "calibrate_run": run["launches"][name],
             "per_decode": nerv["decode"]["launches"][name] // 4,
             "per_calibration_step": nerv["step"]["launches"][name],
@@ -2099,6 +2435,12 @@ def _add_nerv_records(kernels, nerv):
             "stage1_run": nerv["stage1"]["launches"][name],
             "stage2_hvp_batch": nerv["stage2"]["runs"]["omega pallas"][
                 "launches_per_batch"][name]}
+        if "pnerv2_decode" in nerv:
+            k["pnerv2_launches"] = {
+                "calibrate_run": nerv["pnerv2_calibrate"]["launches"][name],
+                "per_decode": nerv["pnerv2_decode"]["launches"][name] // 4,
+                "per_calibration_step": nerv["pnerv2_step"]["launches"][
+                    name]}
         assert nerv["calibrate_pallas"]["launches"][name] > 0, name
 
 
@@ -2196,6 +2538,7 @@ def main() -> int:
         s1run = _stage1_run_phase(torch, tf, frames_dir, card, work)
         del model
         nerv = _nerv_phase(torch, tf, card, frames_dir, work)
+        pnerv = _pnerv_phase(torch, tf, card, frames_dir, work)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2286,7 +2629,8 @@ def main() -> int:
         kernels[i]["stage1_per_launch"] = s1records[name]["per_launch"]
     kernels[4]["stage1_per_launch"] = [s1unpack["forward"],
                                        s1unpack["backward"]]
-    _add_nerv_records(kernels, nerv)
+    _add_model_records(kernels, nerv, "nerv")
+    _add_model_records(kernels, pnerv, "pnerv")
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
@@ -2302,7 +2646,9 @@ def main() -> int:
                       "stage2": stage2, "stage1_step": s1step,
                       "stage1": s1run,
                       "nerv": {k: v for k, v in nerv.items()
-                               if not k.startswith(("kernels", "fq"))}}))
+                               if not k.startswith(("kernels", "fq"))},
+                      "pnerv": {k: v for k, v in pnerv.items()
+                                if not k.startswith(("kernels", "fq"))}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,7 @@ def make_hvp(model, spec, frames, norm_idx, batch_idx):
         hessian_vector_product)
 
     params = model.state_dict()
-    kernels = [_get(params, p)[0].detach() for p in spec.layer_paths]
+    kernels = [_get(params, pre)[0].detach() for pre in spec.layer_keys]
     shapes = [tuple(k.shape) for k in kernels]
     sizes = [int(np.prod(s)) for s in shapes]
     batches = [np.asarray(batch_idx)]
@@ -109,11 +109,10 @@ def main(argv):
     from neuroquant_tpu_torch.config import get_config
     from neuroquant_tpu_torch.data import VideoDataSet
     from neuroquant_tpu_torch.methods.common import load_pth
-    from neuroquant_tpu_torch.models import build_model, require_ported
+    from neuroquant_tpu_torch.models import build_model
     from neuroquant_tpu_torch.quantization.spec import make_spec
     from neuroquant_tpu_torch.utils.device import resolve_device
 
-    require_ported(args.arch)
     device = resolve_device(args.device)
     cfg = get_config(args.config)
     dataset = VideoDataSet(cfg, args.data_path, device=device)

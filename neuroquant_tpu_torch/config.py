@@ -1,5 +1,5 @@
-"""YAML config loading (the part of ``neuroquant_tpu/config.py`` the serving
-slice uses): the reference's config surface, same keys, light validation."""
+"""YAML config loading (the counterpart of ``neuroquant_tpu/config.py``):
+the reference's config surface, same keys, light validation."""
 
 from __future__ import annotations
 
@@ -17,7 +17,12 @@ _ARCH_KEYS = {
     "hnerv": ("stage_block", "enc_strides", "enc_channel", "dec_in_channel",
               "dec_kernels", "dec_strides", "channel_reduce", "channel_lbound",
               "dec_norm", "dec_acts", "out_bias"),
+    "pnerv": ("enc_channel", "emd_channel", "enc_strides", "kfc_h_w_c",
+              "kfc_strides", "dec_norm", "dec_acts"),
 }
+# PNeRV1 and PNeRV2 share PNeRV's keys (the JAX package validates only the
+# name 'pnerv', though its build_model and compress take all three)
+_ARCH_KEYS["pnerv1"] = _ARCH_KEYS["pnerv2"] = _ARCH_KEYS["pnerv"]
 
 
 def get_config(config_path: str) -> dict:

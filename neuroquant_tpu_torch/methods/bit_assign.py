@@ -32,7 +32,6 @@ from neuroquant_tpu_torch.config import get_config, validate_config
 from neuroquant_tpu_torch.data import VideoDataSet
 from neuroquant_tpu_torch.logging_utils import setup_logger
 from neuroquant_tpu_torch.methods import common
-from neuroquant_tpu_torch.models import require_ported
 from neuroquant_tpu_torch.quantization import (
     average_bits, init_quant_state, make_spec, sensitivity_criterion,
 )
@@ -196,8 +195,8 @@ def assign(args, cfg):
             curves[b] = per_layer
             logging.info(f"[search] uniform W{b}: per-layer "
                          + " ".join(f"{v:.2e}" for v in per_layer))
-        p_l = [sum(int(t.numel()) for t in _get(params, p))
-               for p in _spec(args, cfg).layer_paths]
+        p_l = [sum(int(t.numel()) for t in _get(params, pre))
+               for pre in _spec(args, cfg).layer_keys]
         cands = lagrangian_candidates(curves, p_l, bit_choices,
                                       args.target_avg_bits)
         candidate_dict = {f"lagrangian{i + 1}": c
@@ -208,10 +207,13 @@ def assign(args, cfg):
         candidate_dict = {
             f"candidate{i + 1}": [int(b) for b in c.split(",")]
             for i, c in enumerate(args.candidates.split(";"))}
+    elif args.arch.lower() == "hnerv":
+        candidate_dict = HNERV_CANDIDATES
     elif args.arch.lower() == "nerv":
         candidate_dict = NERV_CANDIDATES
     else:
-        candidate_dict = HNERV_CANDIDATES
+        # PNeRV: no toy candidates in the reference
+        raise ValueError(f"no default candidates for arch {args.arch}")
 
     best_score, best_candidate, best_bits = float("inf"), None, None
     for candidate, bits in candidate_dict.items():
@@ -235,7 +237,6 @@ def assign(args, cfg):
 
 def main(argv):
     args = parse_args(argv)
-    require_ported(args.arch)
     cfg = validate_config(get_config(args.config), args.arch)
     args.outf = os.path.join("results", args.outf)
     args.exp_id = common.exp_id(args, cfg)

@@ -288,8 +288,8 @@ def calibrate(args, cfg):
     # roundtrip guard: weights rebuilt from codes + scales alone must match
     # the fake-quantized decode weights
     rt = params_from_codes(params, spec, codes)
-    for name, path in zip(spec.layer_names, spec.layer_paths):
-        for a, b, leaf in zip(_get(qparams, path), _get(rt, path),
+    for name, pre in zip(spec.layer_names, spec.layer_keys):
+        for a, b, leaf in zip(_get(qparams, pre), _get(rt, pre),
                               ("kernel", "bias")):
             err = float((a - b).abs().max())
             if err > 1e-5:

@@ -34,7 +34,7 @@ from neuroquant_tpu_torch.quantization.qmodel import (
     _get, _set, quantize_params)
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.convert import (
-    quant_state_from_numpy, state_dict_from_numpy)
+    layer_prefix, quant_state_from_numpy, state_dict_from_numpy)
 from neuroquant_tpu_torch.utils.device import resolve_device
 
 
@@ -56,9 +56,10 @@ def parse_args(argv):
 
 def spec_from_artifact(artifact) -> QuantSpec:
     qs = artifact["quant_spec"]
+    paths = tuple(tuple(p) for p in qs["layer_paths"])
     return QuantSpec(
-        layer_names=tuple(qs["layer_names"]),
-        layer_paths=tuple(tuple(p) for p in qs["layer_paths"]),
+        layer_names=tuple(qs["layer_names"]), layer_paths=paths,
+        layer_keys=tuple(layer_prefix(p, artifact["arch"]) for p in paths),
         n_bits=tuple(qs["n_bits"]), channel_wise=qs["channel_wise"],
         scale_method=qs["scale_method"], hadamard=qs["hadamard"],
         sym=qs["sym"])
@@ -76,9 +77,9 @@ def params_from_codes(params, spec: QuantSpec, codes: dict):
     integer codes and scales alone: (code - zp) * delta, inverse FWHT and
     C_in crop when ``spec.hadamard``."""
     out = params
-    for name, path in zip(spec.layer_names, spec.layer_paths):
+    for name, pre in zip(spec.layer_names, spec.layer_keys):
         c = codes[name]
-        w, _ = _get(params, path)
+        w, _ = _get(params, pre)
         dev = w.device
         w_deq = (_on(c["w"], dev) - _on(c["w_zp"], dev)) * _on(c["w_delta"],
                                                                dev)
@@ -86,7 +87,7 @@ def params_from_codes(params, spec: QuantSpec, codes: dict):
             w_deq = fwht(w_deq, axis=2)[:, :, :w.shape[2], :]
         b_deq = (_on(c["b"], dev) - _on(c["b_zp"], dev)) * _on(c["b_delta"],
                                                                dev)
-        out = _set(out, path, w_deq, b_deq)
+        out = _set(out, pre, w_deq, b_deq)
     return out
 
 
@@ -100,9 +101,9 @@ def params_from_stream(params, spec: QuantSpec, decoded: dict):
     f16 at the phase-2 hand-off. A UAQ state's fp32 scales are not, so its
     stream decodes to other weights than its state does."""
     codes = {}
-    for name, path in zip(spec.layer_names, spec.layer_paths):
+    for name, pre in zip(spec.layer_names, spec.layer_keys):
         d = decoded[name]
-        cout = _get(params, path)[0].shape[-1]
+        cout = _get(params, pre)[0].shape[-1]
         n_wd = cout if spec.channel_wise else 1
         sc = np.asarray(d["scales"], np.float32)
         if sc.size != 2 * n_wd + 2:

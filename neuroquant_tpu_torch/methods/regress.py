@@ -36,7 +36,6 @@ from neuroquant_tpu_torch.data import VideoDataSet
 from neuroquant_tpu_torch.logging_utils import setup_logger
 from neuroquant_tpu_torch.methods import common
 from neuroquant_tpu_torch.metrics import loss_fn, psnr_fn_single
-from neuroquant_tpu_torch.models import require_ported
 from neuroquant_tpu_torch.schedules import make_lr_schedule
 from neuroquant_tpu_torch.utils.convert import save_pth
 from neuroquant_tpu_torch.utils.device import resolve_device, synchronize
@@ -130,7 +129,8 @@ def qat_transform(arch: str, cfg: dict, mode: str, bits: int):
     from neuroquant_tpu_torch.ops.quant import qat_fake_quant
     from neuroquant_tpu_torch.utils.convert import layer_prefix
 
-    keys = [layer_prefix(p) + ".weight" for p in quant_layer_paths(arch, cfg)]
+    keys = [layer_prefix(p, arch) + ".weight"
+            for p in quant_layer_paths(arch, cfg)]
 
     def transform(params, generator=None, training=True):
         out = dict(params)
@@ -341,7 +341,6 @@ def _fit(args, cfg, model, dataset, train_ind, device, writer,
 
 def main(argv, epoch_orders=None):
     args = parse_args(argv)
-    require_ported(args.arch)
     cfg = validate_config(get_config(args.config), args.arch)
     args.outf = os.path.join("results", args.outf)
     args.exp_id = common.exp_id(args, cfg)

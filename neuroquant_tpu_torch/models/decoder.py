@@ -8,7 +8,10 @@ The decode runs the high-resolution tail packed from the pack start on,
 channels-first, on the fused tail's CUDA kernels (ops/tail_fused.py), the
 last prefix block fused too; ``decode_cf`` stays in the packed domain (the
 calibration loss) and ``decode_jvp`` carries a tangent on the decoder's
-conv kernels beside the value (stage 2's Hessian-vector product)."""
+conv kernels beside the value (stage 2's Hessian-vector product). PNeRV's
+decoder (``models/pnerv.py``) shares the forward-mode tail
+(:func:`fused_tail_jvp`) and the packed-weights memo
+(:class:`KeptKernelWeights`)."""
 
 from __future__ import annotations
 
@@ -85,7 +88,70 @@ def _out_img_jvp(x, dx, out_bias: str):
     return y, dx
 
 
-class NeRVDecoder(nn.Module):
+def _hwio(dw):
+    return None if dw is None else dw.permute(2, 3, 1, 0)
+
+
+def _pack_entry(x, dx, plan):
+    """The value and its tangent into the channels-first layout (pack_cf is
+    linear)."""
+    return (pack_cf(x.contiguous(), plan),
+            None if dx is None else pack_cf(dx.contiguous(), plan))
+
+
+def fused_tail_jvp(x, dx, blocks, head_layer, t: int, dws, out_bias: str):
+    """The tail blocks[t:] and the head on the kernels in forward mode
+    (:func:`tail_fused.tail_apply_fo`), from the NHWC tail-entry value x and
+    its tangent dx: (frames, their tangent). `dws`: OIHW tangents of the
+    tail blocks' convs, then the head's, all None or none None. The
+    kernels' tangents are packed by the same gather as the kernels; the
+    head's output is unpacked by plain tensor ops, as the JAX package's
+    HVP execution does."""
+    h, w = int(x.shape[1]), int(x.shape[2])
+    tail, head = collect_tail_params(blocks, head_layer, t)
+    plan, kks, bms, f, ch = plan_and_pack(h, w, tail, head)
+    dkks = (None,) * len(kks)
+    if dws[0] is not None:
+        dkks = plan_and_pack(
+            h, w, [(_hwio(dws[j - t]), None, blocks[j].stride)
+                   for j in range(t, len(blocks))],
+            (_hwio(dws[-1]), None))[1]
+    x_cf, dx_cf = _pack_entry(x, dx, plan)
+    z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
+    y, dy = _out_img_jvp(cf_to_nhwc(z, plan, ch),
+                         None if dz is None else cf_to_nhwc(dz, plan, ch),
+                         out_bias)
+    return (depth_to_space(y, f),
+            None if dy is None else depth_to_space(dy, f))
+
+
+class KeptKernelWeights:
+    """``_kernel_weights(key, build)`` for a module whose decode packs conv
+    weights for the kernels: the packed weights are kept across decodes
+    until one of ``_kernel_params()`` changes. The module sets
+    ``self._packed = {}`` (key -> (weight version, weights))."""
+
+    def _kernel_params(self):
+        raise NotImplementedError
+
+    def _kernel_weights(self, key, build):
+        """``build()``: the fused prefix's or tail's weights packed for the
+        kernels, kept across decodes until the weights change.
+        ``load_state_dict`` and every in-place update bump a parameter's
+        version counter, and a moved or replaced parameter has a new
+        address; either rebuilds. With gradients on it always rebuilds, so
+        no kept tensor carries a graph."""
+        if torch.is_grad_enabled():
+            return build()
+        version = tuple((p.data_ptr(), p._version)
+                        for p in self._kernel_params())
+        hit = self._packed.get(key)
+        if hit is None or hit[0] != version:
+            hit = self._packed[key] = (version, build())
+        return hit[1]
+
+
+class NeRVDecoder(KeptKernelWeights, nn.Module):
     """`encoder` -> decoder[0] (1x1 conv, `in_channel` -> dec_in_channel *
     fc_h * fc_w, then the (fc_h, fc_w) shuffle) -> the NeRVBlocks -> the
     head. Parameter names are the reference's: ``encoder.*``,
@@ -137,21 +203,16 @@ class NeRVDecoder(nn.Module):
             return None
         return resolve_impl(self.cfg.fused_tail)
 
-    def _kernel_weights(self, key, build):
-        """``build()``: the fused prefix's or tail's weights packed for the
-        kernels, kept across decodes until the decoder's weights change.
-        ``load_state_dict`` and every in-place update bump a parameter's
-        version counter, and a moved or replaced parameter has a new
-        address; either rebuilds. With gradients on it always rebuilds, so
-        no kept tensor carries a graph."""
-        if torch.is_grad_enabled():
-            return build()
-        params = (*self.decoder.parameters(), *self.head_layer.parameters())
-        version = tuple((p.data_ptr(), p._version) for p in params)
-        hit = self._packed.get(key)
-        if hit is None or hit[0] != version:
-            hit = self._packed[key] = (version, build())
-        return hit[1]
+    def _kernel_params(self):
+        return (*self.decoder.parameters(), *self.head_layer.parameters())
+
+    def jvp_keys(self):
+        """State-dict keys of the conv weights :meth:`decode_jvp` takes
+        tangents on, in its order: decoder[0], each block's conv, the head
+        (the quantized layers, in decode order)."""
+        return (["decoder.0.weight"]
+                + [f"decoder.{j + 1}.conv.0.weight"
+                   for j in range(len(self.blocks))] + ["head_layer.weight"])
 
     def _layer0(self, img_embed):
         """decoder[0] and its (fc_h, fc_w) block-to-space shuffle."""
@@ -228,42 +289,21 @@ class NeRVDecoder(nn.Module):
             x, dx = _conv_jvp(self.head_layer, x, dx, dws[-1])
             return _out_img_jvp(x, dx, c.out_bias)
 
-        def entry(x, dx, plan):
-            return (pack_cf(x.contiguous(), plan),
-                    None if dx is None else pack_cf(dx.contiguous(), plan))
-
-        def hwio(dw):
-            return None if dw is None else dw.permute(2, 3, 1, 0)
-
         h, w = int(x.shape[1]), int(x.shape[2])
         if fused:
             blk = blocks[t - 1]
             plan, kks, bms, r, _ = pack_prefix_block(h, w, *blk.conv_params(),
                                                      blk.stride)
             dkks = (None,) if dws[t] is None else pack_prefix_block(
-                h, w, hwio(dws[t]), None, r)[1]
-            x_cf, dx_cf = entry(x, dx, plan)
+                h, w, _hwio(dws[t]), None, r)[1]
+            x_cf, dx_cf = _pack_entry(x, dx, plan)
             z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
             x = prefix_cf_to_nhwc(z, plan, r, blk.out_channel)
             dx = (None if dz is None
                   else prefix_cf_to_nhwc(dz, plan, r, blk.out_channel))
             x, dx = _gelu_jvp(x, dx)
-            h, w = int(x.shape[1]), int(x.shape[2])
-        tail, head = collect_tail_params(blocks, self.head_layer, t)
-        plan, kks, bms, f, ch = plan_and_pack(h, w, tail, head)
-        dkks = (None,) * len(kks)
-        if dws[t + 1] is not None:
-            dkks = plan_and_pack(
-                h, w, [(hwio(dws[j + 1]), None, blocks[j].stride)
-                       for j in range(t, len(blocks))],
-                (hwio(dws[-1]), None))[1]
-        x_cf, dx_cf = entry(x, dx, plan)
-        z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
-        y, dy = _out_img_jvp(cf_to_nhwc(z, plan, ch),
-                             None if dz is None else cf_to_nhwc(dz, plan, ch),
-                             c.out_bias)
-        return (depth_to_space(y, f),
-                None if dy is None else depth_to_space(dy, f))
+        return fused_tail_jvp(x, dx, blocks, self.head_layer, t, dws[t + 1:],
+                              c.out_bias)
 
     def decode(self, img_embed):
         """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).

@@ -1,5 +1,5 @@
-"""Model primitives for HNeRV and NeRV on NHWC tensors, with the reference's
-torch parameter names (the HNeRV and NeRV part of
+"""Model primitives for HNeRV, NeRV and PNeRV on NHWC tensors, with the
+reference's torch parameter names (the counterpart of
 ``neuroquant_tpu/models/layers.py``).
 
 Parameters keep torch's layouts (OIHW conv weights, (out, in) Linear
@@ -107,6 +107,59 @@ class LayerNorm(nn.Module):
         mean = x.mean(dim=-1, keepdim=True)
         var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
         return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+
+
+class BatchNorm2d(nn.Module):
+    """torch ``BatchNorm2d(track_running_stats=False)`` on NHWC tensors:
+    always the batch's statistics (biased variance), so a frame's output
+    depends on the other frames of its batch. Parameters ``weight`` and
+    ``bias`` only."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, self.weight,
+                         self.bias, training=True, eps=self.eps)
+        return y.permute(0, 2, 3, 1)
+
+
+class KFcBias(nn.Module):
+    """PNeRV's Kronecker fully-connected upsampler, per channel c:
+    ``w_L[c] @ x[c] @ w_R[c] + b_c[c] * (b_h @ b_w)``, (B, ih, iw, C) ->
+    (B, oh, ow, C). Parameters in the reference's shapes: w_L (1, C, oh,
+    ih), w_R (1, C, iw, ow), b_h (oh, 1), b_w (1, ow), b_c (C, 1)."""
+
+    def __init__(self, in_height: int, in_width: int, out_height: int,
+                 out_width: int, channels: int):
+        super().__init__()
+        c, ih, iw, oh, ow = (channels, in_height, in_width, out_height,
+                             out_width)
+        self.w_L = nn.Parameter(torch.empty(1, c, oh, ih))
+        self.w_R = nn.Parameter(torch.empty(1, c, iw, ow))
+        self.b_h = nn.Parameter(torch.zeros(oh, 1))
+        self.b_w = nn.Parameter(torch.zeros(1, ow))
+        self.b_c = nn.Parameter(torch.zeros(c, 1))
+
+    def reset_parameters(self, generator=None):
+        """kaiming_normal_(mode='fan_out', relu) of the reference's (C, m,
+        n) tensors: std sqrt(2 / (C * n)); zero biases."""
+        for w in (self.w_L, self.w_R):
+            std = math.sqrt(2.0 / (w.shape[1] * w.shape[-1]))
+            nn.init.normal_(w, 0.0, std, generator=generator)
+        for b in (self.b_h, self.b_w, self.b_c):
+            nn.init.zeros_(b)
+
+    def forward(self, x):
+        c, oh, ow = self.w_L.shape[1], self.w_L.shape[2], self.w_R.shape[3]
+        b = (self.b_c @ (self.b_h @ self.b_w).reshape(1, oh * ow)).reshape(
+            c, oh, ow)
+        y = torch.einsum("coh,bchw->bcow", self.w_L[0], x.permute(0, 3, 1, 2))
+        y = torch.einsum("bcow,cwq->bcoq", y, self.w_R[0]) + b
+        return y.permute(0, 2, 3, 1).contiguous()
 
 
 class NeRVBlock(nn.Module):

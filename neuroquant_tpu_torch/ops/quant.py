@@ -143,6 +143,20 @@ def f16_round(x):
     return x.to(torch.float16).to(torch.float32)
 
 
+F16_TINY = 2.0 ** -24   # the smallest positive float16 (a subnormal)
+
+
+def f16_round_delta(delta):
+    """:func:`f16_round` of a scale AdaRound divides by: a delta that float16
+    rounds to zero (|delta| < 2^-25, phase 1's Adam having walked it across
+    zero) keeps its sign at F16_TINY instead, so the alphas' init stays
+    finite. The JAX package divides by the zero and its artifact guard
+    refuses the run."""
+    r = f16_round(delta)
+    return torch.where(r == 0, torch.copysign(torch.full_like(r, F16_TINY),
+                                              delta), r)
+
+
 def adaround_init_alpha(x, delta):
     """alpha such that h(alpha) == x/delta - floor(x/delta)."""
     rest = x / delta - torch.floor(x / delta)

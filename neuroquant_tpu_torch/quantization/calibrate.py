@@ -43,7 +43,6 @@ from neuroquant_tpu_torch.quantization.qmodel import (
     adaround_upgrade, quantize_params, round_loss,
 )
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
-from neuroquant_tpu_torch.utils.convert import layer_prefix
 from neuroquant_tpu_torch.utils.device import synchronize
 
 LOG_EVERY = 500     # steps between the loss log lines
@@ -109,7 +108,7 @@ def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,
     batch of ``cf_pack["gt"]`` and the loss runs in the packed domain;
     otherwise on NHWC frames through ``decode``."""
     dec = _Decoder(model, "decode_cf" if cf_pack is not None else "decode")
-    keys = [f"{layer_prefix(path)}.{leaf}" for path in spec.layer_paths
+    keys = [f"{pre}.{leaf}" for pre in spec.layer_keys
             for leaf in ("weight", "bias")]
     if cf_pack is not None:
         cf_mask, cf_denom = cf_pack["mask"], float(cf_pack["denom"])

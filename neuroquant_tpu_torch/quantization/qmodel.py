@@ -27,18 +27,16 @@ from neuroquant_tpu_torch.ops.fused_fakequant import (
     fake_quant_group, fake_quant_ref)
 from neuroquant_tpu_torch.ops.hadamard import fwht, pad_cin_to_pow2
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
-from neuroquant_tpu_torch.utils.convert import layer_prefix
 
 
-def _get(params, path):
-    """(HWIO kernel, bias) of the layer at a flax path in a state dict."""
-    pre = layer_prefix(path)
+def _get(params, pre):
+    """(HWIO kernel, bias) of the layer at state-dict prefix `pre`
+    (``QuantSpec.layer_keys``)."""
     return params[f"{pre}.weight"].permute(2, 3, 1, 0), params[f"{pre}.bias"]
 
 
-def _set(params, path, kernel_hwio, bias):
+def _set(params, pre, kernel_hwio, bias):
     """A shallow copy of the state dict with the layer replaced."""
-    pre = layer_prefix(path)
     out = dict(params)
     out[f"{pre}.weight"] = kernel_hwio.permute(3, 2, 0, 1).contiguous()
     out[f"{pre}.bias"] = bias
@@ -53,9 +51,9 @@ def _hadamard_weight(w_hwio):
 def init_quant_state(params, spec: QuantSpec) -> Dict:
     """Per-layer scale init: {name: {w_delta, w_zp, b_delta, b_zp}}."""
     state = {}
-    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+    for name, pre, bits in zip(spec.layer_names, spec.layer_keys,
                                 spec.n_bits):
-        w, b = _get(params, path)
+        w, b = _get(params, pre)
         w_dom = _hadamard_weight(w) if spec.hadamard else w
         wd, wz = Q.init_weight_scale(w_dom, bits, spec.channel_wise,
                                      spec.scale_method, spec.sym)
@@ -82,12 +80,12 @@ def quantize_params(params, spec: QuantSpec, state: Dict, mode: str = "uaq",
     if mode not in ("uaq", "adaround"):
         raise ValueError(mode)
     layers = []
-    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+    for name, pre, bits in zip(spec.layer_names, spec.layer_keys,
                                 spec.n_bits):
-        w, b = _get(params, path)
+        w, b = _get(params, pre)
         s = state[name]
         lmode = mode if (mode != "adaround" or "w_alpha" in s) else "uaq"
-        layers.append((path, w, b, s, bits, lmode,
+        layers.append((pre, w, b, s, bits, lmode,
                        s["w_alpha"] if lmode == "adaround" else None))
     if spec.fq_impl == "pallas":
         kernels = fake_quant_group(
@@ -98,8 +96,8 @@ def quantize_params(params, spec: QuantSpec, state: Dict, mode: str = "uaq",
                                   spec.hadamard, soft)
                    for _, w, _, s, bits, _, alpha in layers]
     out = params
-    for (path, _, b, s, bits, lmode, _), kernel in zip(layers, kernels):
-        out = _set(out, path, kernel, _fq_bias(b, s, bits, lmode, soft))
+    for (pre, _, b, s, bits, lmode, _), kernel in zip(layers, kernels):
+        out = _set(out, pre, kernel, _fq_bias(b, s, bits, lmode, soft))
     return out
 
 
@@ -111,15 +109,15 @@ def adaround_upgrade(params, spec: QuantSpec, state: Dict,
     Hadamard domain when ``spec.hadamard``). ``only``: the layer names to
     upgrade; the rest keep their UAQ state (mixed rounding)."""
     new_state = {}
-    for name, path in zip(spec.layer_names, spec.layer_paths):
+    for name, pre in zip(spec.layer_names, spec.layer_keys):
         s = state[name]
         if only is not None and name not in only:
             new_state[name] = {k: v.detach() for k, v in s.items()}
             continue
-        w, b = _get(params, path)
+        w, b = _get(params, pre)
         w_dom = _hadamard_weight(w) if spec.hadamard else w
-        wd, wz = Q.f16_round(s["w_delta"]), Q.f16_round(s["w_zp"])
-        bd, bz = Q.f16_round(s["b_delta"]), Q.f16_round(s["b_zp"])
+        wd, wz = Q.f16_round_delta(s["w_delta"]), Q.f16_round(s["w_zp"])
+        bd, bz = Q.f16_round_delta(s["b_delta"]), Q.f16_round(s["b_zp"])
         new_state[name] = {
             "w_delta": wd, "w_zp": wz, "b_delta": bd, "b_zp": bz,
             "w_alpha": Q.adaround_init_alpha(w_dom, wd),
@@ -136,9 +134,9 @@ def get_perturbation(params, spec: QuantSpec, state: Dict):
     the current scales even when those scales were initialized in the
     Hadamard domain."""
     out = []
-    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+    for name, pre, bits in zip(spec.layer_names, spec.layer_keys,
                                 spec.n_bits):
-        w, _ = _get(params, path)
+        w, _ = _get(params, pre)
         s = state[name]
         out.append(w - Q.uaq_fake_quant(w, s["w_delta"], s["w_zp"], bits))
     return out
@@ -147,8 +145,8 @@ def get_perturbation(params, spec: QuantSpec, state: Dict):
 def average_bits(params, spec: QuantSpec) -> float:
     """Parameter-weighted average bit width over the quantized layers."""
     bits_total, n_total = 0.0, 0.0
-    for path, bits in zip(spec.layer_paths, spec.n_bits):
-        w, b = _get(params, path)
+    for pre, bits in zip(spec.layer_keys, spec.n_bits):
+        w, b = _get(params, pre)
         bits_total += bits * (w.numel() + b.numel())
         n_total += w.numel() + b.numel()
     return bits_total / n_total
@@ -159,9 +157,9 @@ def _int_code_arrays(params, spec: QuantSpec, state: Dict, mode: str):
     """Every layer's (weight codes, bias codes), int32; weight codes in the
     quantization domain."""
     arrays = {}
-    for name, path, bits in zip(spec.layer_names, spec.layer_paths,
+    for name, pre, bits in zip(spec.layer_names, spec.layer_keys,
                                 spec.n_bits):
-        w, b = _get(params, path)
+        w, b = _get(params, pre)
         w_dom = _hadamard_weight(w) if spec.hadamard else w
         s = state[name]
         if mode == "uaq" or "w_alpha" not in s:

@@ -29,26 +29,22 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from neuroquant_tpu_torch.models import require_ported
 from neuroquant_tpu_torch.quantization.qmodel import get_perturbation
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
-from neuroquant_tpu_torch.utils.convert import layer_prefix
 
 MAX_BATCHES = 10
 
 
-def _decoder_conv_keys(model):
-    """State-dict keys of the decoder's conv weights in decode order: the
-    order of ``decode_jvp``'s tangents."""
-    return (["decoder.0.weight"]
-            + [f"decoder.{j + 1}.conv.0.weight"
-               for j in range(len(model.blocks))] + ["head_layer.weight"])
-
-
 def _kernels(model, spec: QuantSpec):
-    """The spec layers' weight Parameters (OIHW)."""
+    """The spec layers' weight Parameters (OIHW): the model's own list
+    (``jvp_keys``, the quantized layers in decode order), which must be
+    the spec's."""
+    keys = model.jvp_keys()
+    if keys != [f"{pre}.weight" for pre in spec.layer_keys]:
+        raise ValueError(f"the spec's layers {spec.layer_keys} are not the "
+                         f"model's quantized layers {keys}")
     weights = dict(model.named_parameters())
-    return [weights[f"{layer_prefix(p)}.weight"] for p in spec.layer_paths]
+    return [weights[k] for k in keys]
 
 
 def draw_batches(n: int, batch_size: int, seed: int):
@@ -72,12 +68,8 @@ def hessian_vector_product(model, spec: QuantSpec, vec, frames, norm_idx,
     kernels, over the frame batches `batches`. vec and the result: one HWIO
     tensor per spec layer (the JAX layout). `norm_idx`: the frames'
     normalized indices, which NeRV encodes (HNeRV the frames)."""
-    keys = [f"{layer_prefix(p)}.weight" for p in spec.layer_paths]
-    params = dict(model.named_parameters())
-    tangent = {k: v.permute(3, 2, 0, 1) for k, v in zip(keys, vec)}
-    dws = [tangent[k] if k in tangent else torch.zeros_like(params[k])
-           for k in _decoder_conv_keys(model)]
     kernels = _kernels(model, spec)
+    dws = [v.permute(3, 2, 0, 1) for v in vec]
 
     def dirderiv(img, inp):
         # d/de mse(w + e v) at e = 0: forward mode through the decode
@@ -122,9 +114,7 @@ def sensitivity_criterion(mode: str, arch: str, model, params,
     into `model`. `norm_idx`: the frames' normalized indices, NeRV's input
     (HNeRV encodes the frames). `batches`: (n, batch_size) frame indices to
     use instead of drawing them from `seed`."""
-    arch = arch.lower()
-    require_ported(arch)
-    if arch not in ("hnerv", "nerv"):
+    if arch.lower() not in ("hnerv", "nerv", "pnerv", "pnerv1", "pnerv2"):
         raise ValueError(f"model arch wrong: {arch!r}")
     model.load_state_dict(params)
     vec = get_perturbation(params, spec, state)

@@ -1,4 +1,4 @@
-"""Weights across the two packages: the HNeRV/NeRV part of
+"""Weights across the two packages: the counterpart of
 ``neuroquant_tpu/utils/torch_compat.py``, kept here as the port's own copy.
 
 The JAX package keeps a flax params tree; its checkpoints and artifacts
@@ -16,8 +16,20 @@ store the reference's torch state-dict layout:
   encoder.stages.i.j.{dwconv,norm,         encoder/stage_{i}_block_{j}/...
                       pwconv1,pwconv2,gamma}
 
+PNeRV (``_pnerv_pairs``; the names the reference's PNeRV modules give):
+
+  enc_layers.{3k} (conv), .{3k+1} (LN)     encoder/conv_k, encoder/norm_k
+  enc_layers.{3k+2}.* (ConvNeXt block)     encoder/block_k/...
+  enc_layers.{3n} (conv)                   encoder/proj
+  dec_exc_layers.conv.0                    dec_exc/conv
+  dec_layers.{i}.conv.0                    dec_layers_{i}/conv
+  dec_shortcuts.{3i} (KFc, verbatim)       shortcuts_{i}/{w_L,w_R,b_h,b_w,b_c}
+  dec_shortcuts.{3i+1} (BatchNorm)         shortcut_norms_{i}
+  dec_bsm_{z,r,h}.{i}                      bsm_{z,r,h}_{i}
+  dec_head_layers                          head_layer
+
 Conv weights are OIHW in torch and HWIO in flax; Linear weights (out, in)
-and (in, out); LayerNorm ``weight`` is flax's ``scale``.
+and (in, out); LayerNorm and BatchNorm ``weight`` is flax's ``scale``.
 """
 
 from __future__ import annotations
@@ -58,34 +70,80 @@ def _decoder_pairs(n_blocks: int):
     return out
 
 
-def layer_prefix(path) -> str:
-    """State-dict prefix of a quantized layer given by its flax path
-    (``models.quant_layer_paths``): ('blocks_2', 'conv') -> 'decoder.3.conv.0'."""
+def _pnerv_pairs(p: dict):
+    """(torch_key, flax_path, kind) triples of a PNeRV1/PNeRV2 params
+    tree."""
+    enc = p["encoder"]
+    n_stages = sum(1 for k in enc if k.startswith("conv_"))
+    out = []
+    for k in range(n_stages):
+        out.append((f"enc_layers.{3 * k}", ("encoder", f"conv_{k}"), "conv"))
+        out.append((f"enc_layers.{3 * k + 1}", ("encoder", f"norm_{k}"),
+                    "norm"))
+        blk, base = f"block_{k}", f"enc_layers.{3 * k + 2}"
+        out.append((f"{base}.dwconv", ("encoder", blk, "dwconv"), "conv"))
+        out.append((f"{base}.norm", ("encoder", blk, "norm"), "norm"))
+        out.append((f"{base}.pwconv1", ("encoder", blk, "pwconv1"),
+                    "linear"))
+        out.append((f"{base}.pwconv2", ("encoder", blk, "pwconv2"),
+                    "linear"))
+        out.append((f"{base}.gamma", ("encoder", blk), "gamma"))
+    out.append((f"enc_layers.{3 * n_stages}", ("encoder", "proj"), "conv"))
+    out.append(("dec_exc_layers.conv.0", ("dec_exc", "conv"), "conv"))
+    for i in range(sum(1 for k in p if k.startswith("dec_layers_"))):
+        out.append((f"dec_layers.{i}.conv.0", (f"dec_layers_{i}", "conv"),
+                    "conv"))
+    for i in range(sum(1 for k in p if k.startswith("shortcuts_"))):
+        out.append((f"dec_shortcuts.{3 * i}", (f"shortcuts_{i}",), "raw"))
+        out.append((f"dec_shortcuts.{3 * i + 1}", (f"shortcut_norms_{i}",),
+                    "norm"))
+    for kind in ("z", "r", "h"):
+        for i in range(sum(1 for k in p if k.startswith(f"bsm_{kind}_"))):
+            out.append((f"dec_bsm_{kind}.{i}", (f"bsm_{kind}_{i}",), "conv"))
+    out.append(("dec_head_layers", ("head_layer",), "conv"))
+    return out
+
+
+def layer_prefix(path, arch: str) -> str:
+    """State-dict prefix of a quantized layer of `arch` given by its flax
+    path (``models.quant_layer_paths``): ('blocks_2', 'conv') ->
+    'decoder.3.conv.0', ('bsm_z_1',) -> 'dec_bsm_z.1'. The head's path,
+    ('head_layer',), is 'dec_head_layers' in PNeRV, else 'head_layer'."""
     path = tuple(path)
+    if path == ("head_layer",):
+        pnerv = arch.lower().startswith("pnerv")
+        return "dec_head_layers" if pnerv else "head_layer"
     if path == ("decoder0",):
         return "decoder.0"
-    if path == ("head_layer",):
-        return "head_layer"
-    if len(path) == 2 and path[0].startswith("blocks_") and path[1] == "conv":
-        return f"decoder.{int(path[0][len('blocks_'):]) + 1}.conv.0"
+    if path == ("dec_exc", "conv"):
+        return "dec_exc_layers.conv.0"
+    if len(path) == 2 and path[1] == "conv":
+        if path[0].startswith("blocks_"):
+            return f"decoder.{int(path[0][len('blocks_'):]) + 1}.conv.0"
+        if path[0].startswith("dec_layers_"):
+            return f"dec_layers.{int(path[0][len('dec_layers_'):])}.conv.0"
+    if len(path) == 1 and path[0][:6] in ("bsm_z_", "bsm_r_", "bsm_h_"):
+        return f"dec_bsm_{path[0][4]}.{int(path[0][6:])}"
     raise KeyError(f"no state-dict prefix for layer path {path}")
 
 
 def state_dict_from_jax(arch: str, params_np) -> "OrderedDict":
-    """numpy leaves of a flax HNeRV/NeRV params tree -> a torch state dict
-    with the reference key names (CPU tensors)."""
+    """numpy leaves of a flax NeRV/HNeRV/PNeRV params tree -> a torch state
+    dict with the reference key names (CPU tensors)."""
     arch = arch.lower()
     p = params_np["params"] if "params" in params_np else params_np
-    n_blocks = sum(1 for k in p if k.startswith("blocks_"))
     pairs = []
-    if arch == "hnerv":
-        enc = p["encoder"]
-        pairs += _convnext_pairs(
-            sum(1 for k in enc if k.startswith("down_conv_")),
-            sum(1 for k in enc if k.startswith("stage_0_block_")))
-    elif arch != "nerv":
+    if arch.startswith("pnerv"):
+        pairs = _pnerv_pairs(p)
+    elif arch in ("hnerv", "nerv"):
+        if arch == "hnerv":
+            enc = p["encoder"]
+            pairs += _convnext_pairs(
+                sum(1 for k in enc if k.startswith("down_conv_")),
+                sum(1 for k in enc if k.startswith("stage_0_block_")))
+        pairs += _decoder_pairs(sum(1 for k in p if k.startswith("blocks_")))
+    else:
         raise NotImplementedError(f"state-dict conversion for arch {arch!r}")
-    pairs += _decoder_pairs(n_blocks)
 
     sd = OrderedDict()
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))  # noqa
@@ -103,6 +161,9 @@ def state_dict_from_jax(arch: str, params_np) -> "OrderedDict":
         elif kind == "norm":
             sd[f"{key}.weight"] = t(node["scale"])
             sd[f"{key}.bias"] = t(node["bias"])
+        elif kind == "raw":   # KFc: its leaves under their own names
+            for name, v in node.items():
+                sd[f"{key}.{name}"] = t(v)
         else:
             sd[key] = t(node["gamma"])
     return sd

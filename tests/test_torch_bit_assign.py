@@ -122,13 +122,32 @@ def test_bit_assign_search_runs(ckpt, frame_dir, monkeypatch):
     assert np.isfinite(score)
 
 
-@pytest.mark.parametrize("arch,item", [("pnerv2", "item 12"),
-                                       ("pnerv1", "item 12")])
-def test_bit_assign_refuses_unported_archs(arch, item):
-    from neuroquant_tpu_torch.methods import bit_assign
+@pytest.mark.parametrize("arch,n", [("pnerv2", 9), ("pnerv1", 11)])
+def test_bit_assign_runs_the_pnerv_archs(arch, n, tiny_pnerv_cfg, frame_dir,
+                                        tmp_path, monkeypatch):
+    """bit_assign --arch pnerv1 and pnerv2 on a port-written checkpoint:
+    fisher_diag over two uniform allocations, the finer one winning; no
+    default candidates for PNeRV (the JAX package's ValueError)."""
+    import yaml
 
-    with pytest.raises(NotImplementedError, match=item):
-        bit_assign.main(["--arch", arch, "--config", "unused.yaml"])
+    from neuroquant_tpu_torch.methods import bit_assign
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.utils.convert import save_pth
+
+    monkeypatch.chdir(tmp_path)
+    with open("tiny.yaml", "w") as f:
+        yaml.safe_dump(tiny_pnerv_cfg, f)
+    save_pth("ck.pth", build_model(arch, tiny_pnerv_cfg, device="cpu"))
+    argv = ["--config", "tiny.yaml", "--arch", arch, "--data_path",
+            frame_dir, "--vid", "tiny", "--outf", "b", "--ckpt", "ck.pth",
+            "--batch_size", "2", "--channel_wise", "--mode", "fisher_diag",
+            "--device", "cpu"]
+    lo, hi = ",".join(["2"] * n), ",".join(["6"] * n)
+    best, bits, score = bit_assign.main(argv + ["--candidates",
+                                                f"{lo};{hi}"])
+    assert (best, bits) == ("candidate2", [6] * n) and np.isfinite(score)
+    with pytest.raises(ValueError, match="no default candidates"):
+        bit_assign.main(argv)
 
 
 def test_hessian_eigen_matches_jax(ckpt, frame_dir):

@@ -327,7 +327,7 @@ def _bunny_shapes():
     model = build_model("hnerv", cfg, device="cpu")
     params = model.state_dict()
     spec = make_spec("hnerv", cfg, hadamard=True)
-    return [tuple(_get(params, p)[0].shape) for p in spec.layer_paths]
+    return [tuple(_get(params, pre)[0].shape) for pre in spec.layer_keys]
 
 
 BUNNY = [(1, 1, 16, 92), (1, 1, 92, 1925), (3, 3, 77, 1024),
@@ -342,7 +342,7 @@ def _fixture_shapes(cfg):
     model = build_model("hnerv", cfg, device="cpu")
     params = model.state_dict()
     spec = make_spec("hnerv", cfg, hadamard=True)
-    return [tuple(_get(params, p)[0].shape) for p in spec.layer_paths]
+    return [tuple(_get(params, pre)[0].shape) for pre in spec.layer_keys]
 
 
 @pytest.mark.parametrize("which", ["bunny", "fixture", "edges"])
@@ -530,3 +530,45 @@ def test_launch_path_with_the_kernels_arithmetic(hadamard, monkeypatch):
                     if i == 3:
                         assert t.grad.stride() == a.stride()
     assert len(tff._PLANS) == 2      # one forward and one backward plan
+
+
+def test_pnerv1_group_takes_two_launches(tiny_pnerv_cfg, monkeypatch):
+    """PNeRV1 at five strides has 19 quantized layers, more than one
+    launch takes (MAX_LAYERS 16): quantize_params on fq_impl 'pallas'
+    through the card's launch path, the kernels' arithmetic standing in,
+    builds two descriptors of 16 and 3 layers forward and backward, and
+    gives the 'jnp' implementation's weights and AdaRound gradients."""
+    monkeypatch.setattr(tff, "_lib", lambda: _Kernels())
+    monkeypatch.setattr(tff, "_route", lambda x, name: True)
+    monkeypatch.setattr(tff, "_PLANS", {})
+    sizes = []
+
+    def launch(name, fn, *args):
+        sizes.append((name, tff._Group.from_address(args[0]).n))
+        assert fn(*args, None) == 0
+
+    monkeypatch.setattr(tff, "_launch", launch)
+    cfg = dict(tiny_pnerv_cfg, kfc_h_w_c=[1, 2, 6], emd_channel=4,
+               enc_strides=[5, 4, 4], kfc_strides=[2, 2, 2, 2, 5])
+    model = build_model("pnerv", cfg, device="cpu")
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    spec = make_spec("pnerv", cfg, hadamard=True)
+    assert spec.num_layers == 19 > tff.MAX_LAYERS == 16
+    state = tqm.adaround_upgrade(params, spec, tqm.init_quant_state(
+        params, spec))
+    got = {}
+    for impl in ("pallas", "jnp"):
+        st = {ln: {k: v.clone().requires_grad_(k == "w_alpha")
+                   for k, v in s.items()} for ln, s in state.items()}
+        qp = tqm.quantize_params(params, dataclasses.replace(
+            spec, fq_impl=impl), st, mode="adaround")
+        sum((qp[k] ** 2).sum() for k in qp if k.endswith("weight")).backward()
+        got[impl] = (qp, {ln: st[ln]["w_alpha"].grad
+                          for ln in spec.layer_names})
+    assert sizes == [("fq_ada", 16), ("fq_ada", 3), ("fq_ada_bwd", 16),
+                     ("fq_ada_bwd", 3)]
+    for k in got["jnp"][0]:
+        assert torch.equal(got["pallas"][0][k].detach(),
+                           got["jnp"][0][k].detach()), k
+    for ln in spec.layer_names:
+        assert torch.equal(got["pallas"][1][ln], got["jnp"][1][ln]), ln

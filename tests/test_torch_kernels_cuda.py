@@ -318,6 +318,58 @@ def test_nerv_bunny_conv_passes(dev, li, batch):
             tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (3, 1)
 
 
+def _pnerv_bunny_layers():
+    """PNeRV Bunny-3M's two tail conv layers on the kernels, (plan, layer):
+    the block 100 -> 400 (f=1, cin padded to 104, no union sparsity) and
+    the head 400 -> 12 (f=2, padded to 16) at 320x640."""
+    import os
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.models import tail_plan_for
+
+    cfg = get_config(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                  "PNeRV", "Bunny_1280x640_3M.yaml"))
+    plan = tail_plan_for("pnerv", cfg)[0]
+    return [(plan, l) for l in plan.layers]
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("li", [0, 1], ids=["block", "head"])
+def test_pnerv_bunny_conv_passes(dev, li, batch):
+    """Each PNeRV Bunny-3M tail conv's forward (z, y and the pair zy), its
+    dx pass (GELU' epilogue where its input went
+    through GELU) and its dW pass at batch 1 and 2, against their plain
+    versions: the largest tail conv of the shipped configs and the
+    narrowest head tile."""
+    plan, layer = _pnerv_bunny_layers()[li]
+    gen = torch.Generator(device=dev).manual_seed(29 + li)
+    mask = tf.border_mask(plan, device=dev)
+    x = torch.randn((batch, layer.cin, plan.mp), generator=gen,
+                    device=dev) * mask
+    g = torch.randn((batch, layer.cout, plan.mp), generator=gen,
+                    device=dev) * mask
+    kk = torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                     generator=gen, device=dev) * 0.05
+    bias = torch.randn((layer.cout, 1), generator=gen, device=dev) * 0.1
+    blocks = tf._k_blocks(plan, layer)
+    tf.reset_launch_counts()
+    for emit in ("z", "y", "zy"):
+        _assert_close(tf.conv_cf(x, kk, bias, plan, layer, emit),
+                      tf.conv_cf_ref(x, kk, bias, plan, layer, emit,
+                                     blocks=blocks))
+    lt = layer.transposed()
+    kt = tf._kk_transpose(kk).contiguous()
+    om = x if layer.gelu_in else None
+    _assert_close(tf.conv_cf(g, kt, None, plan, lt, out_mul=om),
+                  tf.conv_cf_ref(g, kt, None, plan, lt,
+                                 blocks=tf._k_blocks(plan, lt), out_mul=om))
+    _assert_close(tf.conv_cf_dw(x, g, plan, layer),
+                  tf.conv_cf_dw_ref(x, g, plan, layer, False, blocks))
+    torch.cuda.synchronize()
+    assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (4, 1)
+
+
 def test_nerv_training_step_runs_on_the_kernels(dev, monkeypatch):
     """One stage-1 step of the tiny NeRV at batch 1 on the card: the
     position encoding's table, layer 0's (1, 2) shuffle, the fused prefix

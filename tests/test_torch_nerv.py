@@ -31,7 +31,7 @@ from neuroquant_tpu.quantization.spec import make_spec as jax_make_spec
 from neuroquant_tpu.utils.torch_compat import (
     params_to_state_dict, save_pth, state_dict_to_params)
 from neuroquant_tpu_torch.models import (
-    build_model, example_input, param_counts, require_ported,
+    build_model, example_input, param_counts, quant_layer_paths,
     tail_plan_for)
 from neuroquant_tpu_torch.models.layers import PositionEncoding
 from neuroquant_tpu_torch.quantization import (
@@ -406,9 +406,18 @@ class TestBunny:
         assert tuple(model.blocks[2].conv[0].weight.shape) == (384, 36, 3, 3)
 
 
-def test_require_ported_takes_nerv_and_names_item_12_for_pnerv():
-    require_ported("nerv")
-    require_ported("NeRV")
-    for arch in ("pnerv", "pnerv1", "pnerv2"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            require_ported(arch)
+def test_registry_takes_nerv_and_the_pnerv_archs(tiny_nerv_cfg,
+                                                tiny_pnerv_cfg):
+    """build_model and the layer list for NeRV and, since they are ported,
+    each PNeRV name (any case); an unknown arch raises as in JAX."""
+    from neuroquant_tpu.models import quant_layer_paths as jpaths
+
+    assert build_model("NeRV", tiny_nerv_cfg, device="cpu").pack_start == 2
+    for arch, cls in (("pnerv", "PNeRV1"), ("pnerv1", "PNeRV1"),
+                      ("PNeRV2", "PNeRV2")):
+        model = build_model(arch, tiny_pnerv_cfg, device="cpu")
+        assert type(model).__name__ == cls and model.tail_packed
+        assert (quant_layer_paths(arch, tiny_pnerv_cfg)
+                == jpaths(arch.lower(), tiny_pnerv_cfg))
+    with pytest.raises(ValueError, match="model arch wrong"):
+        build_model("vnerv", tiny_nerv_cfg, device="cpu")

@@ -112,8 +112,6 @@ def _states(p, sd, jspec, tspec, mode):
 class TestQuantizeParams:
     @pytest.mark.parametrize("mode", ["uaq", "adaround", "mixed"])
     def test_fake_quant_weights_and_codes(self, params, tiny_hnerv_cfg, mode):
-        from neuroquant_tpu_torch.utils.convert import layer_prefix
-
         p, sd = params
         jspec, tspec = _specs(tiny_hnerv_cfg, hadamard=True)
         js, ts = _states(p, sd, jspec, tspec, mode)
@@ -121,9 +119,9 @@ class TestQuantizeParams:
         want = jqm.quantize_params(p, jspec, js, mode=qmode, soft=False)
         got = tqm.quantize_params(sd, tspec, ts, mode=qmode, soft=False)
         codes = jqm.collect_int_codes(p, jspec, js, mode=qmode)
-        for name, path, bits in zip(jspec.layer_names, jspec.layer_paths,
-                                    jspec.n_bits):
-            pre = layer_prefix(path)
+        for name, path, pre, bits in zip(jspec.layer_names,
+                                         jspec.layer_paths,
+                                         tspec.layer_keys, jspec.n_bits):
             jl = jqm._get(want, path)
             np.testing.assert_allclose(
                 got[f"{pre}.weight"].permute(2, 3, 1, 0).numpy(),
@@ -131,7 +129,7 @@ class TestQuantizeParams:
             np.testing.assert_allclose(got[f"{pre}.bias"].numpy(),
                                        np.asarray(jl["bias"]), atol=1e-6,
                                        rtol=0)
-            w, b = tqm._get(sd, path)
+            w, b = tqm._get(sd, pre)
             s = ts[name]
             wd = tqm._hadamard_weight(w)
             if "w_alpha" in s:
@@ -252,6 +250,39 @@ class TestCalibrationState:
                 else:
                     np.testing.assert_array_equal(g, w,
                                                   err_msg=f"{name}/{leaf}")
+
+    def test_adaround_upgrade_keeps_a_delta_that_f16_rounds_to_zero(
+            self, params, tiny_hnerv_cfg):
+        """Phase 1's Adam can walk a channel's delta across zero; where
+        float16 rounds it to 0 (|delta| < 2^-25) the hand-off keeps its sign
+        at the smallest float16, so every alpha stays finite (the JAX
+        package divides by the zero); other deltas round as the JAX
+        package's do, and their alphas match."""
+        p, sd = params
+        jspec, tspec = _specs(tiny_hnerv_cfg, hadamard=True)
+        js = _np_state(jqm.init_quant_state(p, jspec))
+        name = jspec.layer_names[2]
+        d = js[name]["w_delta"].copy()
+        d.reshape(-1)[:3] = [1e-9, -2e-8, 0.0]
+        js[name]["w_delta"] = d
+        js[name]["b_delta"] = np.float32(-1e-10)
+        got = tqm.adaround_upgrade(sd, tspec, quant_state_from_numpy(js))
+        want = jqm.adaround_upgrade(p, jspec, js)
+        tiny = 2.0 ** -24
+        wd = got[name]["w_delta"].reshape(-1).numpy()
+        np.testing.assert_array_equal(wd[:3], [tiny, -tiny, tiny])
+        np.testing.assert_array_equal(
+            wd[3:], np.asarray(want[name]["w_delta"]).reshape(-1)[3:])
+        assert float(got[name]["b_delta"]) == -tiny
+        for ln, s in got.items():
+            for leaf, v in s.items():
+                assert bool(torch.isfinite(v).all()), (ln, leaf)
+        # the JAX hand-off divides by the zero
+        assert not np.isfinite(np.asarray(want[name]["w_alpha"])).all()
+        np.testing.assert_allclose(
+            got[name]["w_alpha"].numpy()[..., 3:],
+            np.asarray(want[name]["w_alpha"])[..., 3:], rtol=1e-4,
+            atol=1e-4)
 
     def test_round_loss(self, params, tiny_hnerv_cfg):
         p, sd = params

@@ -510,8 +510,7 @@ class TestCLI:
 
     @pytest.mark.parametrize("flag,item", [
         (["--mesh_devices", "2"], "item 14"),
-        (["--matmul_precision", "bfloat16"], "item 16"),
-        (["--arch", "pnerv1"], "item 12"), (["--arch", "pnerv2"], "item 12")])
+        (["--matmul_precision", "bfloat16"], "item 16")])
     def test_unported_flags_name_their_item(self, flag, item):
         with pytest.raises(NotImplementedError, match=item):
             regress.main(["--config", "c.yaml", "--arch", "hnerv",
