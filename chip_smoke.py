@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU, at HNeRV Bunny-3M
 (640x1280, configs/HNeRV/Bunny_1280x640_3M.yaml), NeRV Bunny-3M
 (configs/NeRV/Bunny_1280x640_3M.yaml) and PNeRV Bunny-3M
-(configs/PNeRV/Bunny_1280x640_3M.yaml) with seeded random weights.
+(configs/PNeRV/Bunny_1280x640_3M.yaml) with seeded random weights, and the
+unit-scope calibration (calibrate_network --scope block|layer) at HNeRV
+and NeRV Bunny-3M.
 
   python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -109,6 +111,23 @@ Phases (any failure exits non-zero):
      on both fq_impls, the bitstream, bit_assign with two toy allocations
      (with and without --remat); then PNeRV2: decode, one calibration step
      (one fake-quant launch for its 15 layers) and calibrate_network
+ 15. unit scope -- calibrate_network --scope block (stream bf16 cache,
+     fq_impl jnp) and --scope layer (shared fp32 cache, fq_impl pallas,
+     fisher_diag, --input_prob 0.5) at HNeRV Bunny-3M, 40 steps a unit,
+     each artifact read by eval_quantized, the second through compress and
+     eval_quantized --from_bitstream, and NeRV Bunny-3M at --scope block
+     (20 steps a unit): every unit's log lines and finite state, the
+     launches over these runs (each kernel of the decode and the
+     fake-quant's fq_uaq, fq_ada, fq_ada_bwd at least once); then the fp32
+     harvest against a float64 harvest (CONV_TOL) and the bf16 stream
+     cache within one bf16 unit of it; one step of block 4 (the largest
+     unit, 44 -> 37*4 channels, 5x5, 320x640) against the same step in
+     float64 (loss LOSS_TOL, alpha gradients GRAD_TOL), mse and
+     fisher_diag, and on fq_impl pallas against jnp (the same weights,
+     FQ_LOSS_TOL, FQ_GRAD_TOL); each unit's step at batch 2 on both
+     fq_impls: ms (20 steps back to back), the port's launches and the
+     card's kernels a step, its idle share, one host synchronisation a
+     chunk; harvest seconds, cache bytes, each run's peak memory
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -122,7 +141,8 @@ fq_ada; the backward's fq_uaq_bwd, fq_ada_bwd); per-launch figures under
 shapes under "stage1_per_launch"; NeRV's per-launch records (phase 13)
 under "nerv_per_launch", its launches under "nerv_launches"; PNeRV1's
 (phase 14) under "pnerv_per_launch" and "pnerv_launches", PNeRV2's
-launches under "pnerv2_launches". The last line is {"ok": true,
+launches under "pnerv2_launches"; the launches over phase 15's runs
+under "unit_scope_launches". The last line is {"ok": true,
 "device": ...}.
 """
 
@@ -216,6 +236,9 @@ BF16_TOL = 2.0 ** -5
 PER_STAGE1_STEP = dict(PER_STEP, unpack_frames=1)
 STAGE1_EPOCHS = 3    # regress.main on the 8 frames: 8 steps an epoch
 STAGE1_PSNR_TOL = 1e-3   # dB, --eval_only against the last in-training eval
+UNIT_ITERS = 40      # calibrate_network --scope block|layer, steps a unit
+UNIT_NERV_ITERS = 20
+UNIT_TIMED_STEPS = 20    # a unit's step timed back to back, one chunk
 REPO = os.path.dirname(os.path.abspath(__file__))
 HNERV_CONFIG = os.path.join("configs", "HNeRV", "Bunny_1280x640_3M.yaml")
 NERV_CONFIG = os.path.join("configs", "NeRV", "Bunny_1280x640_3M.yaml")
@@ -2326,6 +2349,338 @@ def _pnerv_phase(torch, tf, card, frames_dir, work):
     return out
 
 
+def _unit_run(torch, cfg, sd, frames_dir, card, work, arch, tag, iters,
+              extra):
+    """``calibrate_network.main --scope ...`` at Bunny-3M on the 8 seeded
+    frames, precision 6 5 4 5 5 6 6, Hadamard, channel-wise, batch 2,
+    `iters` steps a unit, from a .pth of the seeded weights: every unit's
+    log lines and finite state, the four eval blocks, the artifact read
+    back by ``eval_quantized`` to the last block's PSNR; its wall time,
+    peak memory, each unit's harvest seconds and cache bytes."""
+    from neuroquant_tpu_torch.methods import calibrate_network, eval_quantized
+
+    cwd = os.getcwd()
+    cap = _Capture()
+    pth = os.path.join(work, f"{arch}_seeded.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    try:
+        os.chdir(work)             # the run directory goes under results/
+        logging.getLogger().addHandler(cap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out_path, state, spec = calibrate_network.main([
+            "--config", os.path.join(REPO, _CONFIGS[arch]),
+            "--arch", arch, "--data_path", frames_dir, "--vid", "Bunny",
+            "--outf", f"{arch}_{tag}", "--ckpt", pth, "--precision",
+            *map(str, _precision(arch, cfg)), "--hadamard", "--channel_wise",
+            "--batch_size", str(CALIB_BATCH), "--iters_w", str(iters),
+            "--lr", "0.003", "--warmup", "0.2", *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for ln, s in state.items():
+            assert "w_alpha" in s, ln
+            for k, v in s.items():
+                assert bool(torch.isfinite(v).all()), (ln, k)
+        logging.getLogger().removeHandler(cap)
+        results = eval_quantized.main(["--artifact", out_path,
+                                       "--data_path", frames_dir])
+    finally:
+        logging.getLogger().removeHandler(cap)
+        os.chdir(cwd)
+    out_path = os.path.join(work, out_path)
+    scope = extra[extra.index("--scope") + 1]
+    assert f"{scope}-wise_calib" in out_path, out_path
+    text = "\n".join(cap.lines)
+    for u, name in enumerate(spec.layer_names):
+        assert f"Reconstruction for {scope} {u} ({name})" in text, u
+        assert f"[unit {u} {name}] iter {iters}/{iters} loss " in text, u
+    losses = [float(v) for v in re.findall(
+        rf"\] iter {iters}/{iters} loss ([-\d.e]+)", text)]
+    assert len(losses) == len(spec.layer_names) and all(
+        math.isfinite(v) for v in losses), losses
+    harvest = [float(v) for v in re.findall(r"Cached init time: ([\d.e-]+)",
+                                            text)]
+    grad_s = [float(v) for v in re.findall(r"Cached grad time: ([\d.e-]+)",
+                                           text)]
+    cache = [int(v) for v in re.findall(r"\] cache (\d+) bytes", text)]
+    assert len(cache) == len(spec.layer_names), cache
+    psnrs = [float(v) for v in re.findall(r"best_pred_seen_psnr: ([\d.]+)",
+                                          text)]
+    assert len(psnrs) == 4, psnrs          # the four eval blocks
+    psnr = float(results[0])
+    assert math.isfinite(psnr) and abs(round(psnr, 2) - psnrs[-1]) <= 0.01, (
+        psnr, psnrs)
+    print(f"  calibrate_network {' '.join(extra)} (--arch {arch}, "
+          f"--iters_w {iters} a unit): {wall:.1f} s wall (evals included), "
+          f"peak {peak:.1f} MiB; harvest s {harvest}; fisher-cache s "
+          f"{grad_s}; cache bytes a unit {cache}; last losses {losses}")
+    print(f"  PSNR fp32 / quant off / quant unopt / quant opt: {psnrs}; "
+          f"eval_quantized on the artifact: {psnr:.4f} dB; card {card}")
+    return dict(artifact=out_path, eval_psnr=psnr, psnr_blocks=psnrs,
+                wall_s=wall, peak_mib=peak, harvest_s=harvest,
+                fisher_cache_s=grad_s, cache_bytes=cache,
+                unit_losses=losses, args=extra)
+
+
+def _unit_step(prob, idx, count, compute_dtype=None):
+    """One step's (loss, alpha gradients) of `prob` from its starting
+    alphas."""
+    import torch
+
+    tr = prob.trainable()
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+    total, _, _ = prob.loss(tr, idx, count, **kw)
+    total.backward()
+    torch.cuda.synchronize()
+    return float(total.detach()), {k: v.grad for k, v in tr.items()}, tr
+
+
+def _unit_records(torch, tf, prob, n=UNIT_TIMED_STEPS):
+    """A unit's step at batch 2: ms (CUDA events, n steps back to back
+    after 3), the port's launches a step, and over a profiled chunk of n
+    steps and its one loss fetch: the card's busy share, device kernels a
+    step and the host synchronisations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuroquant_tpu_torch.quantization.calib_unit import run_steps
+    from neuroquant_tpu_torch.utils.profiling import device_rows
+
+    tr = prob.trainable()
+    opt = torch.optim.Adam(list(tr.values()), lr=0.003, eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    idxs = torch.randint(0, prob.x_fp.shape[0], (n, CALIB_BATCH),
+                         generator=gen, device="cuda")
+
+    def draw(count, shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    count, _ = run_steps(prob, tr, opt, idxs[:3], 0, draw)
+    torch.cuda.synchronize()
+    tf.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    count, _ = run_steps(prob, tr, opt, idxs, count, draw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    launches = {k: v / n for k, v in tf.KERNEL_LAUNCHES.items() if v}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        count, last = run_steps(prob, tr, opt, idxs, count, draw)
+        loss = float(last)          # the chunk's one host synchronisation
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    rows = device_rows(events)
+    busy = sum(r[0] for r in rows) / 1e3
+    syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
+    top = [dict(ms=us / 1e3 / n, launches=cnt / n, name=key[:100])
+           for us, cnt, key in sorted(rows, reverse=True)[:5]]
+    return dict(ms=ms, launches_per_step=launches, top=top,
+                device_kernels_per_step=sum(r[1] for r in rows) / n,
+                busy_ms_per_step=busy / n if busy > 0 else None,
+                idle_share=(1 - busy / wall_ms) if busy > 0 else None,
+                host_syncs_per_chunk=syncs, chunk_steps=n, last_loss=loss)
+
+
+def _unit_scope_phase(torch, tf, cfg, sd, frames_dir, card, work):
+    """Phase 15: unit-scope calibration at HNeRV Bunny-3M, full width and
+    depth (and NeRV Bunny-3M at block scope), on the 8 seeded frames.
+    The main path, its launches counted: calibrate_network --scope block
+    (stream cache, fq_impl jnp) and --scope layer (shared cache, fq_impl
+    pallas, fisher_diag, QDrop 0.5), each artifact read by eval_quantized,
+    the second through compress and eval_quantized --from_bitstream; NeRV
+    --scope block. Then the gates: the fp32 harvest against a float64
+    harvest, the bf16 stream cache within one bf16 unit of it; one step of
+    block 4 (the largest unit) against the same step in float64, mse and
+    fisher_diag; that step on fq_impl pallas against jnp. Then the
+    records: each unit's step time on both fq_impls, launches, idle share
+    and host synchronisations per chunk."""
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization import (
+        init_quant_state, make_spec)
+    from neuroquant_tpu_torch.quantization.calib_unit import (
+        UnitProblem, harvest_unit_io)
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    t_start = time.time()
+    out = {}
+    ncfg = validate_config(get_config(os.path.join(REPO, NERV_CONFIG)),
+                           "nerv")
+    ncfg["workers"] = 0
+    nmodel = build_model("nerv", ncfg, device="cuda")
+    nsd = _seeded_state_dict(nmodel, np.random.RandomState(SEED + 13))
+    del nmodel
+    _section("unit scope: calibrate_network, the main path")
+    tf.reset_launch_counts()
+    out["block_stream_jnp"] = _unit_run(
+        torch, cfg, sd, frames_dir, card, work, "hnerv", "unit_block",
+        UNIT_ITERS, ["--scope", "block", "--unit_cache", "stream",
+                     "--fq_impl", "jnp"])
+    out["layer_shared_pallas"] = _unit_run(
+        torch, cfg, sd, frames_dir, card, work, "hnerv", "unit_layer",
+        UNIT_ITERS, ["--scope", "layer", "--unit_cache", "shared",
+                     "--fq_impl", "pallas", "--opt_mode", "fisher_diag",
+                     "--input_prob", "0.5"])
+    before = dict(tf.KERNEL_LAUNCHES)   # _bitstream_phase resets the count
+    out["bitstream"] = _bitstream_phase(torch, tf, out["layer_shared_pallas"],
+                                        frames_dir, card)
+    out["nerv_block"] = _unit_run(
+        torch, ncfg, nsd, frames_dir, card, work, "nerv", "unit_block",
+        UNIT_NERV_ITERS, ["--scope", "block"])
+    torch.cuda.synchronize()
+    out["launches"] = {k: v + before[k]
+                       for k, v in tf.KERNEL_LAUNCHES.items()}
+    print(f"  launches over the main path (both HNeRV runs, their evals, "
+          f"the bitstream, the NeRV run): {out['launches']}")
+    for k in ("tail_conv_cf", "pack_cf", "unpack_frames", "fq_uaq", "fq_ada",
+              "fq_ada_bwd"):
+        assert out["launches"][k] > 0, (k, out["launches"])
+
+    _section("unit scope: harvest against float64")
+    dev = torch.device("cuda")
+    model = build_model("hnerv", cfg, device=dev)
+    params = state_dict_from_numpy(sd, dev)
+    model.load_state_dict(params, strict=True)
+    model.eval()
+    data = VideoDataSet(cfg, frames_dir, device=dev)
+    with torch.no_grad():
+        emb = model.encode(data.frames)
+    spec = make_spec("hnerv", cfg, channel_wise=True, scale_method="max",
+                     hadamard=True).with_bits(PRECISION)
+    spec_fq = make_spec("hnerv", cfg, channel_wise=True, scale_method="max",
+                        hadamard=True, fq_impl="pallas").with_bits(PRECISION)
+    state = init_quant_state(params, spec)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    io = harvest_unit_io(model, params, "hnerv", spec, emb)
+    torch.cuda.synchronize()
+    shared_s = time.time() - t0
+    model64 = build_model("hnerv", cfg, device=dev)
+    model64.load_state_dict(params, strict=True)
+    model64.to(torch.float64)
+    io64 = harvest_unit_io(model64, {k: v.double() for k, v in
+                                     params.items()}, "hnerv", spec,
+                           emb.double())
+    del model64
+    harvest_err, stream_err = [], []
+    for u in range(len(PRECISION)):
+        for a, b in zip(io[u], io64[u]):
+            harvest_err.append(float((a.double() - b).abs().max())
+                               / max(float(b.abs().max()), 1e-30))
+        bf = harvest_unit_io(model, params, "hnerv", spec, emb, only=u,
+                             cache_dtype=torch.bfloat16)[u]
+        for a, b in zip(bf, io[u]):
+            # in bf16 units of the fp32 value: 2^(e - 8) for |b| in
+            # [2^(e-1), 2^e)
+            unit = torch.ldexp(torch.ones_like(b), torch.frexp(b)[1] - 8)
+            stream_err.append(float(((a.float() - b.to(torch.bfloat16)
+                                      .float()).abs() / unit).max()))
+        del bf
+    del io64
+    print(f"  fp32 harvest ({shared_s:.3f} s) against float64, per unit "
+          f"input / output max|diff| / max|value|: "
+          f"{' '.join(f'{e:.2e}' for e in harvest_err)} (tol "
+          f"{CONV_TOL:.0e}); the bf16 stream cache against it cast to "
+          f"bf16, in bf16 units: {' '.join(f'{e:g}' for e in stream_err)} "
+          f"(tol 1)")
+    assert max(harvest_err) <= CONV_TOL, harvest_err
+    assert max(stream_err) <= 1.0, stream_err
+    out.update(harvest_rel_err_float64=harvest_err,
+               stream_bf16_units=stream_err, shared_harvest_s=shared_s,
+               cache_bytes={u: sum(t.numel() * t.element_size() for t in p)
+                            for u, p in io.items()})
+
+    _section("unit scope: block 4's step against float64 and on pallas")
+    big = len(PRECISION) - 2           # block 4: 44 -> 37*4, 5x5
+    idx = torch.tensor([1, 6], device=dev)
+    count = 1           # in the warmup: the loss is the reconstruction's
+    steps = {}
+    for opt_mode in ("mse", "fisher_diag"):
+        prob = UnitProblem(model, params, spec, state, big, emb,
+                           iters=UNIT_ITERS, warmup=0.2, opt_mode=opt_mode,
+                           io=io, log_fn=lambda m: None)
+        loss32, g32, _ = _unit_step(prob, idx, count)
+        loss64, g64, _ = _unit_step(prob, idx, count, torch.float64)
+        rel = abs(loss32 - loss64) / abs(loss64)
+        gerr = {k: float((g32[k] - g64[k]).abs().max())
+                / max(float(g64[k].abs().max()), 1e-30) for k in g64}
+        prob_fq = UnitProblem(model, params, spec_fq, state, big, emb,
+                              iters=UNIT_ITERS, warmup=0.2,
+                              opt_mode=opt_mode, io=io,
+                              log_fn=lambda m: None)
+        tr = prob.trainable()
+        with torch.no_grad():
+            wq_j = prob.fake_quant(tr)[0]
+            wq_p = prob_fq.fake_quant(tr)[0]
+        fq_err = float((wq_p - wq_j).abs().max()) / float(wq_j.abs().max())
+        tf.reset_launch_counts()
+        loss_p, g_p, _ = _unit_step(prob_fq, idx, count)
+        fq_launches = dict(tf.KERNEL_LAUNCHES)
+        rel_p = abs(loss_p - loss32) / abs(loss32)
+        gerr_p = {k: float((g_p[k] - g32[k]).abs().max())
+                  / max(float(g32[k].abs().max()), 1e-30) for k in g32}
+        print(f"  block 4 ({tuple(prob.x_fp.shape)} -> "
+              f"{tuple(prob.y_fp.shape)}), {opt_mode}: loss {loss32:.8e} "
+              f"against float64 {loss64:.8e} (rel {rel:.2e}, tol "
+              f"{LOSS_TOL:.0e}); alpha gradients against float64 "
+              f"{gerr} (tol {GRAD_TOL:.0e}); fq_impl pallas: weights "
+              f"{fq_err:.2e} of the largest from jnp's (tol {FQ_TOL:.0e}), "
+              f"loss rel {rel_p:.2e} (tol {FQ_LOSS_TOL:.0e}), gradients "
+              f"{gerr_p} (tol {FQ_GRAD_TOL:.0e}); launches {fq_launches}")
+        assert rel <= LOSS_TOL, (loss32, loss64)
+        assert max(gerr.values()) <= GRAD_TOL, gerr
+        assert fq_err <= FQ_TOL, fq_err
+        assert rel_p <= FQ_LOSS_TOL, (loss_p, loss32)
+        assert max(gerr_p.values()) <= FQ_GRAD_TOL, gerr_p
+        assert fq_launches["fq_ada"] == 1 and fq_launches["fq_ada_bwd"] == 1
+        steps[opt_mode] = dict(loss=loss32, float64_loss=loss64,
+                               loss_rel_err=rel, grad_rel_err=gerr,
+                               fq_pallas=dict(weight_rel_err=fq_err,
+                                              loss_rel_err=rel_p,
+                                              grad_rel_err=gerr_p))
+        del prob, prob_fq
+    out["block4_step"] = steps
+
+    _section("unit scope: each unit's step, both fq_impls")
+    records = {}
+    for u, name in enumerate(spec.layer_names):
+        for label, sp in (("jnp", spec), ("pallas", spec_fq)):
+            prob = UnitProblem(model, params, sp, state, u, emb,
+                               iters=UNIT_ITERS, warmup=0.2, io=io,
+                               log_fn=lambda m: None)
+            rec = _unit_records(torch, tf, prob)
+            want = ({"fq_ada": 1.0, "fq_ada_bwd": 1.0} if label == "pallas"
+                    else {})
+            assert rec["launches_per_step"] == want, rec
+            assert rec["host_syncs_per_chunk"] == 1, rec
+            records[f"{u} {label}"] = dict(rec, unit=name)
+            idle = rec["idle_share"]
+            print(f"  unit {u} ({name}) {label}: {rec['ms']:.3f} ms a step "
+                  f"(batch {CALIB_BATCH}, {UNIT_TIMED_STEPS} back to back); "
+                  f"busy {rec['busy_ms_per_step']} ms a step, idle "
+                  f"{'not measured' if idle is None else f'{idle:.3f}'}; "
+                  f"{rec['device_kernels_per_step']:.1f} device kernels and "
+                  f"port launches {rec['launches_per_step']} a step; "
+                  f"{rec['host_syncs_per_chunk']} host synchronisation(s) "
+                  f"a chunk of {rec['chunk_steps']}")
+            if (rec["busy_ms_per_step"] or 0) > 1.0:
+                for r in rec["top"]:
+                    print(f"    {r['ms']:8.4f} ms  x{r['launches']:<5g} "
+                          f"{r['name'][:90]}")
+            del prob
+    out["steps"] = records
+    _section()
+    out["seconds"] = time.time() - t_start
+    print(f"  phase 15 (unit scope) took {out['seconds']:.1f} s; card {card}")
+    return out
+
+
 def _write_frames(path: str, rng):
     from PIL import Image
 
@@ -2539,6 +2894,7 @@ def main() -> int:
         del model
         nerv = _nerv_phase(torch, tf, card, frames_dir, work)
         pnerv = _pnerv_phase(torch, tf, card, frames_dir, work)
+        unit = _unit_scope_phase(torch, tf, cfg, sd, frames_dir, card, work)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2615,6 +2971,9 @@ def main() -> int:
             "per_step_launches": (
                 FQ_PHASE1[name] + FQ_PHASE2[name] if is_fq
                 else PER_STEP[name]),
+            # over phase 15's main path: both unit-scope runs, their evals,
+            # the bitstream and the NeRV run
+            "unit_scope_launches": unit["launches"][name],
             "per_launch": per})
     kernels[0]["calibration_per_launch"] = brecords["tail_conv_cf"][
         "per_launch"]
@@ -2635,6 +2994,9 @@ def main() -> int:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
         assert serve["launches"][k] > 0, k
+    for k in ("tail_conv_cf", "pack_cf", "unpack_frames", "fq_uaq", "fq_ada",
+              "fq_ada_bwd"):
+        assert unit["launches"][k] > 0, k
     print(f"  total {time.time() - t_start:.1f} s after start; decode "
           f"{dec['decode_ms']:.3f} ms/frame kernel path, "
           f"{dec['plain_decode_ms']:.3f} plain; calibration phase 2 "
@@ -2648,7 +3010,8 @@ def main() -> int:
                       "nerv": {k: v for k, v in nerv.items()
                                if not k.startswith(("kernels", "fq"))},
                       "pnerv": {k: v for k, v in pnerv.items()
-                                if not k.startswith(("kernels", "fq"))}}))
+                                if not k.startswith(("kernels", "fq"))},
+                      "unit_scope": unit}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,9 +78,16 @@ def parse_args(argv):
                              "fisher_diag with 'pallas' runs the "
                              "production fused tail")
     parser.add_argument("--remat", action="store_true",
-                        help="torch.utils.checkpoint around the HVP's "
-                             "directional derivative: its backward "
-                             "recomputes the forward instead of keeping it")
+                        help="checkpoint the HVP's forward-mode decode in "
+                             "segments (prefix blocks or fusion stages, the "
+                             "tail as one): the backward recomputes them. "
+                             "The tail dominates the peak, so it saves "
+                             "little: one batch-2 HVP on --hvp_impl pallas "
+                             "peaked at 12262 -> 9828 MiB at PNeRV1 "
+                             "Bunny-3M (0.21 -> 0.29 s) and 4077 -> 3960 "
+                             "MiB at HNeRV Bunny-3M (0.105 -> 0.141 s) on "
+                             "an NVIDIA H100 80GB HBM3 at 700 W "
+                             "(scripts/torch_hvp_bench.py --remat)")
     parser.add_argument("--candidates", default="", type=str,
                         help="optional: semicolon-separated bit lists, e.g. "
                              "'6,5,4,5,5,6,6;2,3,4,6,4,4,2' (defaults to the "

@@ -4,7 +4,9 @@ ground-truth frames), the counterpart of
 
 Evaluate FP32 (harvesting the calibration embeddings), quantize with the
 per-layer --precision, evaluate quant-off and quant-on-unoptimized, run the
-two-phase calibration (quantization/calibrate.py), evaluate
+two-phase calibration (quantization/calibrate.py), or with --scope
+block|layer the per-unit reconstruction (quantization/calib_unit.py; NeRV
+and HNeRV), evaluate
 quant-on-optimized, and save the quantized artifact: a pickle with the
 reference-layout FP32 state dict, the quantization spec and state and the
 integer codes, in the JAX package's format, which both packages'
@@ -41,7 +43,7 @@ from neuroquant_tpu_torch.quantization import (
     model_reconstruction, quantize_params,
 )
 from neuroquant_tpu_torch.quantization.qmodel import _get
-from neuroquant_tpu_torch.utils.device import resolve_device
+from neuroquant_tpu_torch.utils.device import resolve_device, synchronize
 
 
 def parse_args(argv):
@@ -138,10 +140,6 @@ def parse_args(argv):
 
 def _refuse_unported(args):
     """Flags whose path is not ported raise, naming their ROADMAP item."""
-    if args.scope != "network":
-        raise NotImplementedError(
-            f"--scope {args.scope}: unit reconstruction is ROADMAP queue A "
-            "item 13")
     if args.mesh_devices > 1:
         raise NotImplementedError(
             "--mesh_devices > 1: data parallelism is ROADMAP queue A item 14")
@@ -165,6 +163,40 @@ def _eval_block(title, model, params, dataset, args, cfg, dump_vis=False):
     s, _ = common.best_metrics_str(results)
     logging.info(print_str + s)
     return results, embeds
+
+
+def _unit_scope(args, model, params, spec, state, cali_data):
+    """The BRECQ/AdaRound per-unit baselines: each quantized conv, in
+    quant-traversal order, reconstructed against its cached FP output
+    (``quantization/calib_unit.py``); --iters_w steps per unit. The
+    ``shared`` cache harvests every unit's IO once in fp32, ``stream`` one
+    unit's at a time in bf16."""
+    from neuroquant_tpu_torch.quantization.calib_unit import (
+        harvest_unit_io, unit_reconstruction)
+
+    if args.arch.lower() not in ("hnerv", "nerv"):
+        raise SystemExit(f"--scope {args.scope}: unit reconstruction covers "
+                         "the NeRV/HNeRV decoder layout only")
+    io, cache_dtype = None, None
+    if args.unit_cache == "shared":
+        t0 = time.time()
+        io = harvest_unit_io(model, params, args.arch, spec, cali_data)
+        synchronize(cali_data.device)
+        logging.info("Cached init time: {}".format(time.time() - t0))
+    else:
+        cache_dtype = torch.bfloat16
+    for u in range(len(spec.layer_names)):
+        logging.info(f"Reconstruction for {args.scope} {u} "
+                     f"({spec.layer_names[u]})")
+        state = unit_reconstruction(
+            model, params, spec, state, u, cali_data,
+            include_act=(args.scope == "block"),
+            batch_size=args.batch_size, iters=args.iters_w,
+            weight=args.weight, b_range=(args.b_start, args.b_end),
+            warmup=args.warmup, p=args.norm_p, lr=args.lr, seed=args.seed,
+            opt_mode=args.opt_mode, input_prob=args.input_prob, io=io,
+            cache_dtype=cache_dtype)
+    return state
 
 
 def _np(tree):
@@ -231,7 +263,7 @@ def calibrate(args, cfg):
                  f"==========================")
 
     cf_pack = None
-    if args.cf_loss != "off":
+    if args.cf_loss != "off" and args.scope == "network":
         # the loss in the packed channels-first domain (decode_cf against
         # pre-packed frames): the same sum, without the per-step unpack
         from neuroquant_tpu_torch.models import tail_plan_for
@@ -251,19 +283,23 @@ def calibrate(args, cfg):
 
     model.load_state_dict(params)
     start = datetime.now()
-    state, mode = model_reconstruction(
-        model, params, spec, state, cali_data, dataset.frames, train_ind,
-        arch=args.arch, batch_size=args.batch_size, iters=args.iters_w,
-        weight=args.weight,
-        b_range=(args.b_start, args.b_end), warmup=args.warmup,
-        p=args.norm_p, lr=args.lr, seed=args.seed,
-        checkpoint_path=(os.path.join(args.outf, "calib_resume.pkl")
-                         if args.calib_ckpt_freq else None),
-        ckpt_every_epochs=max(args.calib_ckpt_freq, 1), cf_pack=cf_pack,
-        rounding=args.rounding,
-        adaround_only=(tuple(spec.layer_names[i]
-                             for i in args.adaround_layers)
-                       if args.adaround_layers is not None else None))
+    if args.scope == "network":
+        state, mode = model_reconstruction(
+            model, params, spec, state, cali_data, dataset.frames,
+            train_ind, arch=args.arch, batch_size=args.batch_size,
+            iters=args.iters_w, weight=args.weight,
+            b_range=(args.b_start, args.b_end), warmup=args.warmup,
+            p=args.norm_p, lr=args.lr, seed=args.seed,
+            checkpoint_path=(os.path.join(args.outf, "calib_resume.pkl")
+                             if args.calib_ckpt_freq else None),
+            ckpt_every_epochs=max(args.calib_ckpt_freq, 1), cf_pack=cf_pack,
+            rounding=args.rounding,
+            adaround_only=(tuple(spec.layer_names[i]
+                                 for i in args.adaround_layers)
+                           if args.adaround_layers is not None else None))
+    else:
+        state = _unit_scope(args, model, params, spec, state, cali_data)
+        mode = "adaround"
     logging.info(f"Training complete in: {str(datetime.now() - start)}")
 
     with torch.no_grad():

@@ -108,8 +108,10 @@ def loss_fn(pred, target, loss_type: str = "l2", batch_average: bool = True):
 
 def lp_loss(pred, tgt, p: float = 2.0, reduction: str = "none"):
     """L_p calibration loss. With reduction='none' it sums over the channel
-    axis (the last of an NHWC image, axis 1 otherwise) and means over the
-    rest; else the plain mean."""
+    axis and means over the rest; else the plain mean. The channel axis of
+    a 4-D tensor is its last: a 4-D input must be NHWC (an NCHW tensor
+    would be summed over its width, and the loss's scale against
+    AdaRound's regularizer would change). Of any other rank, axis 1."""
     diff = pred - tgt
     if p == 2.0:
         d = diff * diff

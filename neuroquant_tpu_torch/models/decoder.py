@@ -10,16 +10,19 @@ last prefix block fused too; ``decode_cf`` stays in the packed domain (the
 calibration loss) and ``decode_jvp`` carries a tangent on the decoder's
 conv kernels beside the value (stage 2's Hessian-vector product). PNeRV's
 decoder (``models/pnerv.py``) shares the forward-mode tail
-(:func:`fused_tail_jvp`) and the packed-weights memo
+(:func:`fused_tail_jvp`), the segmenting of the forward-mode decode
+(:func:`segment_runner`) and the packed-weights memo
 (:class:`KeptKernelWeights`)."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from neuroquant_tpu_torch.models.layers import (
     Conv2d, NeRVBlock, collect_tail_params, fuses_prefix_block, out_img,
@@ -97,6 +100,24 @@ def _pack_entry(x, dx, plan):
     linear)."""
     return (pack_cf(x.contiguous(), plan),
             None if dx is None else pack_cf(dx.contiguous(), plan))
+
+
+def _run(fn, *args):
+    return fn(*args)
+
+
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def segment_runner(remat: bool):
+    """``run(fn, *args)`` for the segments of a forward-mode decode: fn as
+    it is, or with `remat` under non-reentrant ``torch.utils.checkpoint``,
+    so that the segment keeps only its inputs and outputs (the primal and
+    its tangent at its boundaries) and a backward through it recomputes its
+    inside, one segment at a time."""
+    return _remat if remat else _run
 
 
 def fused_tail_jvp(x, dx, blocks, head_layer, t: int, dws, out_bias: str):
@@ -249,7 +270,7 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         z, _, _, _ = run_fused_tail_cf(x, self._tail_weights(x))
         return out_img(z, self.cfg.out_bias)
 
-    def decode_jvp(self, img_embed, dws=None):
+    def decode_jvp(self, img_embed, dws=None, remat: bool = False):
         """Embedding -> (frames, their tangent) for tangents ``dws`` on the
         decoder's conv kernels: one OIHW tensor per conv, in decode order
         (decoder[0], each block's conv, the head: the quantized layers), or
@@ -263,7 +284,11 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         HVP execution does. Otherwise the plain unpacked chain carries the
         tangent on cuDNN convs. Every op of either graph is first-order
         autograd, so a gradient of the tangent (a Hessian-vector product)
-        differentiates each kernel once."""
+        differentiates each kernel once.
+
+        The decode runs in segments: decoder[0], each prefix block, the
+        fused prefix block, the tail (or the plain head). With `remat` each
+        segment is checkpointed (:func:`segment_runner`)."""
         c = self.cfg
         if c.dec_acts != "gelu":
             raise NotImplementedError(
@@ -274,23 +299,26 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         if len(dws) != len(blocks) + 2:
             raise ValueError(f"decode_jvp: {len(dws)} tangents for "
                              f"{len(blocks) + 2} convs")
+        run = segment_runner(remat)
         impl = self._fused_impl()
         t = len(blocks) if impl is None else self.pack_start
-        x, dx = _conv_jvp(self.decoder[0], img_embed, None, dws[0])
-        x, dx = (_shuffle(x, (c.fc_h, c.fc_w)),
-                 _shuffle(dx, (c.fc_h, c.fc_w)))
-        fused = fuses_prefix_block(blocks, t, impl, c.fused_prefix,
-                                   c.dec_norm)
-        for j in range(t - 1 if fused else t):
-            conv, r = blocks[j].conv[0], blocks[j].stride
-            x, dx = _conv_jvp(conv, x, dx, dws[j + 1])
-            x, dx = _gelu_jvp(_shuffle(x, r), _shuffle(dx, r))
-        if impl is None:
+        fc = (c.fc_h, c.fc_w)
+
+        def layer0(e):
+            x, dx = _conv_jvp(self.decoder[0], e, None, dws[0])
+            return _shuffle(x, fc), _shuffle(dx, fc)
+
+        def block(j, x, dx):
+            x, dx = _conv_jvp(blocks[j].conv[0], x, dx, dws[j + 1])
+            r = blocks[j].stride
+            return _gelu_jvp(_shuffle(x, r), _shuffle(dx, r))
+
+        def head(x, dx):
             x, dx = _conv_jvp(self.head_layer, x, dx, dws[-1])
             return _out_img_jvp(x, dx, c.out_bias)
 
-        h, w = int(x.shape[1]), int(x.shape[2])
-        if fused:
+        def fused_block(x, dx):
+            h, w = int(x.shape[1]), int(x.shape[2])
             blk = blocks[t - 1]
             plan, kks, bms, r, _ = pack_prefix_block(h, w, *blk.conv_params(),
                                                      blk.stride)
@@ -301,19 +329,46 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
             x = prefix_cf_to_nhwc(z, plan, r, blk.out_channel)
             dx = (None if dz is None
                   else prefix_cf_to_nhwc(dz, plan, r, blk.out_channel))
-            x, dx = _gelu_jvp(x, dx)
-        return fused_tail_jvp(x, dx, blocks, self.head_layer, t, dws[t + 1:],
-                              c.out_bias)
+            return _gelu_jvp(x, dx)
 
-    def decode(self, img_embed):
+        def tail(x, dx):
+            return fused_tail_jvp(x, dx, blocks, self.head_layer, t,
+                                  dws[t + 1:], c.out_bias)
+
+        x, dx = run(layer0, img_embed)
+        fused = fuses_prefix_block(blocks, t, impl, c.fused_prefix,
+                                   c.dec_norm)
+        for j in range(t - 1 if fused else t):
+            x, dx = run(functools.partial(block, j), x, dx)
+        if impl is None:
+            return run(head, x, dx)
+        if fused:
+            x, dx = run(fused_block, x, dx)
+        return run(tail, x, dx)
+
+    def decode(self, img_embed, return_embeds: bool = False):
         """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).
 
         The kernel path runs the high-resolution tail packed from the pack
         start on, channels-first, on the CUDA kernels (ops/tail_fused.py),
         with the last prefix block fused too. With ``packed_tail: off`` or
         ``fused_tail: off`` the plain unpacked conv/shuffle chain runs; with
-        ``fused_tail: pallas_hvp`` the value of :meth:`decode_jvp`."""
+        ``fused_tail: pallas_hvp`` the value of :meth:`decode_jvp`.
+
+        With `return_embeds`: (frames, embeds) from the plain unpacked
+        chain, as the JAX package's: embeds = [img_embed, decoder[0]'s
+        output after its (fc_h, fc_w) shuffle, each block's output]. The
+        unit-scope calibration reads its units' inputs and outputs there
+        (``quantization/calib_unit.py``). HNeRV's shuffle is (1, 1), so its
+        embeds[1] is decoder[0]'s conv output, as in JAX."""
         c = self.cfg
+        if return_embeds:
+            x = self._layer0(img_embed)
+            embeds = [img_embed, x]
+            for blk in self.blocks:
+                x = blk(x)
+                embeds.append(x)
+            return out_img(self.head_layer(x), c.out_bias), embeds
         impl = self._fused_impl()
         if impl == "pallas_hvp":
             return self.decode_jvp(img_embed)[0]

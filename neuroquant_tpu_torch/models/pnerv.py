@@ -21,6 +21,7 @@ Parameter names are the reference's (``enc_layers.*``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -29,8 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from neuroquant_tpu_torch.models.decoder import (
-    KeptKernelWeights, _add, _conv_jvp, _gelu_jvp, _out_img_jvp, _shuffle,
-    fused_tail_jvp)
+    KeptKernelWeights, _add, _conv_jvp, _gelu_jvp, _out_img_jvp, _run,
+    _shuffle, fused_tail_jvp, segment_runner)
 from neuroquant_tpu_torch.models.layers import (
     BatchNorm2d, Conv2d, ConvNeXtBlock, KFcBias, LayerNorm, NeRVBlock,
     activation, collect_tail_params, out_img)
@@ -236,22 +237,31 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
             h, w, *collect_tail_params(self.dec_layers, self.dec_head_layers,
                                        self.n_fused)))
 
-    def _fusion(self, content, tangents=None):
+    def _fusion(self, content, tangents=None, run=_run):
         """The excitation block and the fusion stages: the tail-entry NHWC
         activation and, with `tangents` ({weight key: OIHW tangent}), its
-        tangent."""
+        tangent. ``run(fn, *args)`` runs each segment: the excitation
+        block, then each stage (its block and its gate) as one
+        (:func:`decoder.segment_runner`)."""
         dw = (tangents or {}).get
         exc = self.dec_exc_layers
-        x, dx = _conv_jvp(exc.conv[0], content, None,
-                          dw("dec_exc_layers.conv.0.weight"))
-        x, dx = _act_jvp(exc.act_fn, _shuffle(x, 10), _shuffle(dx, 10))
-        for i in range(self.n_fused):
+
+        def excite(e):
+            x, dx = _conv_jvp(exc.conv[0], e, None,
+                              dw("dec_exc_layers.conv.0.weight"))
+            return _act_jvp(exc.act_fn, _shuffle(x, 10), _shuffle(dx, 10))
+
+        def stage(i, x, dx):
             blk = self.dec_layers[i]
             x, dx = _conv_jvp(blk.conv[0], x, dx,
                               dw(f"dec_layers.{i}.conv.0.weight"))
             x, dx = _act_jvp(blk.act_fn, _shuffle(x, blk.stride),
                              _shuffle(dx, blk.stride))
-            x, dx = self._fuse(content, x, dx, i, dw)
+            return self._fuse(content, x, dx, i, dw)
+
+        x, dx = run(excite, content)
+        for i in range(self.n_fused):
+            x, dx = run(functools.partial(stage, i), x, dx)
         return x, dx
 
     def _tail_plain(self, x, dx=None, dw={}.get):
@@ -275,7 +285,7 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
         z, _, _, _ = run_fused_tail_cf(x, self._tail_weights(x))
         return out_img(z, "sigmoid")
 
-    def decode_jvp(self, content, dws=None):
+    def decode_jvp(self, content, dws=None, remat: bool = False):
         """Content embedding -> (frames, their tangent) for tangents
         ``dws`` on the quantized conv kernels, one OIHW tensor each in
         :meth:`jvp_keys`' order, or None for no tangent (the tangent comes
@@ -284,7 +294,9 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
         tail runs :func:`decoder.fused_tail_jvp` on the kernels from pack
         start 0 (``fused_tail`` other than off), else the plain chain;
         every op first-order, so a gradient of the tangent differentiates
-        each kernel once."""
+        each kernel once. Segments: the excitation block, each fusion
+        stage, the tail; with `remat` each is checkpointed
+        (:func:`decoder.segment_runner`)."""
         if self.cfg.dec_acts != "gelu":
             raise NotImplementedError(
                 f"decode_jvp: dec_acts={self.cfg.dec_acts!r} (only gelu)")
@@ -295,14 +307,17 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
             raise ValueError(f"decode_jvp: {len(dws)} tangents for "
                              f"{len(keys)} convs")
         tangents = dict(zip(keys, dws))
-        x, dx = self._fusion(content, tangents)
+        run = segment_runner(remat)
+        x, dx = self._fusion(content, tangents, run)
         if self._fused_impl() is None:
-            return self._tail_plain(x, dx, tangents.get)
+            return run(lambda x, dx: self._tail_plain(x, dx, tangents.get),
+                       x, dx)
         n = self.n_fused
-        return fused_tail_jvp(
-            x, dx, self.dec_layers, self.dec_head_layers, n,
-            [tangents[f"dec_layers.{n}.conv.0.weight"],
-             tangents["dec_head_layers.weight"]], "sigmoid")
+        dw_tail = [tangents[f"dec_layers.{n}.conv.0.weight"],
+                   tangents["dec_head_layers.weight"]]
+        return run(lambda x, dx: fused_tail_jvp(
+            x, dx, self.dec_layers, self.dec_head_layers, n, dw_tail,
+            "sigmoid"), x, dx)
 
     def decode(self, content):
         """Content embedding -> NHWC frames in [0, 1]. The post-fusion tail

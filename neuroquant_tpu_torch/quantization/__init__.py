@@ -9,3 +9,6 @@ from neuroquant_tpu_torch.quantization.calibrate import (  # noqa: F401
 from neuroquant_tpu_torch.quantization.sensitivity import (  # noqa: F401
     MAX_BATCHES, hessian_vector_product, sensitivity_criterion,
 )
+from neuroquant_tpu_torch.quantization.calib_unit import (  # noqa: F401
+    block_reconstruction, layer_reconstruction,
+)

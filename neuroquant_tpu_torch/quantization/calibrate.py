@@ -95,8 +95,8 @@ class _Decoder(nn.Module):
         super().__init__()
         self.model, self.method = model, method
 
-    def forward(self, x):
-        return getattr(self.model, self.method)(x)
+    def forward(self, x, **kw):
+        return getattr(self.model, self.method)(x, **kw)
 
 
 def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,

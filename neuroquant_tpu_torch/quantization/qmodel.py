@@ -70,18 +70,22 @@ def _fq_bias(b, s, bits: int, mode: str, soft: bool):
 
 
 def quantize_params(params, spec: QuantSpec, state: Dict, mode: str = "uaq",
-                    soft: bool = True):
+                    soft: bool = True, upto: int | None = None):
     """A state dict with fake-quantized kernels and biases for every spec
-    layer. Under mode='adaround' a layer without alphas is nearest-rounded:
-    the mixed-rounding state. Under ``spec.fq_impl == 'pallas'`` the
-    weights of all the layers go through one grouped kernel call
+    layer, or with `upto` for layers 0..upto only (the reference's
+    ``quantize_model_till``: the unit-scope calibration's fisher gradients
+    and QDrop inputs). Under mode='adaround' a layer without alphas is
+    nearest-rounded: the mixed-rounding state. Under ``spec.fq_impl ==
+    'pallas'`` the weights of the layers go through one grouped kernel call
     (``fake_quant_group``: one launch forward, one backward); the biases
     take the plain chain under both impls, as in the JAX package."""
     if mode not in ("uaq", "adaround"):
         raise ValueError(mode)
     layers = []
-    for name, pre, bits in zip(spec.layer_names, spec.layer_keys,
-                                spec.n_bits):
+    for i, (name, pre, bits) in enumerate(zip(
+            spec.layer_names, spec.layer_keys, spec.n_bits)):
+        if upto is not None and i > upto:
+            break
         w, b = _get(params, pre)
         s = state[name]
         lmode = mode if (mode != "adaround" or "w_alpha" in s) else "uaq"

@@ -9,8 +9,10 @@ tangent beside the value, through the fused tail's kernels on ``fused_tail:
 pallas_hvp`` (``tail_fused.tail_apply_fo``) or through the plain unpacked
 decode's cuDNN convs on ``off``, and ``torch.autograd.grad`` of the
 directional derivative differentiates that first-order graph once. With
-``remat`` the directional derivative runs under ``torch.utils.checkpoint``:
-its backward recomputes the forward instead of keeping it.
+``remat`` the decode runs checkpointed in segments (``decode_jvp(...,
+remat=True)``: prefix blocks or fusion stages one by one, the tail as one):
+the forward keeps only each segment's boundary values and tangents, and the
+backward recomputes one segment at a time.
 
 fisher_diag: sum over layers of v^2 * g^2, g the gradient accumulated over
 the same batches, on whatever decode the config selects (the production
@@ -27,7 +29,6 @@ import logging
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from neuroquant_tpu_torch.quantization.qmodel import get_perturbation
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
@@ -71,18 +72,14 @@ def hessian_vector_product(model, spec: QuantSpec, vec, frames, norm_idx,
     kernels = _kernels(model, spec)
     dws = [v.permute(3, 2, 0, 1) for v in vec]
 
-    def dirderiv(img, inp):
-        # d/de mse(w + e v) at e = 0: forward mode through the decode
-        with torch.no_grad():
-            emb = model.encode(inp)
-        pred, dpred = model.decode_jvp(emb, dws)
-        return (2.0 * (pred - img) * dpred).mean()
-
     acc = [torch.zeros_like(v) for v in vec]
     for idx in batches:
         img, inp = _batch_of(model, frames, norm_idx, idx)
-        dl = (checkpoint(dirderiv, img, inp, use_reentrant=False) if remat
-              else dirderiv(img, inp))
+        # d/de mse(w + e v) at e = 0: forward mode through the decode
+        with torch.no_grad():
+            emb = model.encode(inp)
+        pred, dpred = model.decode_jvp(emb, dws, remat=remat)
+        dl = (2.0 * (pred - img) * dpred).mean()
         for a, h in zip(acc, torch.autograd.grad(dl, kernels)):
             a += h.permute(2, 3, 1, 0)
     return acc

@@ -6,6 +6,7 @@ random weights, batch 2) on one NVIDIA GPU: the port's two routes
 in float64, and their times.
 
   python3 scripts/torch_hvp_bench.py [--reps N] [--out FILE]
+  python3 scripts/torch_hvp_bench.py --remat hnerv pnerv [--reps N]
 
 Per route: seconds per HVP batch (host clock around a synchronised call,
 median of --reps after one warm-up), peak device memory, the card's busy
@@ -16,6 +17,14 @@ v . Hv against float64's, relative to sum |Hv * v|. The perturbation v is
 that of the toy candidate 6 5 4 5 5 6 6 (channel-wise, max scales), as
 ``chip_smoke.py`` takes it. Prints the card's name and power limit first
 and writes the rows as JSON to --out.
+
+With --remat ARCH [ARCH ...] (hnerv, pnerv: PNeRV1 Bunny-3M,
+configs/PNeRV/Bunny_1280x640_3M.yaml, its bf16 fusion stages as shipped)
+it measures ``bit_assign --remat`` instead: per arch, one batch-2 HVP on
+the kernel route (``pallas_hvp``) without and with the segmented remat, in
+turns (off, on, on, off), each turn's peak device memory (over what the
+model and inputs hold before it) and seconds per batch (median of --reps),
+and max|Hv_remat - Hv| / max|Hv| per leaf.
 """
 
 from __future__ import annotations
@@ -72,11 +81,71 @@ def _profile(torch, fn):
     return (busy if busy > 0 else None), rows[:12]
 
 
+FOLDERS = {"hnerv": "HNeRV", "pnerv": "PNeRV"}
+PATTERN = (6, 5, 4, 5, 5, 6, 6)   # the toy candidate, over PNeRV's 19
+
+
+def _remat_rows(torch, arch, dev, card, reps):
+    """One batch-2 HVP at `arch` Bunny-3M on the kernel route, without and
+    with --remat in turns: peak memory, seconds, Hv agreement."""
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization import (
+        get_perturbation, hessian_vector_product, init_quant_state,
+        make_spec)
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    cfg = validate_config(get_config(os.path.join(
+        HERE, "configs", FOLDERS[arch], "Bunny_1280x640_3M.yaml")), arch)
+    rng = np.random.RandomState(0)
+    model = build_model(arch, dict(cfg, fused_tail="pallas_hvp"), device=dev)
+    sd = state_dict_from_numpy(_seeded_state_dict(model, rng), dev)
+    model.load_state_dict(sd, strict=True)
+    frames = torch.from_numpy(rng.rand(2, 640, 1280, 3).astype(
+        np.float32)).to(dev)
+    n = len(model.jvp_keys())
+    spec = make_spec(arch, cfg, channel_wise=True, scale_method="max"
+                     ).with_bits([PATTERN[i % len(PATTERN)]
+                                  for i in range(n)])
+    vec = get_perturbation(sd, spec, init_quant_state(sd, spec))
+    batch = [[0, 1]]
+    hv, turns = {}, []
+    for remat in (False, True, True, False):
+        def run():
+            return hessian_vector_product(model, spec, vec, frames, None,
+                                          batch, remat=remat)
+        hv[remat] = run()                   # warm-up (and the kernel build)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        turns.append(dict(remat=remat, seconds=sorted(secs),
+                          median_s=float(np.median(secs)), peak_mib=peak,
+                          held_mib=held))
+        print(f"  {arch} --remat {remat}: {np.median(secs):.4f} s a batch "
+              f"(median of {reps}; {min(secs):.4f}-{max(secs):.4f}), peak "
+              f"{peak:.1f} MiB ({held:.1f} MiB held before); {card}")
+    err = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(hv[True], hv[False])]
+    print(f"  {arch} Hv with --remat against without: leaf max|diff| / "
+          f"max|Hv| {' '.join(f'{e:.2e}' for e in err)}")
+    return dict(arch=arch, card=card, turns=turns, leaf_rel_err=err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(HERE, "results",
                                                   "hvp_bench.json"))
+    ap.add_argument("--remat", nargs="+", default=None,
+                    choices=["hnerv", "pnerv"],
+                    help="measure --remat's peak and time at these archs")
     args = ap.parse_args()
     import torch
 
@@ -98,6 +167,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card)
+    if args.remat:
+        rows = [_remat_rows(torch, arch, dev, card, args.reps)
+                for arch in args.remat]
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+        return 0
     cfg = validate_config(get_config(os.path.join(
         HERE, "configs", "HNeRV", "Bunny_1280x640_3M.yaml")), "hnerv")
     rng = np.random.RandomState(0)

@@ -415,6 +415,14 @@ class TestCLI:
             assert calibrate_network.parse_args(
                 ["--config", "c.yaml", "--arch", "hnerv"]).fq_impl == "jnp"
             return
+        if item == "item 13":
+            # ported: the flag parses
+            # (tests/test_torch_calib_unit_cli.py runs the CLI with it)
+            args = calibrate_network.parse_args(
+                ["--config", "c.yaml", "--arch", "hnerv", "--device",
+                 "cpu"] + flag)
+            assert args.scope == flag[1]
+            return
         if item == "item 8":
             # ported: the flag parses
             # (tests/test_torch_regress.py::TestCLI::
