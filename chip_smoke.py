@@ -109,8 +109,9 @@ Phases (any failure exits non-zero):
      1 / 1, and 2 + 2 fake-quant launches a pallas step: 19 layers in 16 +
      3), regress, the fake-quant kernels at the 19 layers, calibrate_network
      on both fq_impls, the bitstream, bit_assign with two toy allocations
-     (with and without --remat); then PNeRV2: decode, one calibration step
-     (one fake-quant launch for its 15 layers) and calibrate_network
+     (with and without --remat, the tail checkpointed layer by layer: both
+     peaks); then PNeRV2: decode, one calibration step (one fake-quant
+     launch for its 15 layers) and calibrate_network
  15. unit scope -- calibrate_network --scope block (stream bf16 cache,
      fq_impl jnp) and --scope layer (shared fp32 cache, fq_impl pallas,
      fisher_diag, --input_prob 0.5) at HNeRV Bunny-3M, 40 steps a unit,
@@ -128,6 +129,25 @@ Phases (any failure exits non-zero):
      fq_impls: ms (20 steps back to back), the port's launches and the
      card's kernels a step, its idle share, one host synchronisation a
      chunk; harvest seconds, cache bytes, each run's peak memory
+ 16. data parallel at HNeRV Bunny-3M -- 8 network-calibration steps at
+     batch 2 (both fq_impls) and 8 stage-1 steps at batch 2 through the
+     CLIs' run functions: in one process; (a) through the rank function
+     the CLIs spawn (--mesh_devices), world size 1 over NCCL, bitwise
+     equal to the one-process run; (b) two ranks sharing cuda:0 over gloo
+     (a harness arrangement: one card), one frame a rank, each step's loss
+     within LOSS_TOL and every leaf within GRAD_TOL of the one-process
+     run, the ranks ending identical, each rank launching the step
+     kernels; (c) the same for 8 stage-1 steps of PNeRV1 Bunny-3M (fp32
+     fusion stages), its shortcuts' batch norm taking the statistics of
+     both ranks' frames; ms a step of each ((b), (c) no speed-up figure)
+ 17. loss landscape at HNeRV Bunny-3M -- compute_surface on the 11x11
+     grid at batch 4 and compute_line on 21 points, one decode on the
+     kernels a point (launches 4 / 2 / 1 each); three points of each held
+     to the plain unpacked decode (DECODE_TOL), the surface not constant;
+     seconds a point
+ 18. bench -- ``python -m neuroquant_tpu_torch.bench --iters 264`` in its
+     own process: its JSON line printed here, its phase-2 it/s and decode
+     FPS
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -142,8 +162,11 @@ shapes under "stage1_per_launch"; NeRV's per-launch records (phase 13)
 under "nerv_per_launch", its launches under "nerv_launches"; PNeRV1's
 (phase 14) under "pnerv_per_launch" and "pnerv_launches", PNeRV2's
 launches under "pnerv2_launches"; the launches over phase 15's runs
-under "unit_scope_launches". The last line is {"ok": true,
-"device": ...}.
+under "unit_scope_launches", over phase 16's runs in this process under
+"dp_launches" and on each gloo rank under "dp_rank_launches" (PNeRV1's
+two ranks under "pnerv_dp_rank_launches"), over phase 17's surface and
+line under "landscape_launches". The last line is
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -1827,8 +1850,12 @@ def _stage2_phase(torch, tf, cfg, sd, frames_dir, card, work, arch="hnerv",
                                          pal["calls"])
                    for sa, sb, mag in zip(a["per_layer"], b["per_layer"],
                                           call["mags"]))
-        print(f"  --remat: peak {rem['peak_mib']:.1f} MiB against "
-              f"{pal['peak_mib']:.1f} without, "
+        # the tail checkpointed layer by layer (fault C5)
+        print(f"  --remat (the tail layer by layer, its tangent GELU in "
+              f"pieces): peak "
+              f"{rem['peak_mib']:.1f} MiB against {pal['peak_mib']:.1f} "
+              f"without ({100 * (1 - rem['peak_mib'] / pal['peak_mib']):.1f}% "
+              f"below), "
               f"{rem['calls'][0]['seconds']:.4f} s a batch against "
               f"{pal['calls'][0]['seconds']:.4f}; per-layer scores "
               f"{same:.2e} of sum|Hv*v| apart (tol {score_tol:.1e})")
@@ -2681,6 +2708,420 @@ def _unit_scope_phase(torch, tf, cfg, sd, frames_dir, card, work):
     return out
 
 
+DP_STEPS = 8         # phase 16: network-calibration and stage-1 steps
+LANDSCAPE_GRID = 11  # phase 17: loss_landscape's default 11x11 surface
+LANDSCAPE_LINE = 21  # and a 21-point line
+LANDSCAPE_BATCH = 4
+BENCH_ITERS = 264    # phase 18: 4 phase-2 epochs of 66 steps
+
+
+def _dp_steps(mesh, work, frames_dir, pth, stage1_cfg, fq_impl, stage1,
+              arch="hnerv"):
+    """Phase 16's run on one data-parallel rank (`mesh`) or in one process
+    (None): ``calibrate_network.run`` of HNeRV for DP_STEPS phase-2 steps
+    at batch 2 (--fq_impl `fq_impl`; None: none) and, with `stage1`,
+    ``regress.run`` of `arch` for DP_STEPS steps at batch 2; each step's
+    loss (this rank's share: the ranks' sum is the step's), the calibrated
+    state, the trained weights, this rank's launches; ms a calibration step
+    (the median from the third step on, the recorder synchronising at each
+    step) and a stage-1 step (rank 0's last Time/epoch line). The function
+    each rank of ``--mesh_devices`` runs, with a recorder around the
+    loss."""
+    import torch
+
+    from neuroquant_tpu_torch.methods import calibrate_network, regress
+    from neuroquant_tpu_torch.ops import tail_fused as tf
+    from neuroquant_tpu_torch.quantization import calibrate as tcal
+
+    calib_losses, stage1_losses, stamps = [], [], []
+    make_loss, make_epoch = tcal.make_loss, regress.make_train_epoch
+
+    def recording_loss(*a, **k):
+        fn = make_loss(*a, **k)
+
+        def loss(*args, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            out = fn(*args, **kw)
+            calib_losses.append(out[0].detach())
+            return out
+        return loss
+
+    def recording_epoch(*a, **k):
+        run = make_epoch(*a, **k)
+
+        def run_epoch(*ra, **rk):
+            losses, psnrs = run(*ra, **rk)
+            stage1_losses.append(losses.detach())
+            return losses, psnrs
+        return run_epoch
+
+    tag = "one" if mesh is None else f"dp{mesh.size}"
+    cwd = os.getcwd()
+    cap = _Capture()
+    out = {}
+    try:
+        tcal.make_loss = recording_loss
+        regress.make_train_epoch = recording_epoch
+        os.chdir(work)
+        logging.getLogger().addHandler(cap)
+        before = dict(tf.KERNEL_LAUNCHES)
+        if fq_impl is not None:
+            _, state, _ = calibrate_network.run(mesh, [
+                "--config", os.path.join(REPO, HNERV_CONFIG), "--arch",
+                "hnerv", "--data_path", frames_dir, "--vid", "Bunny",
+                "--outf", f"dp_calib_{fq_impl}_{tag}", "--ckpt", pth,
+                "--precision", *map(str, PRECISION), "--hadamard",
+                "--channel_wise", "--batch_size", str(CALIB_BATCH),
+                "--iters_w", str(DP_STEPS), "--lr", "0.003", "--warmup",
+                "0.2", "--fq_impl", fq_impl, "--calib_ckpt_freq", "0"])
+            out["state"] = {ln: {k: v.detach().cpu() for k, v in s.items()}
+                            for ln, s in state.items()}
+        if stage1:
+            model = regress.run(mesh, [
+                "--config", stage1_cfg, "--arch", arch, "--data_path",
+                frames_dir, "--vid", "Bunny", "--outf",
+                f"dp_stage1_{arch}_{tag}"])
+            out["weights"] = {k: v.detach().cpu()
+                              for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        out["launches"] = {k: n - before[k]
+                           for k, n in tf.KERNEL_LAUNCHES.items()}
+    finally:
+        tcal.make_loss, regress.make_train_epoch = make_loss, make_epoch
+        logging.getLogger().removeHandler(cap)
+        os.chdir(cwd)
+    out["calib_losses"] = [float(x) for x in calib_losses]
+    out["stage1_losses"] = [float(x) for t in stage1_losses for x in t]
+    epoch_s = re.findall(r"Time/epoch: \tCurrent:([\d.]+)",
+                         "\n".join(cap.lines))
+    out["calib_ms_per_step"] = (1e3 * float(np.median(np.diff(stamps)[1:]))
+                                if stamps else None)
+    # the last epoch's time over its steps (8 frames at batch 2)
+    out["stage1_ms_per_step"] = (1e3 * float(epoch_s[-1])
+                                 / (N_FRAMES // CALIB_BATCH)
+                                 if epoch_s else None)
+    return out
+
+
+def _leaf_err(got, want):
+    """max |got - want| / max |want| over the leaves of two flat dicts."""
+    return max(float((got[k].double() - w.double()).abs().max())
+               / max(float(w.abs().max()), 1e-30) for k, w in want.items())
+
+
+def _state_leaves(state):
+    return {f"{ln}/{k}": v for ln, s in state.items() for k, v in s.items()}
+
+
+def _dp_phase(torch, tf, sd, frames_dir, card, work):
+    """Phase 16: data parallelism at HNeRV Bunny-3M, full width and depth,
+    on the 8 seeded frames, from a .pth of the seeded weights: DP_STEPS
+    network-calibration steps at batch 2 (both fq_impls) and DP_STEPS
+    stage-1 steps at batch 2, in one process, then (a) through the rank
+    function the CLIs spawn at world size 1 over NCCL, held bitwise to the
+    one-process run (one rank's all-reduce is the identity; cuDNN held to
+    its deterministic algorithms for both), and (b) on two ranks that
+    share cuda:0 over gloo (a harness arrangement: the CLIs put rank r on
+    cuda:r over NCCL, and this machine has one card), one frame a rank,
+    held to the one-process run (each step's loss LOSS_TOL, every leaf
+    GRAD_TOL of its largest), both ranks ending with the same weights and
+    state, each rank launching the step kernels; (c) likewise DP_STEPS
+    stage-1 steps of PNeRV1 Bunny-3M from its seed (fp32 fusion stages),
+    whose shortcuts' batch norm sums its statistics over the two ranks.
+    ms a step of each; (b)'s and (c)'s are two processes sharing one card,
+    not a speed-up figure."""
+    import yaml
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.parallel.mesh import (
+        _free_port, launch, run_rank)
+
+    t_start = time.time()
+    pth = os.path.join(work, "hnerv_seeded.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    stage1_cfg = os.path.join(work, "hnerv_dp_stage1.yaml")
+    with open(stage1_cfg, "w") as f:
+        # 8 frames at batch 2: two epochs of four steps, one eval
+        yaml.safe_dump(dict(get_config(os.path.join(REPO, HNERV_CONFIG)),
+                            epoch=DP_STEPS * CALIB_BATCH // N_FRAMES,
+                            batch_size=CALIB_BATCH), f)
+    args = (work, frames_dir, pth, stage1_cfg)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tf.reset_launch_counts()
+    try:
+        _section("data parallel: one process")
+        one = {"jnp": _dp_steps(None, *args, "jnp", True),
+               "pallas": _dp_steps(None, *args, "pallas", False)}
+        _section("data parallel (a): world size 1, NCCL, the CLIs' rank "
+                 "function")
+        ws1 = {fq: run_rank(0, 1, "cuda:0", "nccl",
+                            f"tcp://127.0.0.1:{_free_port()}", _dp_steps,
+                            args + (fq, fq == "jnp"))
+               for fq in ("jnp", "pallas")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = dict(tf.KERNEL_LAUNCHES)
+    for fq in ("jnp", "pallas"):
+        a, b = _state_leaves(one[fq]["state"]), _state_leaves(
+            ws1[fq]["state"])
+        same = all(torch.equal(a[k], b[k]) for k in a)
+        print(f"  (a) calibrate_network --fq_impl {fq}, {DP_STEPS} steps at "
+              f"batch {CALIB_BATCH}: world size 1 against one process "
+              f"{'bitwise equal' if same else 'DIFFERENT'} ({len(a)} "
+              f"leaves); losses {one[fq]['calib_losses']} / "
+              f"{ws1[fq]['calib_losses']}; ms a step "
+              f"{ws1[fq]['calib_ms_per_step']:.2f} (one process "
+              f"{one[fq]['calib_ms_per_step']:.2f}; steps 3-{DP_STEPS}, "
+              f"synchronised); card {card}")
+        assert same, fq
+        assert one[fq]["calib_losses"] == ws1[fq]["calib_losses"], fq
+    w1, w0 = ws1["jnp"]["weights"], one["jnp"]["weights"]
+    same = all(torch.equal(w1[k], w0[k]) for k in w0)
+    verdict = "bitwise equal" if same else "DIFFERENT"
+    print(f"  (a) regress, {DP_STEPS} steps at batch {CALIB_BATCH}: world "
+          f"size 1 against one process {verdict} ({len(w0)} tensors); losses "
+          f"{one['jnp']['stage1_losses']}; ms a step (the second epoch) "
+          f"{ws1['jnp']['stage1_ms_per_step']:.2f} (one process "
+          f"{one['jnp']['stage1_ms_per_step']:.2f}); card {card}")
+    assert same and one["jnp"]["stage1_losses"] == ws1["jnp"][
+        "stage1_losses"]
+
+    _section("data parallel (b): two ranks on cuda:0 over gloo")
+    t0 = time.time()
+    ranks = launch(_dp_steps, 2, "cuda", args + ("pallas", True),
+                   devices=["cuda:0", "cuda:0"])
+    wall_b = time.time() - t0
+    ref = one["pallas"]
+    calib = [a + b for a, b in zip(ranks[0]["calib_losses"],
+                                   ranks[1]["calib_losses"])]
+    stage1 = ranks[0]["stage1_losses"]
+    assert len(calib) == len(ref["calib_losses"]) == DP_STEPS
+    assert len(stage1) == DP_STEPS and stage1 == ranks[1]["stage1_losses"]
+    loss_err = max(abs(g - w) / abs(w) for g, w in zip(
+        calib + stage1, ref["calib_losses"] + one["jnp"]["stage1_losses"]))
+    state_err = _leaf_err(_state_leaves(ranks[0]["state"]),
+                          _state_leaves(ref["state"]))
+    weight_err = _leaf_err(ranks[0]["weights"], one["jnp"]["weights"])
+    same_ranks = (all(torch.equal(ranks[0]["weights"][k],
+                                  ranks[1]["weights"][k])
+                      for k in ranks[0]["weights"])
+                  and all(torch.equal(v, _state_leaves(ranks[1]["state"])[k])
+                          for k, v in _state_leaves(ranks[0]["state"]).items()))
+    print(f"  (b) two ranks, one frame each: each step's loss against one "
+          f"process {loss_err:.2e} (tol {LOSS_TOL:.0e}); calibrated state "
+          f"{state_err:.2e}, trained weights {weight_err:.2e} of a leaf's "
+          f"largest (tol {GRAD_TOL:.0e}); the ranks end "
+          f"{'identical' if same_ranks else 'DIFFERENT'}; {wall_b:.1f} s "
+          f"wall with the two processes' start")
+    for r, rk in enumerate(ranks):
+        print(f"  (b) rank {r}: launches {rk['launches']}; ms a "
+              f"calibration step {rk['calib_ms_per_step']:.2f}"
+              + ("" if rk["stage1_ms_per_step"] is None else
+                 f", a stage-1 step {rk['stage1_ms_per_step']:.2f}")
+              + " (two processes sharing one card over gloo: not a "
+              f"speed-up figure); card {card}")
+        for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
+                  "fq_ada", "fq_ada_bwd"):
+            assert rk["launches"][k] > 0, (r, k)
+    assert loss_err <= LOSS_TOL, loss_err
+    assert state_err <= GRAD_TOL and weight_err <= GRAD_TOL, (state_err,
+                                                              weight_err)
+    assert same_ranks
+
+    _section("data parallel (c): PNeRV1 stage 1, two ranks on cuda:0, its "
+             "batch norm over both")
+    pnerv_cfg = os.path.join(work, "pnerv_dp_stage1.yaml")
+    with open(pnerv_cfg, "w") as f:
+        # fp32 fusion stages, so that one process and the ranks differ by
+        # the order of the sums only
+        yaml.safe_dump(dict(get_config(os.path.join(REPO, PNERV_CONFIG)),
+                            epoch=DP_STEPS * CALIB_BATCH // N_FRAMES,
+                            batch_size=CALIB_BATCH, bsm_dtype="float32",
+                            workers=0), f)
+    pargs = (work, frames_dir, None, pnerv_cfg, None, True, "pnerv")
+    p_one = _dp_steps(None, *pargs)
+    p_ranks = launch(_dp_steps, 2, "cuda", pargs,
+                     devices=["cuda:0", "cuda:0"])
+    p_losses = p_ranks[0]["stage1_losses"]
+    assert len(p_losses) == DP_STEPS
+    p_loss_err = max(abs(g - w) / abs(w)
+                     for g, w in zip(p_losses, p_one["stage1_losses"]))
+    p_weight_err = _leaf_err(p_ranks[0]["weights"], p_one["weights"])
+    p_same = all(torch.equal(p_ranks[0]["weights"][k],
+                             p_ranks[1]["weights"][k])
+                 for k in p_ranks[0]["weights"])
+    print(f"  (c) PNeRV1 regress, {DP_STEPS} steps at batch {CALIB_BATCH}, "
+          f"one frame a rank, the shortcuts' batch norm over both: each "
+          f"step's loss against one process {p_loss_err:.2e} (tol "
+          f"{LOSS_TOL:.0e}); trained weights {p_weight_err:.2e} of a leaf's "
+          f"largest (tol {GRAD_TOL:.0e}); the ranks end "
+          f"{'identical' if p_same else 'DIFFERENT'}; ms a step "
+          f"{p_ranks[0]['stage1_ms_per_step']:.2f} (one process "
+          f"{p_one['stage1_ms_per_step']:.2f}; two processes sharing one "
+          f"card); card {card}")
+    for r, rk in enumerate(p_ranks):
+        print(f"  (c) rank {r}: launches {rk['launches']}")
+        for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf",
+                  "unpack_cf"):
+            assert rk["launches"][k] > 0, (r, k)
+    assert p_loss_err <= LOSS_TOL, p_loss_err
+    assert p_weight_err <= GRAD_TOL, p_weight_err
+    assert p_same
+    _section()
+    seconds = time.time() - t_start
+    print(f"  phase 16 (data parallel) took {seconds:.1f} s; card {card}")
+    return dict(seconds=seconds, launches=launches,
+                rank_launches=[r["launches"] for r in ranks],
+                loss_rel_err=loss_err, state_rel_err=state_err,
+                weight_rel_err=weight_err, two_rank_wall_s=wall_b,
+                pnerv_loss_rel_err=p_loss_err,
+                pnerv_weight_rel_err=p_weight_err,
+                pnerv_rank_launches=[r["launches"] for r in p_ranks],
+                ms_per_step={
+                    "one_process": {fq: one[fq]["calib_ms_per_step"]
+                                    for fq in one},
+                    "one_process_stage1": one["jnp"]["stage1_ms_per_step"],
+                    "ws1": {fq: ws1[fq]["calib_ms_per_step"] for fq in ws1},
+                    "ws1_stage1": ws1["jnp"]["stage1_ms_per_step"],
+                    "ws2_gloo_shared_card": [r["calib_ms_per_step"]
+                                             for r in ranks],
+                    "ws2_gloo_shared_card_stage1": ranks[0][
+                        "stage1_ms_per_step"],
+                    "pnerv_one_process_stage1": p_one["stage1_ms_per_step"],
+                    "pnerv_ws2_gloo_shared_card_stage1": p_ranks[0][
+                        "stage1_ms_per_step"]})
+
+
+def _landscape_phase(torch, tf, cfg, sd, frames_dir, card):
+    """Phase 17: loss_landscape at HNeRV Bunny-3M, full width and depth:
+    compute_surface on the default 11x11 grid at --batch 4 and
+    compute_line on 21 points, one decode on the kernels a point (its
+    launches counted: 4 / 2 / 1 a decode); three points of each held to
+    the plain unpacked decode (fused_tail: off) at the same weights, the
+    frames within DECODE_TOL and the loss within 2 * DECODE_TOL (an MSE of
+    frames in [0, 1] moves at most twice the largest frame difference);
+    the surface not constant; seconds a point. The compute functions are
+    called directly (no h5, no plot)."""
+    from neuroquant_tpu_torch.analysis import loss_landscape as ll
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization.spec import make_spec
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    t_start = time.time()
+    params = state_dict_from_numpy(sd, "cuda")
+    data = VideoDataSet(cfg, frames_dir, device="cuda")
+    models = {}
+    for ft in ("auto", "off"):
+        models[ft] = build_model("hnerv", dict(cfg, fused_tail=ft),
+                                 device="cuda")
+        models[ft].load_state_dict(params, strict=True)
+        models[ft].eval()
+    model = models["auto"]
+    keys = [f"{pre}.weight" for pre in make_spec("hnerv", cfg).layer_keys]
+    centre = [params[k].permute(2, 3, 1, 0) for k in keys]
+    gen = torch.Generator().manual_seed(123)
+    d1 = ll.filter_normalized_direction(gen, centre)
+    d2 = ll.filter_normalized_direction(gen, centre)
+    xs = ys = np.linspace(-1, 1, LANDSCAPE_GRID)
+    line_xs = np.linspace(-1, 1, LANDSCAPE_LINE)
+    batch_idx = np.arange(LANDSCAPE_BATCH)
+    torch.cuda.synchronize()
+    tf.reset_launch_counts()
+    t0 = time.time()
+    surface = ll.compute_surface(model, keys, data.frames, data.norm_idx,
+                                 xs, ys, batch_idx, dirs=(d1, d2))
+    torch.cuda.synchronize()
+    t_surface = time.time() - t0
+    t0 = time.time()
+    losses, psnr = ll.compute_line(model, keys, data.frames, data.norm_idx,
+                                   line_xs, batch_idx, dirs=d1)
+    torch.cuda.synchronize()
+    t_line = time.time() - t0
+    launches = dict(tf.KERNEL_LAUNCHES)
+    n_points = LANDSCAPE_GRID ** 2 + LANDSCAPE_LINE
+    want = {k: n * n_points for k, n in PER_DECODE.items()}
+    assert launches == want, (launches, want)
+    assert np.isfinite(surface).all() and np.isfinite(losses).all()
+    spread = float(np.ptp(surface))
+    assert spread > 1e-6 * float(surface.max()), surface
+    img = data.frames[:LANDSCAPE_BATCH]
+    with torch.no_grad():
+        emb = model.encode(img)
+    worst_frame = worst_loss = 0.0
+    checks = [("surface", (i, j), (xs[i], ys[j]), (d1, d2), surface[i, j])
+              for i, j in ((0, 0), (5, 5), (10, 3))]
+    checks += [("line", (i,), (line_xs[i],), (d1,), losses[i])
+               for i in (0, 10, 20)]
+    for what, at, coeffs, dirs, got in checks:
+        frames = {}
+        for ft, m in models.items():
+            named = dict(m.named_parameters())
+            with torch.no_grad():
+                for n, (k, w) in enumerate(zip(keys, centre)):
+                    v = w
+                    for c, dd in zip(coeffs, dirs):
+                        v = v + float(c) * dd[n]
+                    named[k].copy_(v.permute(3, 2, 0, 1))
+                frames[ft] = m.decode(emb)
+        frame_err = float((frames["auto"] - frames["off"]).abs().max())
+        plain = float(torch.mean((frames["off"] - img) ** 2))
+        worst_frame = max(worst_frame, frame_err)
+        worst_loss = max(worst_loss, abs(got - plain))
+        print(f"  {what} point {at}: loss {got:.6e} on the kernels, "
+              f"{plain:.6e} on the plain decode; frames "
+              f"{frame_err:.2e} apart (tol {DECODE_TOL:.0e})")
+    for m in models.values():
+        m.load_state_dict(params, strict=True)
+    assert worst_frame <= DECODE_TOL, worst_frame
+    assert worst_loss <= 2 * DECODE_TOL, worst_loss
+    per_point = (t_surface + t_line) / n_points
+    print(f"  surface {LANDSCAPE_GRID}x{LANDSCAPE_GRID} at batch "
+          f"{LANDSCAPE_BATCH}: {t_surface:.2f} s, loss {surface.min():.6e}"
+          f"-{surface.max():.6e}; line {LANDSCAPE_LINE} points: "
+          f"{t_line:.2f} s, PSNR {psnr.min():.3f}-{psnr.max():.3f} dB; "
+          f"{per_point:.4f} s a point; launches {launches} "
+          f"({n_points} decodes x {PER_DECODE['tail_conv_cf']} / "
+          f"{PER_DECODE['pack_cf']} / {PER_DECODE['unpack_frames']}); card "
+          f"{card}")
+    seconds = time.time() - t_start
+    print(f"  phase 17 (loss landscape) took {seconds:.1f} s; card {card}")
+    return dict(seconds=seconds, launches=launches, s_per_point=per_point,
+                surface_s=t_surface, line_s=t_line, points=n_points,
+                surface_min=float(surface.min()),
+                surface_max=float(surface.max()),
+                worst_frame_err=worst_frame, worst_loss_err=worst_loss)
+
+
+def _bench_phase(card):
+    """Phase 18: ``python -m neuroquant_tpu_torch.bench --iters
+    BENCH_ITERS`` in its own process: its one JSON line, printed here
+    (never as the last line), with its it/s and decode FPS."""
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "neuroquant_tpu_torch.bench", "--iters",
+         str(BENCH_ITERS)], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.time() - t0
+    if run.returncode != 0:
+        print(run.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"the bench exited {run.returncode}")
+    lines = run.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    result = json.loads(lines[0])
+    print(lines[0])
+    assert result["metric"] == "hnerv_bunny_network_calib_throughput"
+    assert result["value"] > 0 and result["decode_fps_per_chip"] > 0
+    print(f"  bench --iters {BENCH_ITERS}: {result['value']:.2f} it/s "
+          f"(median of phase-2 epochs "
+          f"{[round(r, 2) for r in result['steady_epoch_rates']]}), decode "
+          f"{result['decode_fps_per_chip']:.1f} FPS at batch 1, {seconds:.1f} "
+          f"s in all; card {result['card']} (this run's card: {card})")
+    return dict(result, seconds=seconds)
+
+
 def _write_frames(path: str, rng):
     from PIL import Image
 
@@ -2895,6 +3336,12 @@ def main() -> int:
         nerv = _nerv_phase(torch, tf, card, frames_dir, work)
         pnerv = _pnerv_phase(torch, tf, card, frames_dir, work)
         unit = _unit_scope_phase(torch, tf, cfg, sd, frames_dir, card, work)
+        print("[data parallel]")
+        dp = _dp_phase(torch, tf, sd, frames_dir, card, work)
+        print("[loss landscape]")
+        land = _landscape_phase(torch, tf, cfg, sd, frames_dir, card)
+        print("[bench]")
+        bench = _bench_phase(card)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2974,6 +3421,14 @@ def main() -> int:
             # over phase 15's main path: both unit-scope runs, their evals,
             # the bitstream and the NeRV run
             "unit_scope_launches": unit["launches"][name],
+            # over phase 16's runs in this process (one process and world
+            # size 1), and on each of the two gloo ranks
+            "dp_launches": dp["launches"][name],
+            "dp_rank_launches": [r[name] for r in dp["rank_launches"]],
+            "pnerv_dp_rank_launches": [r[name]
+                                       for r in dp["pnerv_rank_launches"]],
+            # over phase 17's surface and line
+            "landscape_launches": land["launches"][name],
             "per_launch": per})
     kernels[0]["calibration_per_launch"] = brecords["tail_conv_cf"][
         "per_launch"]
@@ -2997,10 +3452,17 @@ def main() -> int:
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames", "fq_uaq", "fq_ada",
               "fq_ada_bwd"):
         assert unit["launches"][k] > 0, k
+    for k in ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
+              "unpack_frames", "fq_ada", "fq_ada_bwd"):
+        assert dp["launches"][k] > 0, k
+    for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
+        assert land["launches"][k] > 0, k
     print(f"  total {time.time() - t_start:.1f} s after start; decode "
           f"{dec['decode_ms']:.3f} ms/frame kernel path, "
           f"{dec['plain_decode_ms']:.3f} plain; calibration phase 2 "
-          f"{calib['phase2_its']} it/s; card {card}")
+          f"{calib['phase2_its']} it/s; phases 16 / 17 / 18 "
+          f"{dp['seconds']:.1f} / {land['seconds']:.1f} / "
+          f"{bench['seconds']:.1f} s; card {card}")
     print(json.dumps({"card": card, "decode": dec, "serving": serve,
                       "step": grad, "calibrate": calib,
                       "quantize_params": frecords["quantize_params"],
@@ -3011,7 +3473,8 @@ def main() -> int:
                                if not k.startswith(("kernels", "fq"))},
                       "pnerv": {k: v for k, v in pnerv.items()
                                 if not k.startswith(("kernels", "fq"))},
-                      "unit_scope": unit}))
+                      "unit_scope": unit, "data_parallel": dp,
+                      "loss_landscape": land, "bench": bench}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

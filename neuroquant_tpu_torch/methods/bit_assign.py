@@ -79,14 +79,14 @@ def parse_args(argv):
                              "production fused tail")
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint the HVP's forward-mode decode in "
-                             "segments (prefix blocks or fusion stages, the "
-                             "tail as one): the backward recomputes them. "
-                             "The tail dominates the peak, so it saves "
-                             "little: one batch-2 HVP on --hvp_impl pallas "
-                             "peaked at 12262 -> 9828 MiB at PNeRV1 "
-                             "Bunny-3M (0.21 -> 0.29 s) and 4077 -> 3960 "
-                             "MiB at HNeRV Bunny-3M (0.105 -> 0.141 s) on "
-                             "an NVIDIA H100 80GB HBM3 at 700 W "
+                             "segments (prefix blocks or fusion stages, "
+                             "then the tail layer by layer) and run the "
+                             "tail's tangent GELU in pieces: the backward "
+                             "recomputes one at a time. One batch-2 HVP on "
+                             "--hvp_impl pallas peaked at 12262 -> 4855 MiB "
+                             "at PNeRV1 Bunny-3M (0.21 -> 0.30 s) and 4077 "
+                             "-> 2247 MiB at HNeRV Bunny-3M (0.104 -> 0.147 "
+                             "s) on an NVIDIA H100 80GB HBM3 at 700 W "
                              "(scripts/torch_hvp_bench.py --remat)")
     parser.add_argument("--candidates", default="", type=str,
                         help="optional: semicolon-separated bit lists, e.g. "

@@ -2,7 +2,7 @@
 ground-truth frames), the counterpart of
 ``neuroquant_tpu/methods/calibrate_network.py``.
 
-Evaluate FP32 (harvesting the calibration embeddings), quantize with the
+Evaluate FP32, encode the calibration embeddings, quantize with the
 per-layer --precision, evaluate quant-off and quant-on-unoptimized, run the
 two-phase calibration (quantization/calibrate.py), or with --scope
 block|layer the per-unit reconstruction (quantization/calib_unit.py; NeRV
@@ -12,12 +12,17 @@ reference-layout FP32 state dict, the quantization spec and state and the
 integer codes, in the JAX package's format, which both packages'
 ``eval_quantized`` read.
 
+With ``--mesh_devices N`` (network scope) the run spawns N ranks
+(``parallel.launch``: NCCL, rank r on ``cuda:r``; gloo with ``--device
+cpu``) that split each step's frame batch and sum their gradients; rank 0
+evaluates, logs and writes the checkpoint and the artifact.
+
 Run (on the GPU; ``--device cpu`` for the CPU):
   python -m neuroquant_tpu_torch.methods.calibrate_network \\
       --config configs/HNeRV/Bunny_1280x640_3M.yaml --arch hnerv \\
       --data_path <frames> --vid Bunny --outf hnerv --ckpt <epoch.pth> \\
       --precision 6 5 4 5 5 6 6 --hadamard --channel_wise --batch_size 2 \\
-      --iters_w 21000 --lr 0.003 --warmup 0.2
+      --iters_w 21000 --lr 0.003 --warmup 0.2 [--mesh_devices 2]
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from neuroquant_tpu_torch.data import VideoDataSet
 from neuroquant_tpu_torch.logging_utils import setup_logger
 from neuroquant_tpu_torch.methods import common
 from neuroquant_tpu_torch.methods.eval_quantized import params_from_codes
+from neuroquant_tpu_torch.parallel.mesh import is_main, launch
 from neuroquant_tpu_torch.quantization import (
     average_bits, collect_int_codes, init_quant_state, make_spec,
     model_reconstruction, quantize_params,
@@ -110,7 +116,9 @@ def parse_args(argv):
                              "plain tensor chain; 'pallas', the fused CUDA "
                              "kernel")
     parser.add_argument("--mesh_devices", default=0, type=int,
-                        help="data-parallel calibration over N devices")
+                        help="data-parallel calibration over N ranks (N "
+                             "cards; gloo processes with --device cpu); "
+                             "network scope only")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
@@ -127,7 +135,7 @@ def parse_args(argv):
                 "reconstruction (--scope block|layer)")
     elif args.mesh_devices > 1:
         parser.error("--mesh_devices applies to network-wise calibration "
-                     "only")
+                     "only (unit reconstruction minibatches cached tensors)")
     if args.rounding == "nearest" and args.scope != "network":
         parser.error("--rounding nearest is a network-scope mode")
     if args.adaround_layers is not None and (args.scope != "network"
@@ -140,29 +148,29 @@ def parse_args(argv):
 
 def _refuse_unported(args):
     """Flags whose path is not ported raise, naming their ROADMAP item."""
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            "--mesh_devices > 1: data parallelism is ROADMAP queue A item 14")
     if args.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "--compute_dtype bfloat16: the kernels take fp32; reduced-"
             "precision calibration is ROADMAP queue A item 16")
 
 
-def _eval_block(title, model, params, dataset, args, cfg, dump_vis=False):
-    """Evaluate the clip with `params` loaded into `model`; returns
-    (results, embeddings in frame order). `dump_vis` writes the decoded
-    frames under ``<outf>/visualize_calib_network``."""
+def _eval_block(title, model, params, dataset, args, cfg, dump_vis=False,
+                mesh=None):
+    """Evaluate the clip with `params` loaded into `model` and log the
+    results. `dump_vis` writes the decoded frames under
+    ``<outf>/visualize_calib_network``. On a data-parallel rank other than
+    0 it does nothing."""
+    if not is_main(mesh):
+        return
     logging.info(f"======================={title}========================")
     model.load_state_dict(params)
-    results, _, embeds = common.evaluate(
+    results, _, _ = common.evaluate(
         model, dataset, args, cfg, dump_vis,
         visual_dir_name="visualize_calib_network")
     print_str = "Evaluation ... \n {} \n".format(
         datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
     s, _ = common.best_metrics_str(results)
     logging.info(print_str + s)
-    return results, embeds
 
 
 def _unit_scope(args, model, params, spec, state, cali_data):
@@ -206,7 +214,10 @@ def _np(tree):
     return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
 
 
-def calibrate(args, cfg):
+def calibrate(args, cfg, mesh=None):
+    """The stage-3 run; returns (artifact path, calibrated state, spec).
+    With a data-parallel `mesh` every rank runs it and encodes the clip;
+    rank 0 alone evaluates, logs and writes."""
     device = resolve_device(args.device)
     common.seed_all(args.seed)
     args.metric_names = common.METRIC_NAMES
@@ -221,10 +232,19 @@ def calibrate(args, cfg):
         "_warmup{}_lr{}".format(
             args.scope, args.hadamard, args.init, args.batch_size,
             args.weight, args.b_start, args.b_end, args.warmup, args.lr))
-    os.makedirs(args.outf, exist_ok=True)
-    setup_logger(os.path.join(args.outf,
-                              time.strftime("%Y%m%d_%H%M%S") + ".log"))
+    if is_main(mesh):
+        os.makedirs(args.outf, exist_ok=True)
+        setup_logger(os.path.join(args.outf,
+                                  time.strftime("%Y%m%d_%H%M%S") + ".log"))
     logging.info("[PID] %s" % os.getpid())
+    if mesh is not None:
+        logging.info("data-parallel calibration over %d ranks (%s)",
+                     mesh.size, mesh.device.type)
+        if args.batch_size % mesh.size:
+            logging.warning(
+                "batch_size %d not divisible by mesh_devices %d: uneven "
+                "shards; prefer batch_size a multiple of the mesh",
+                args.batch_size, mesh.size)
 
     assert args.ckpt != "None"
     logging.info("=> loading checkpoint '{}'".format(args.ckpt))
@@ -234,8 +254,10 @@ def calibrate(args, cfg):
     # load other weights into the model
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
-    _, cali_data = _eval_block("Full-precision model", model, params,
-                               dataset, args, cfg, args.dump_vis)
+    _eval_block("Full-precision model", model, params, dataset, args, cfg,
+                args.dump_vis, mesh)
+    # every rank encodes the clip, in the evaluation's batches
+    cali_data = common.encode_clip(model, dataset, cfg["batch_size"])
     logging.info("input embedding shape: {}".format(tuple(cali_data.shape)))
 
     spec = make_spec(args.arch, cfg, channel_wise=args.channel_wise,
@@ -248,11 +270,11 @@ def calibrate(args, cfg):
     logging.info("Init time: {}".format(time.time() - init_start))
 
     _eval_block("Close quantization model", model, params, dataset, args,
-                cfg)
+                cfg, mesh=mesh)
     with torch.no_grad():
         qparams = quantize_params(params, spec, state, mode="uaq")
     _eval_block("Weight quantization model w/o opt", model, qparams,
-                dataset, args, cfg)
+                dataset, args, cfg, mesh=mesh)
 
     logging.info("======================= Hyper Parameters "
                  "=======================")
@@ -296,11 +318,14 @@ def calibrate(args, cfg):
             rounding=args.rounding,
             adaround_only=(tuple(spec.layer_names[i]
                                  for i in args.adaround_layers)
-                           if args.adaround_layers is not None else None))
+                           if args.adaround_layers is not None else None),
+            mesh=mesh)
     else:
         state = _unit_scope(args, model, params, spec, state, cali_data)
         mode = "adaround"
     logging.info(f"Training complete in: {str(datetime.now() - start)}")
+    if not is_main(mesh):
+        return None, state, spec
 
     with torch.no_grad():
         qparams = quantize_params(params, spec, state, mode=mode, soft=False)
@@ -360,13 +385,28 @@ def calibrate(args, cfg):
     return out_path, state, spec
 
 
-def main(argv):
+def run(mesh, argv):
+    """One run of the CLI on `mesh` (None: one process): parse, set up, and
+    calibrate on this rank's device. The function each rank of
+    ``--mesh_devices`` runs."""
     args = parse_args(argv)
+    if mesh is not None:
+        args.device = str(mesh.device)
     cfg = validate_config(get_config(args.config), args.arch)
     args.outf = os.path.join("results", args.outf)
     args.exp_id = common.exp_id(args, cfg)
     args.outf = os.path.join(args.outf, args.exp_id)
-    return calibrate(args, cfg)
+    return calibrate(args, cfg, mesh)
+
+
+def main(argv):
+    """(artifact path, calibrated state, spec); with ``--mesh_devices N >
+    1`` the N ranks' run, and rank 0's result with its tensors on the
+    CPU."""
+    args = parse_args(argv)
+    if args.mesh_devices > 1:
+        return launch(run, args.mesh_devices, args.device, (argv,))[0]
+    return run(None, argv)
 
 
 if __name__ == "__main__":

@@ -62,6 +62,15 @@ def _eval_fps_line(device, fps: float, bs: int) -> None:
 
 
 @torch.no_grad()
+def encode_clip(model, dataset, bs: int):
+    """The clip's embeddings in frame order, encoded in batches of `bs` (as
+    :func:`evaluate` encodes them)."""
+    inputs = model.model_input(dataset.frames, dataset.norm_idx)
+    return torch.cat([model.encode(inputs[i:i + bs])
+                      for i in range(0, len(dataset), bs)])
+
+
+@torch.no_grad()
 def evaluate(model, dataset, args, cfg, dump_vis: bool = False,
              eval_fps: bool = False,
              visual_dir_name: str = "visualize_fp32"):
@@ -73,23 +82,20 @@ def evaluate(model, dataset, args, cfg, dump_vis: bool = False,
         return _evaluate_vis(model, dataset, args, cfg, eval_fps,
                              visual_dir_name)
     frames = dataset.frames
-    inputs = model.model_input(frames, dataset.norm_idx)
     n = len(dataset)
     bs = cfg["batch_size"]
     val_ind = set(args.val_ind_list)
     n_batches = (n + bs - 1) // bs
-    ps, ss, embeds = [], [], []
+    all_embeds = encode_clip(model, dataset, bs)
+    ps, ss = [], []
     for i in range(n_batches):
         idx = slice(i * bs, min((i + 1) * bs, n))
         img = frames[idx]
-        emb = model.encode(inputs[idx])
-        out = model.decode(emb)
+        out = model.decode(all_embeds[idx])
         ps.append(psnr_fn_single(out, img))
         ss.append(msssim_fn_single(out, img))
-        embeds.append(emb)
     ps = torch.cat(ps).cpu().numpy()
     ss = torch.cat(ss).cpu().numpy()
-    all_embeds = torch.cat(embeds)
     fps = measure_decode_fps(model, all_embeds, bs, n_iters=min(400, 4 * n))
 
     metric_list = [[] for _ in METRIC_NAMES]

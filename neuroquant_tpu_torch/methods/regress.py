@@ -9,7 +9,10 @@ forward and backward), the loss, ``torch.optim.Adam`` and the
 step's PSNR; the lr of each step is the schedule's at the count of earlier
 updates. The clip stays on the device and each epoch's frame order comes
 from a ``torch.Generator`` seeded from ``--seed``; per-step losses and PSNRs
-stay on the device until the epoch ends.
+stay on the device until the epoch ends. With ``--mesh_devices N`` the run
+spawns N ranks (``parallel.launch``: NCCL, rank r on ``cuda:r``; gloo with
+``--device cpu``) that split each step's frame batch and sum their
+gradients before Adam; rank 0 evaluates, logs and writes the checkpoints.
 
 Run (on the GPU; ``--device cpu`` for the CPU):
   python -m neuroquant_tpu_torch.methods.regress \\
@@ -36,6 +39,9 @@ from neuroquant_tpu_torch.data import VideoDataSet
 from neuroquant_tpu_torch.logging_utils import setup_logger
 from neuroquant_tpu_torch.methods import common
 from neuroquant_tpu_torch.metrics import loss_fn, psnr_fn_single
+from neuroquant_tpu_torch.parallel.mesh import (
+    all_reduce_sum, check_batch, data_parallel_step, is_main, launch,
+    replicate, shard_batch)
 from neuroquant_tpu_torch.schedules import make_lr_schedule
 from neuroquant_tpu_torch.utils.convert import save_pth
 from neuroquant_tpu_torch.utils.device import resolve_device, synchronize
@@ -80,7 +86,8 @@ def parse_args(argv):
                         help="write a torch.profiler trace of epoch 2 to "
                              "<outf>/profile and log the top kernels")
     parser.add_argument("--mesh_devices", default=0, type=int,
-                        help="data-parallel training over N devices")
+                        help="data-parallel training over N ranks (N "
+                             "cards; gloo processes with --device cpu)")
     parser.add_argument("--snapshot_freq", default=0, type=int,
                         help="also save epoch{N}.pth every N epochs (0 = "
                              "final only)")
@@ -93,9 +100,6 @@ def parse_args(argv):
 
 def _refuse_unported(args):
     """Flags whose path is not ported raise, naming their ROADMAP item."""
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            "--mesh_devices > 1: data parallelism is ROADMAP queue A item 14")
     if args.matmul_precision == "bfloat16":
         raise NotImplementedError(
             "--matmul_precision bfloat16: the kernels take fp32; reduced-"
@@ -152,15 +156,23 @@ def epoch_order(train_ind, seed: int, epoch: int):
 
 def make_train_epoch(model, loss_type, opt, schedule, frames,
                      norm_idx, steps_per_epoch, batch_size,
-                     qat_fn=None, qat_generator=None):
+                     qat_fn=None, qat_generator=None, mesh=None):
     """run_epoch(order, step0) -> (losses, psnrs), each (steps_per_epoch,)
     on the device: the epoch's batches are order[:steps * batch_size] in
     rows of batch_size; each step sets the lr to ``schedule(step0 + s)``,
     runs the forward (through `qat_fn`'s weights when it is given), the
     loss, the backward and Adam, and keeps the loss and the batch's mean
-    PSNR of the step's prediction."""
+    PSNR of the step's prediction.
+
+    With a data-parallel `mesh` each rank runs its rows of each batch, its
+    loss and PSNR normalised by the global batch, and the gradients are
+    summed over the ranks before Adam (a rank with no row contributes
+    zeros, and still draws the step's QAT noise); the losses and PSNRs
+    are summed over the ranks once an epoch."""
+    check_batch(model, batch_size, mesh)
     params = dict(model.named_parameters())
     inputs = model.model_input(frames, norm_idx)
+    leaves = list(params.values())
 
     def predict(inp):
         if qat_fn is None:
@@ -169,26 +181,43 @@ def make_train_epoch(model, loss_type, opt, schedule, frames,
             model, qat_fn(params, generator=qat_generator, training=True),
             (inp,))
 
+    def local_step(idx, s, losses, psnrs):
+        """This rank's forward, loss and backward on its rows `idx`; keeps
+        the step's loss and PSNR."""
+        if not len(idx):
+            if qat_fn is not None:      # the same draws on every rank
+                qat_fn(params, generator=qat_generator, training=True)
+            return
+        img = frames[idx]
+        pred = predict(inputs[idx])
+        loss = loss_fn(pred, img, loss_type)
+        share = None if mesh is None else len(idx) / batch_size
+        if share is not None:
+            loss = loss * share
+        loss.backward()
+        with torch.no_grad():
+            losses[s] = loss
+            psnr = psnr_fn_single(pred, img).mean()
+            psnrs[s] = psnr if share is None else psnr * share
+
+    step = data_parallel_step(local_step, mesh, leaves)
+
     def run_epoch(order, step0: int):
         order = torch.as_tensor(np.array(order, np.int64),
                                 device=frames.device)
         batches = order[:steps_per_epoch * batch_size].reshape(
             steps_per_epoch, batch_size)
-        losses = frames.new_empty(steps_per_epoch)
-        psnrs = frames.new_empty(steps_per_epoch)
+        losses = frames.new_zeros(steps_per_epoch)
+        psnrs = frames.new_zeros(steps_per_epoch)
         for s in range(steps_per_epoch):
-            idx = batches[s]
             for group in opt.param_groups:
                 group["lr"] = schedule(step0 + s)
             opt.zero_grad(set_to_none=True)
-            img = frames[idx]
-            pred = predict(inputs[idx])
-            loss = loss_fn(pred, img, loss_type)
-            loss.backward()
+            step(shard_batch(batches[s], mesh), s, losses, psnrs)
             opt.step()
-            with torch.no_grad():
-                losses[s] = loss
-                psnrs[s] = psnr_fn_single(pred, img).mean()
+        if mesh is not None:
+            both = all_reduce_sum(torch.stack([losses, psnrs]), mesh)
+            losses, psnrs = both[0], both[1]
         return losses, psnrs
 
     return run_epoch
@@ -216,10 +245,11 @@ def _eval_line(epoch, hw, results, best, writer):
     logging.info(print_str)
 
 
-def train(args, cfg, epoch_orders=None):
+def train(args, cfg, epoch_orders=None, mesh=None):
     """Stage 1 (or, with --eval_only, one evaluation); returns the model.
     epoch_orders(epoch) -> frame indices: the shuffles to use instead of
-    the seeded generator's."""
+    the seeded generator's. With a data-parallel `mesh` every rank trains
+    from rank 0's weights; rank 0 alone logs, evaluates and writes."""
     device = resolve_device(args.device)
     common.seed_all(args.seed)
     args.metric_names = common.METRIC_NAMES
@@ -228,11 +258,12 @@ def train(args, cfg, epoch_orders=None):
     dataset = VideoDataSet(cfg, args.data_path, device=device)
     train_ind = common.split_dataset(args, dataset)
     model = common.setup_run(args, cfg, device=device)
-    os.makedirs(args.outf, exist_ok=True)
-    writer = _summary_writer(os.path.join(args.outf, "tensorboard"))
-
-    setup_logger(os.path.join(args.outf,
-                              time.strftime("%Y%m%d_%H%M%S") + ".log"))
+    writer = None
+    if is_main(mesh):
+        os.makedirs(args.outf, exist_ok=True)
+        writer = _summary_writer(os.path.join(args.outf, "tensorboard"))
+        setup_logger(os.path.join(args.outf,
+                                  time.strftime("%Y%m%d_%H%M%S") + ".log"))
     logging.info("[PID] %s" % os.getpid())
     logging.info("================== Model Architecture=================")
     logging.info(f"{args.arch} / {model.cfg}")
@@ -243,10 +274,19 @@ def train(args, cfg, epoch_orders=None):
     if args.weight != "None":
         logging.info("=> loading checkpoint '{}'".format(args.weight))
         common.load_pth(args.weight, model)
+    if mesh is not None:
+        logging.info("data-parallel training over %d ranks (%s)",
+                     mesh.size, mesh.device.type)
+        if cfg["batch_size"] % mesh.size:
+            logging.warning("batch_size %d not divisible by mesh_devices %d",
+                            cfg["batch_size"], mesh.size)
+        replicate([*model.parameters(), *model.buffers()], mesh)
 
     try:
         with matmul_precision(args.matmul_precision, device):
             if args.eval_only:
+                if not is_main(mesh):
+                    return model
                 logging.info("Evaluation ... \n {} Results for checkpoint: "
                              "{}\n".format(datetime.now().strftime(
                                  "%Y_%m_%d_%H_%M_%S"), args.weight))
@@ -257,7 +297,7 @@ def train(args, cfg, epoch_orders=None):
                 logging.info(print_str)
                 return model
             _fit(args, cfg, model, dataset, train_ind, device, writer,
-                 best_metric_list, epoch_orders)
+                 best_metric_list, epoch_orders, mesh)
     finally:
         if writer is not None:
             writer.close()
@@ -265,7 +305,7 @@ def train(args, cfg, epoch_orders=None):
 
 
 def _fit(args, cfg, model, dataset, train_ind, device, writer,
-         best_metric_list, epoch_orders):
+         best_metric_list, epoch_orders, mesh=None):
     args.lr = cfg["learning_rate"]
     bs = cfg["batch_size"]
     steps_per_epoch = len(train_ind) // bs
@@ -282,7 +322,7 @@ def _fit(args, cfg, model, dataset, train_ind, device, writer,
 
     run_epoch = make_train_epoch(model, cfg["loss"], opt, schedule,
                                  dataset.frames, dataset.norm_idx,
-                                 steps_per_epoch, bs, qat_fn, qat_gen)
+                                 steps_per_epoch, bs, qat_fn, qat_gen, mesh)
 
     start = datetime.now()
     logging.info(f"begin training on {device.type}:"
@@ -321,6 +361,8 @@ def _fit(args, cfg, model, dataset, train_ind, device, writer,
             (epoch_end - epoch_start).total_seconds(),
             (epoch_end - start).total_seconds() / (epoch + 1)))
 
+        if not is_main(mesh):
+            continue
         if ((epoch + 1) % cfg["eval_freq"] == 0
                 or (cfg["epoch"] - epoch) in [1, 3, 5]):
             results, hw, _ = common.evaluate(
@@ -339,13 +381,27 @@ def _fit(args, cfg, model, dataset, train_ind, device, writer,
     logging.info(f"Training complete in: {str(datetime.now() - start)}")
 
 
-def main(argv, epoch_orders=None):
+def run(mesh, argv, epoch_orders=None):
+    """One run of the CLI on `mesh` (None: one process) on this rank's
+    device: the function each rank of ``--mesh_devices`` runs."""
     args = parse_args(argv)
+    if mesh is not None:
+        args.device = str(mesh.device)
     cfg = validate_config(get_config(args.config), args.arch)
     args.outf = os.path.join("results", args.outf)
     args.exp_id = common.exp_id(args, cfg)
     args.outf = os.path.join(args.outf, args.exp_id)
-    return train(args, cfg, epoch_orders)
+    return train(args, cfg, epoch_orders, mesh)
+
+
+def main(argv, epoch_orders=None):
+    """The trained model; with ``--mesh_devices N > 1`` the N ranks' run,
+    and rank 0's model on the CPU (`epoch_orders` must then pickle)."""
+    args = parse_args(argv)
+    if args.mesh_devices > 1:
+        return launch(run, args.mesh_devices, args.device,
+                      (argv, epoch_orders))[0]
+    return run(None, argv, epoch_orders)
 
 
 if __name__ == "__main__":

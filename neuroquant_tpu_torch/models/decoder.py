@@ -32,8 +32,8 @@ from neuroquant_tpu_torch.ops.packed_decode import (
 from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from neuroquant_tpu_torch.ops.tail_fused import (
     cf_to_nhwc, pack_cf, pack_prefix_block, plan_and_pack, prefix_cf_to_nhwc,
-    prepare_tail, resolve_impl, run_fused_tail_cf, run_fused_tail_frames,
-    tail_apply_fo)
+    PIECE, _run, prepare_tail, resolve_impl, run_fused_tail_cf,
+    run_fused_tail_frames, tail_apply_fo)
 
 
 class DecoderShape:
@@ -102,32 +102,33 @@ def _pack_entry(x, dx, plan):
             None if dx is None else pack_cf(dx.contiguous(), plan))
 
 
-def _run(fn, *args):
-    return fn(*args)
-
-
 def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
 def segment_runner(remat: bool):
-    """``run(fn, *args)`` for the segments of a forward-mode decode: fn as
-    it is, or with `remat` under non-reentrant ``torch.utils.checkpoint``,
-    so that the segment keeps only its inputs and outputs (the primal and
-    its tangent at its boundaries) and a backward through it recomputes its
-    inside, one segment at a time."""
-    return _remat if remat else _run
+    """``(run, piece)`` for a forward-mode decode: ``run(fn, *args)`` runs
+    a segment, fn as it is, or with `remat` under non-reentrant
+    ``torch.utils.checkpoint``, so that the segment keeps only its inputs
+    and outputs (the primal and its tangent at its boundaries) and a
+    backward through it recomputes its inside, one segment at a time; with
+    `remat` the tail's tangent GELU also runs in pieces of `piece`
+    elements (``tail_fused.PIECE``; None: whole)."""
+    return (_remat, PIECE) if remat else (_run, None)
 
 
-def fused_tail_jvp(x, dx, blocks, head_layer, t: int, dws, out_bias: str):
+def fused_tail_jvp(x, dx, blocks, head_layer, t: int, dws, out_bias: str,
+                   run=_run, piece=None):
     """The tail blocks[t:] and the head on the kernels in forward mode
     (:func:`tail_fused.tail_apply_fo`), from the NHWC tail-entry value x and
     its tangent dx: (frames, their tangent). `dws`: OIHW tangents of the
     tail blocks' convs, then the head's, all None or none None. The
     kernels' tangents are packed by the same gather as the kernels; the
     head's output is unpacked by plain tensor ops, as the JAX package's
-    HVP execution does."""
+    HVP execution does. Segments, each ``run(fn, value, tangent)``
+    (:func:`segment_runner`, which gives `piece` too): the entry's pack,
+    each tail layer, the unpack."""
     h, w = int(x.shape[1]), int(x.shape[2])
     tail, head = collect_tail_params(blocks, head_layer, t)
     plan, kks, bms, f, ch = plan_and_pack(h, w, tail, head)
@@ -137,13 +138,18 @@ def fused_tail_jvp(x, dx, blocks, head_layer, t: int, dws, out_bias: str):
             h, w, [(_hwio(dws[j - t]), None, blocks[j].stride)
                    for j in range(t, len(blocks))],
             (_hwio(dws[-1]), None))[1]
-    x_cf, dx_cf = _pack_entry(x, dx, plan)
-    z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
-    y, dy = _out_img_jvp(cf_to_nhwc(z, plan, ch),
-                         None if dz is None else cf_to_nhwc(dz, plan, ch),
-                         out_bias)
-    return (depth_to_space(y, f),
-            None if dy is None else depth_to_space(dy, f))
+
+    def unpack(z, dz):
+        y, dy = _out_img_jvp(cf_to_nhwc(z, plan, ch),
+                             None if dz is None else cf_to_nhwc(dz, plan, ch),
+                             out_bias)
+        return (depth_to_space(y, f),
+                None if dy is None else depth_to_space(dy, f))
+
+    x_cf, dx_cf = run(lambda x, dx: _pack_entry(x, dx, plan), x, dx)
+    z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms, run=run,
+                          piece=piece)
+    return run(unpack, z, dz)
 
 
 class KeptKernelWeights:
@@ -154,6 +160,10 @@ class KeptKernelWeights:
 
     def _kernel_params(self):
         raise NotImplementedError
+
+    def __getstate__(self):
+        # the kept weights are a cache: a pickled model rebuilds them
+        return {**self.__dict__, "_packed": {}}
 
     def _kernel_weights(self, key, build):
         """``build()``: the fused prefix's or tail's weights packed for the
@@ -287,8 +297,9 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         differentiates each kernel once.
 
         The decode runs in segments: decoder[0], each prefix block, the
-        fused prefix block, the tail (or the plain head). With `remat` each
-        segment is checkpointed (:func:`segment_runner`)."""
+        fused prefix block, then the tail's entry pack, each tail layer and
+        its unpack (or the plain head). With `remat` each segment is
+        checkpointed (:func:`segment_runner`)."""
         c = self.cfg
         if c.dec_acts != "gelu":
             raise NotImplementedError(
@@ -299,7 +310,7 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         if len(dws) != len(blocks) + 2:
             raise ValueError(f"decode_jvp: {len(dws)} tangents for "
                              f"{len(blocks) + 2} convs")
-        run = segment_runner(remat)
+        run, piece = segment_runner(remat)
         impl = self._fused_impl()
         t = len(blocks) if impl is None else self.pack_start
         fc = (c.fc_h, c.fc_w)
@@ -325,15 +336,12 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
             dkks = (None,) if dws[t] is None else pack_prefix_block(
                 h, w, _hwio(dws[t]), None, r)[1]
             x_cf, dx_cf = _pack_entry(x, dx, plan)
-            z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms)
+            z, dz = tail_apply_fo(plan, x_cf, dx_cf, kks, dkks, bms,
+                                  piece=piece)
             x = prefix_cf_to_nhwc(z, plan, r, blk.out_channel)
             dx = (None if dz is None
                   else prefix_cf_to_nhwc(dz, plan, r, blk.out_channel))
             return _gelu_jvp(x, dx)
-
-        def tail(x, dx):
-            return fused_tail_jvp(x, dx, blocks, self.head_layer, t,
-                                  dws[t + 1:], c.out_bias)
 
         x, dx = run(layer0, img_embed)
         fused = fuses_prefix_block(blocks, t, impl, c.fused_prefix,
@@ -344,7 +352,8 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
             return run(head, x, dx)
         if fused:
             x, dx = run(fused_block, x, dx)
-        return run(tail, x, dx)
+        return fused_tail_jvp(x, dx, blocks, self.head_layer, t, dws[t + 1:],
+                              c.out_bias, run, piece)
 
     def decode(self, img_embed, return_embeds: bool = False):
         """Embedding -> NHWC frames in [0, 1] (for the tanh/sigmoid heads).

@@ -11,6 +11,7 @@ PyTorch's channels-last layout, and back.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import lru_cache
 from typing import Sequence
@@ -109,11 +110,44 @@ class LayerNorm(nn.Module):
         return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
 
 
+_BATCH_GROUP = None     # the process group a batch spans (batch_over)
+
+
+@contextlib.contextmanager
+def batch_over(group):
+    """Inside, every :class:`BatchNorm2d` takes its statistics over the
+    frames of all the ranks of `group` (a data-parallel step, whose batch
+    is split over the ranks), as the JAX package's one program over a
+    mesh does; None: this process's batch."""
+    global _BATCH_GROUP
+    prev, _BATCH_GROUP = _BATCH_GROUP, group
+    try:
+        yield
+    finally:
+        _BATCH_GROUP = prev
+
+
+def _batch_norm_over(x, weight, bias, eps, group):
+    """Batch norm of NHWC `x` with the statistics of the whole batch split
+    over `group`'s ranks: the channel sums and the frame count, then the
+    squared deviations, each summed over the ranks by an all-reduce that
+    autograd differentiates (its backward sums the ranks' gradients)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = x.shape[-1]
+    local = torch.cat([x.sum((0, 1, 2)), x.new_full((1,), x.numel() // c)])
+    total = all_reduce(local, group=group)
+    mean = total[:c] / total[c]
+    d = x - mean
+    var = all_reduce((d * d).sum((0, 1, 2)), group=group) / total[c]
+    return d * torch.rsqrt(var + eps) * weight + bias
+
+
 class BatchNorm2d(nn.Module):
     """torch ``BatchNorm2d(track_running_stats=False)`` on NHWC tensors:
     always the batch's statistics (biased variance), so a frame's output
-    depends on the other frames of its batch. Parameters ``weight`` and
-    ``bias`` only."""
+    depends on the other frames of its batch; inside :func:`batch_over`
+    the batch is every rank's. Parameters ``weight`` and ``bias`` only."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -122,9 +156,18 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if _BATCH_GROUP is not None:
+            return _batch_norm_over(x, self.weight, self.bias, self.eps,
+                                    _BATCH_GROUP)
         y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, self.weight,
                          self.bias, training=True, eps=self.eps)
         return y.permute(0, 2, 3, 1)
+
+
+def norms_over_batch(model) -> bool:
+    """Whether `model` holds a :class:`BatchNorm2d` (PNeRV's shortcuts), so
+    that a frame's output depends on its batch."""
+    return any(isinstance(m, BatchNorm2d) for m in model.modules())
 
 
 class KFcBias(nn.Module):

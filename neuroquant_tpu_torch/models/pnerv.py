@@ -295,7 +295,8 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
         start 0 (``fused_tail`` other than off), else the plain chain;
         every op first-order, so a gradient of the tangent differentiates
         each kernel once. Segments: the excitation block, each fusion
-        stage, the tail; with `remat` each is checkpointed
+        stage, the tail's entry pack, each tail layer and its unpack (or
+        the plain tail as one); with `remat` each is checkpointed
         (:func:`decoder.segment_runner`)."""
         if self.cfg.dec_acts != "gelu":
             raise NotImplementedError(
@@ -307,7 +308,7 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
             raise ValueError(f"decode_jvp: {len(dws)} tangents for "
                              f"{len(keys)} convs")
         tangents = dict(zip(keys, dws))
-        run = segment_runner(remat)
+        run, piece = segment_runner(remat)
         x, dx = self._fusion(content, tangents, run)
         if self._fused_impl() is None:
             return run(lambda x, dx: self._tail_plain(x, dx, tangents.get),
@@ -315,9 +316,8 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
         n = self.n_fused
         dw_tail = [tangents[f"dec_layers.{n}.conv.0.weight"],
                    tangents["dec_head_layers.weight"]]
-        return run(lambda x, dx: fused_tail_jvp(
-            x, dx, self.dec_layers, self.dec_head_layers, n, dw_tail,
-            "sigmoid"), x, dx)
+        return fused_tail_jvp(x, dx, self.dec_layers, self.dec_head_layers,
+                              n, dw_tail, "sigmoid", run, piece)
 
     def decode(self, content):
         """Content embedding -> NHWC frames in [0, 1]. The post-fusion tail

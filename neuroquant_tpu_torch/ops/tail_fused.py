@@ -64,7 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -1026,30 +1026,66 @@ def _erf_grad(x):
                                           + 2.0 * ax * poly)
 
 
+PIECE = 1 << 23     # elements a piece of the tangent GELU under --remat
+
+
+def _by_pieces(piece, fn, *xs):
+    """``fn(*xs)`` for an elementwise `fn` of same-shape tensors; with a
+    `piece` size, run over contiguous pieces of that many elements and
+    written into whole outputs: the same values, with each of fn's
+    temporaries a piece in size instead of a whole tensor (the erf
+    polynomial's ~10 temporaries at 592 or 400 channels were the stage-2
+    HVP's peak)."""
+    n = xs[0].numel()
+    if piece is None or n <= piece:
+        return fn(*xs)
+    flat = [x.contiguous().view(-1) for x in xs]
+    outs = None
+    for a in range(0, n, piece):
+        res = fn(*(f[a:a + piece] for f in flat))
+        if outs is None:
+            outs = [torch.empty(n, dtype=r.dtype, device=r.device)
+                    for r in res]
+        for o, r in zip(outs, res):
+            o[a:a + piece].copy_(r)
+    return tuple(o.view(xs[0].shape) for o in outs)
+
+
+def _gelu_tangent(h, dh):
+    return _gelu(h), _gelu_grad(h) * dh
+
+
+def _gelu_tangent_vjp(h, dh, gy, gd):
+    hf = h.float()
+    u = hf * 0.7071067811865476
+    de = _erf_grad(u) * 0.7071067811865476        # d erf(h / sqrt 2)
+    cdf = 0.5 * (1.0 + _erf(u))
+    phi = torch.exp(-0.5 * hf * hf) * _INV_SQRT_2PI
+    dy = cdf + 0.5 * hf * de                       # d gelu / dh
+    dg = 0.5 * de + phi - hf * hf * phi            # d gelu' / dh
+    return gy * dy + gd * dh * dg, gd * (cdf + hf * phi)
+
+
 class _GeluTangent(torch.autograd.Function):
     """(h, dh) -> (gelu(h), gelu'(h) * dh), the tail's GELU with its
     tangent. Autograd through the two formulas keeps ~20 full-size
     intermediates of the erf polynomial for the outer backward; this keeps
     h and dh and writes that backward in closed form: the derivatives of
-    :func:`_gelu` and :func:`_gelu_grad` as autograd takes them."""
+    :func:`_gelu` and :func:`_gelu_grad` as autograd takes them. With a
+    `piece` size both passes run piece by piece (:func:`_by_pieces`)."""
 
     @staticmethod
-    def forward(ctx, h, dh):
+    def forward(ctx, h, dh, piece=None):
         ctx.save_for_backward(h, dh)
-        return _gelu(h), _gelu_grad(h) * dh
+        ctx.piece = piece
+        return _by_pieces(piece, _gelu_tangent, h, dh)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gd):
         h, dh = ctx.saved_tensors
-        hf = h.float()
-        u = hf * 0.7071067811865476
-        de = _erf_grad(u) * 0.7071067811865476        # d erf(h / sqrt 2)
-        cdf = 0.5 * (1.0 + _erf(u))
-        phi = torch.exp(-0.5 * hf * hf) * _INV_SQRT_2PI
-        dy = cdf + 0.5 * hf * de                       # d gelu / dh
-        dg = 0.5 * de + phi - hf * hf * phi            # d gelu' / dh
-        return gy * dy + gd * dh * dg, gd * (cdf + hf * phi)
+        return (*_by_pieces(ctx.piece, _gelu_tangent_vjp, h, dh, gy, gd),
+                None)
 
 
 def conv_p(plan: TailPlan, layer: TailLayer, x, kk, bias=None):
@@ -1058,23 +1094,34 @@ def conv_p(plan: TailPlan, layer: TailLayer, x, kk, bias=None):
     return _ConvP.apply(plan, layer, x.contiguous(), kk.contiguous(), bias)
 
 
+def _run(fn, *args):
+    return fn(*args)
+
+
 def tail_apply_fo(plan: TailPlan, x_cf, dx_cf, kks, dkks, biases,
-                  dbiases=None):
+                  dbiases=None, run=_run, piece=None):
     """The fused tail with a tangent: (h, dh) for input x_cf with tangent
     dx_cf, kernels kks with tangents dkks, biases with tangents dbiases
     (None: no tangent). Per layer, as the JAX ``_tail_apply_fo_jvp``:
     ``dh <- gelu'(h) * dh; h <- gelu(h)`` where the layer's input goes
     through GELU, then ``z = conv_p(h, W, b)``, ``dz = conv_p(dh, W) +
     conv_p(h, dW, db)``. h equals :func:`tail_apply`'s output. Without any
-    tangent it is :func:`tail_apply` (dh None)."""
+    tangent it is :func:`tail_apply` (dh None).
+
+    Each layer is one segment, ``run(layer_fn, h, dh)``: as it is by
+    default, or checkpointed (``models.decoder.segment_runner``), so that
+    a backward through the tail keeps one layer's inside at a time. With a
+    `piece` size (PIECE under ``--remat``, which trades time for memory)
+    the tangent GELU runs piece by piece."""
     dbiases = dbiases if dbiases is not None else (None,) * len(kks)
     if dx_cf is None and all(t is None for t in (*dkks, *dbiases)):
         return tail_apply(plan, x_cf, kks, biases), None
-    h, dh = x_cf, dx_cf
-    for li, layer in enumerate(plan.layers):
+
+    def layer_fo(li, h, dh):
+        layer = plan.layers[li]
         if layer.gelu_in:
             h, dh = (_gelu(h), None) if dh is None else _GeluTangent.apply(
-                h, dh)
+                h, dh, piece)
         z = conv_p(plan, layer, h, kks[li], biases[li])
         parts = []
         if dh is not None:
@@ -1083,9 +1130,12 @@ def tail_apply_fo(plan: TailPlan, x_cf, dx_cf, kks, dkks, biases,
             dk = dkks[li] if dkks[li] is not None else torch.zeros_like(
                 kks[li])
             parts.append(conv_p(plan, layer, h, dk, dbiases[li]))
-        h = z
-        dh = (None if not parts else parts[0] if len(parts) == 1
-              else parts[0] + parts[1])
+        return z, (None if not parts else parts[0] if len(parts) == 1
+                   else parts[0] + parts[1])
+
+    h, dh = x_cf, dx_cf
+    for li in range(len(plan.layers)):
+        h, dh = run(partial(layer_fo, li), h, dh)
     return h, dh
 
 

@@ -22,7 +22,10 @@ decoder tail runs forward and backward on the CUDA kernels.
 An epoch is a Python loop over its shuffled batches (the JAX package scans
 one jitted epoch). Shuffles come from a ``torch.Generator`` seeded from the
 seed, the phase and the epoch index, so a resumed run replays them; a
-caller may pass its own (``epoch_orders``).
+caller may pass its own (``epoch_orders``). With a data-parallel `mesh`
+(``parallel.launch``) every rank draws the same shuffles, decodes its rows
+of each step's batch, and the gradients are summed over the ranks before
+Adam (``parallel.data_parallel_step``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from neuroquant_tpu_torch.metrics import lp_loss
+from neuroquant_tpu_torch.parallel.mesh import (
+    all_reduce_sum, check_batch, data_parallel_step, is_main, replicate,
+    shard_batch)
 from neuroquant_tpu_torch.quantization.qmodel import (
     adaround_upgrade, quantize_params, round_loss,
 )
@@ -101,19 +107,22 @@ class _Decoder(nn.Module):
 
 def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,
               cf_pack=None, loss_extra=None):
-    """The calibration loss: ``loss(state, img, inputs, count) -> (total,
-    (rec, rnd, b))``. The decoder's quantized layers are replaced by
-    ``quantize_params(params, spec, state, mode, soft=True)``; gradients
-    reach every state leaf that requires one. With `cf_pack`, `img` is a
-    batch of ``cf_pack["gt"]`` and the loss runs in the packed domain;
-    otherwise on NHWC frames through ``decode``."""
+    """The calibration loss: ``loss(state, img, inputs, count, share=None,
+    extra=True) -> (total, (rec, rnd, b))``. The decoder's quantized layers
+    are replaced by ``quantize_params(params, spec, state, mode,
+    soft=True)``; gradients reach every state leaf that requires one. With
+    `cf_pack`, `img` is a batch of ``cf_pack["gt"]`` and the loss runs in
+    the packed domain; otherwise on NHWC frames through ``decode``. A
+    data-parallel rank passes `share`, its rows over the global batch, so
+    that the ranks' rec sum to the global batch's; and `extra` on rank 0
+    only, so that the rounding term counts once."""
     dec = _Decoder(model, "decode_cf" if cf_pack is not None else "decode")
     keys = [f"{pre}.{leaf}" for pre in spec.layer_keys
             for leaf in ("weight", "bias")]
     if cf_pack is not None:
         cf_mask, cf_denom = cf_pack["mask"], float(cf_pack["denom"])
 
-    def loss(state, img, inputs, count):
+    def loss(state, img, inputs, count, share=None, extra=True):
         qp = quantize_params(params, spec, state, mode=mode, soft=True)
         pred = functional_call(dec, {f"model.{k}": qp[k] for k in keys},
                                (inputs,)).float()
@@ -125,8 +134,12 @@ def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,
             rec = d.sum() / (img.shape[0] * cf_denom)
         else:
             rec = lp_loss(pred, img, p=p)
+        if share is not None:
+            rec = rec * share
         rnd, b = (loss_extra(state, count) if loss_extra is not None
                   else (0.0, 0.0))
+        if not extra:
+            rnd = 0.0
         return rec + rnd, (rec, rnd, b)
 
     return loss
@@ -142,18 +155,41 @@ def _epoch_order(train_ind, seed: int, phase: int, epoch: int):
 def _run_phase(*, loss, state, cali_data, gt, trainable_keys, lr, epochs,
                steps_per_epoch, batch_size, order, count_offset=0,
                log_fn=logging.info, start_epoch=0,
-               epoch_cb=None, opt_state0=None):
+               epoch_cb=None, opt_state0=None, mesh=None):
     """Adam over the trainable leaves for `epochs` epochs of
-    `steps_per_epoch` batches; order(e) gives epoch e's frame order."""
+    `steps_per_epoch` batches; order(e) gives epoch e's frame order. With
+    a data-parallel `mesh` the leaves start from rank 0's, each rank
+    decodes its rows of each batch (a rank with none skips its decode and
+    contributes zero gradients) and the gradients are summed over the
+    ranks before Adam; the logged losses are summed too."""
     if epochs <= 0:
         return state, count_offset
     tstate, frozen = _split_state(state, trainable_keys)
     tstate = {ln: {k: v.detach().clone().requires_grad_(True)
                    for k, v in s.items()} for ln, s in tstate.items()}
-    leaves = [v for s in tstate.values() for v in s.values()]
+    leaves = replicate([v for s in tstate.values() for v in s.values()],
+                       mesh)
     opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
     if opt_state0 is not None:
         opt.load_state_dict(opt_state0)
+
+    def local_step(rows, count):
+        """This rank's loss on its rows and its backward: (total, rec, rnd,
+        b), the first three as tensors."""
+        st = _merge_state(tstate, frozen)
+        if mesh is None:
+            total, (rec, rnd, b) = loss(st, gt[rows], cali_data[rows], count)
+        elif len(rows):
+            total, (rec, rnd, b) = loss(
+                st, gt[rows], cali_data[rows], count,
+                share=len(rows) / batch_size, extra=mesh.is_main)
+        else:
+            zero = gt.new_zeros(())
+            return zero, zero, zero, 0.0
+        total.backward()
+        return total, rec, rnd, b
+
+    step = data_parallel_step(local_step, mesh, leaves)
     count = count_offset
     for e in range(start_epoch, epochs):
         idx = torch.as_tensor(order(e), device=gt.device)
@@ -162,12 +198,13 @@ def _run_phase(*, loss, state, cali_data, gt, trainable_keys, lr, epochs,
         for s in range(steps_per_epoch):
             count += 1
             opt.zero_grad(set_to_none=True)
-            total, (rec, rnd, b) = loss(_merge_state(tstate, frozen),
-                                        gt[batches[s]],
-                                        cali_data[batches[s]], count)
-            total.backward()
+            total, rec, rnd, b = step(shard_batch(batches[s], mesh), count)
             opt.step()
             if count % LOG_EVERY == 0:
+                logged = all_reduce_sum(torch.stack([
+                    torch.as_tensor(v, dtype=gt.dtype, device=gt.device)
+                    for v in (total, rec, rnd)]).detach(), mesh)
+                total, rec, rnd = logged.tolist()
                 log_fn("Total loss:\t{:.4f} (rec:{:.4f}, round:{:.4f})\t"
                        "b={:.2f}\tcount={}".format(
                            float(total), float(rec), float(rnd), float(b),
@@ -225,7 +262,7 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
                          ckpt_every_epochs: int = 25, cf_pack="auto",
                          rounding: str = "adaround",
                          adaround_only: tuple | None = None,
-                         epoch_orders=None):
+                         epoch_orders=None, mesh=None, epoch_hook=None):
     """Returns (calibrated QuantState, mode); decode the result with
     ``quantize_params(..., mode=mode, soft=False)``.
 
@@ -240,8 +277,13 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
     checkpoint_path: phase-2 progress (state, Adam moments, count) every
     `ckpt_every_epochs` epochs; an existing file resumes the run exactly.
     epoch_orders(phase, epoch) -> frame indices, phase 1 or 2: the
-    shuffles to use instead of the seeded generator's."""
+    shuffles to use instead of the seeded generator's. mesh: a
+    data-parallel ``parallel.Mesh``; every rank calls this with the same
+    arguments, and only rank 0 writes the checkpoint. epoch_hook(epoch,
+    count, state): called after every phase-2 epoch (a throughput probe
+    synchronises there)."""
     assert rounding in ("adaround", "nearest"), rounding
+    check_batch(model, batch_size, mesh)
     if rounding == "nearest":
         checkpoint_path = None
     if isinstance(cf_pack, str) and cf_pack == "auto":
@@ -263,7 +305,7 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
                f"phase2 epoch {resume['epoch'] + 1}, count {resume['count']}")
 
     def save_ckpt(epoch, st, count, opt):
-        if checkpoint_path is None:
+        if checkpoint_path is None or not is_main(mesh):
             return
         with open(checkpoint_path + ".tmp", "wb") as f:
             pickle.dump({"epoch": epoch, "count": count,
@@ -281,7 +323,7 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
             state=state, cali_data=cali_data, gt=gt,
             trainable_keys=("w_delta", "b_delta"), lr=0.001, epochs=epochs1,
             steps_per_epoch=steps_per_epoch, batch_size=batch_size,
-            order=order_for(1), log_fn=log_fn)
+            order=order_for(1), log_fn=log_fn, mesh=mesh)
         synchronize(device)
         log_fn(f"[calib] phase 1 (delta): {epochs1} epochs x "
                f"{steps_per_epoch} steps in {time.time() - t0:.1f}s")
@@ -316,6 +358,8 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
         return round_loss(st, spec, b, weight), b
 
     def epoch_cb(e, st, count, opt):
+        if epoch_hook is not None:
+            epoch_hook(e, count, st)
         if ckpt_every_epochs > 0 and (e + 1) % ckpt_every_epochs == 0:
             save_ckpt(e, st, count, opt)
 
@@ -328,7 +372,8 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
         trainable_keys=("w_alpha", "b_alpha"), lr=lr, epochs=epochs2,
         steps_per_epoch=steps_per_epoch, batch_size=batch_size,
         order=order_for(2), log_fn=log_fn, start_epoch=start_epoch,
-        count_offset=count0, epoch_cb=epoch_cb, opt_state0=opt_state0)
+        count_offset=count0, epoch_cb=epoch_cb, opt_state0=opt_state0,
+        mesh=mesh)
     synchronize(device)
     dt = time.time() - t0
     n_steps = (epochs2 - start_epoch) * steps_per_epoch

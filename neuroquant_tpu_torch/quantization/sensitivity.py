@@ -10,9 +10,9 @@ pallas_hvp`` (``tail_fused.tail_apply_fo``) or through the plain unpacked
 decode's cuDNN convs on ``off``, and ``torch.autograd.grad`` of the
 directional derivative differentiates that first-order graph once. With
 ``remat`` the decode runs checkpointed in segments (``decode_jvp(...,
-remat=True)``: prefix blocks or fusion stages one by one, the tail as one):
-the forward keeps only each segment's boundary values and tangents, and the
-backward recomputes one segment at a time.
+remat=True)``: prefix blocks or fusion stages one by one, then the tail
+layer by layer): the forward keeps only each segment's boundary values and
+tangents, and the backward recomputes one segment at a time.
 
 fisher_diag: sum over layers of v^2 * g^2, g the gradient accumulated over
 the same batches, on whatever decode the config selects (the production

@@ -21,15 +21,19 @@ and writes the rows as JSON to --out.
 With --remat ARCH [ARCH ...] (hnerv, pnerv: PNeRV1 Bunny-3M,
 configs/PNeRV/Bunny_1280x640_3M.yaml, its bf16 fusion stages as shipped)
 it measures ``bit_assign --remat`` instead: per arch, one batch-2 HVP on
-the kernel route (``pallas_hvp``) without and with the segmented remat, in
-turns (off, on, on, off), each turn's peak device memory (over what the
-model and inputs hold before it) and seconds per batch (median of --reps),
-and max|Hv_remat - Hv| / max|Hv| per leaf.
+the kernel route (``pallas_hvp``) in three variants: without remat (the
+default), without remat but the tail's tangent GELU in pieces (what
+``--remat`` adds to the segments, alone), and with remat (the decode
+checkpointed in segments, the tail layer by layer, the GELU in pieces); in
+turns (off, pieces, on, on, pieces, off), each turn's peak device memory
+(over what the model and inputs hold before it) and seconds per batch
+(median of --reps), and max|Hv_variant - Hv| / max|Hv| per leaf.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -85,9 +89,29 @@ FOLDERS = {"hnerv": "HNeRV", "pnerv": "PNeRV"}
 PATTERN = (6, 5, 4, 5, 5, 6, 6)   # the toy candidate, over PNeRV's 19
 
 
+@contextlib.contextmanager
+def _variant(variant):
+    """The decode's segment runner for one variant: 'pieces' keeps the
+    segments as they are without remat but runs the tail's tangent GELU in
+    pieces, as ``--remat`` does; 'off' and 'on' are ``remat`` False and
+    True, as shipped."""
+    from neuroquant_tpu_torch.models import decoder, pnerv
+    from neuroquant_tpu_torch.ops.tail_fused import PIECE
+
+    shipped = decoder.segment_runner
+    if variant == "pieces":
+        decoder.segment_runner = pnerv.segment_runner = (
+            lambda remat: (decoder._run, PIECE))
+    try:
+        yield
+    finally:
+        decoder.segment_runner = pnerv.segment_runner = shipped
+
+
 def _remat_rows(torch, arch, dev, card, reps):
-    """One batch-2 HVP at `arch` Bunny-3M on the kernel route, without and
-    with --remat in turns: peak memory, seconds, Hv agreement."""
+    """One batch-2 HVP at `arch` Bunny-3M on the kernel route, in the three
+    variants of :func:`_variant` in turns: peak memory, seconds, Hv
+    agreement."""
     from neuroquant_tpu_torch.config import get_config, validate_config
     from neuroquant_tpu_torch.models import build_model
     from neuroquant_tpu_torch.quantization import (
@@ -110,11 +134,13 @@ def _remat_rows(torch, arch, dev, card, reps):
     vec = get_perturbation(sd, spec, init_quant_state(sd, spec))
     batch = [[0, 1]]
     hv, turns = {}, []
-    for remat in (False, True, True, False):
+    for variant in ("off", "pieces", "on", "on", "pieces", "off"):
         def run():
-            return hessian_vector_product(model, spec, vec, frames, None,
-                                          batch, remat=remat)
-        hv[remat] = run()                   # warm-up (and the kernel build)
+            with _variant(variant):
+                return hessian_vector_product(
+                    model, spec, vec, frames, None, batch,
+                    remat=variant == "on")
+        hv[variant] = run()                 # warm-up (and the kernel build)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
@@ -125,16 +151,18 @@ def _remat_rows(torch, arch, dev, card, reps):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        turns.append(dict(remat=remat, seconds=sorted(secs),
+        turns.append(dict(variant=variant, seconds=sorted(secs),
                           median_s=float(np.median(secs)), peak_mib=peak,
                           held_mib=held))
-        print(f"  {arch} --remat {remat}: {np.median(secs):.4f} s a batch "
+        print(f"  {arch} {variant}: {np.median(secs):.4f} s a batch "
               f"(median of {reps}; {min(secs):.4f}-{max(secs):.4f}), peak "
               f"{peak:.1f} MiB ({held:.1f} MiB held before); {card}")
-    err = [float((a - b).abs().max() / b.abs().max())
-           for a, b in zip(hv[True], hv[False])]
-    print(f"  {arch} Hv with --remat against without: leaf max|diff| / "
-          f"max|Hv| {' '.join(f'{e:.2e}' for e in err)}")
+    err = {}
+    for variant in ("pieces", "on"):
+        err[variant] = [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(hv[variant], hv["off"])]
+        print(f"  {arch} Hv {variant} against off: leaf max|diff| / max|Hv| "
+              f"{' '.join(f'{e:.2e}' for e in err[variant])}")
     return dict(arch=arch, card=card, turns=turns, leaf_rel_err=err)
 
 

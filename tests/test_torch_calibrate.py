@@ -423,6 +423,13 @@ class TestCLI:
                  "cpu"] + flag)
             assert args.scope == flag[1]
             return
+        if item == "item 14":
+            # ported: the flag parses (tests/test_torch_dp.py runs the CLI
+            # with it)
+            assert calibrate_network.parse_args(
+                ["--config", "c.yaml", "--arch", "hnerv", "--device",
+                 "cpu"] + flag).mesh_devices == 2
+            return
         if item == "item 8":
             # ported: the flag parses
             # (tests/test_torch_regress.py::TestCLI::

@@ -1,10 +1,11 @@
 """Stage 2's Hessian-vector product with ``remat`` (``bit_assign --remat``)
 in the port, on the 80x160 fixture with the tiny HNeRV, NeRV and PNeRV1:
 the decode checkpointed in segments (prefix blocks or fusion stages one by
-one, the tail as one) gives the Hv of the unsegmented graph, on both HVP
-routes (the kernels' forward-mode tail, here their plain versions, and the
-plain unpacked decode); and the per-layer omega scores agree with the JAX
-package's criterion under ``remat=True``. Weights come from the JAX init,
+one, the tail layer by layer) gives the Hv of the unsegmented graph, on
+both HVP routes (the kernels' forward-mode tail, here their plain
+versions, and the plain unpacked decode); the tail's layers are recomputed
+one at a time, each just before its own backward; and the per-layer omega
+scores agree with the JAX package's criterion under ``remat=True``. Weights come from the JAX init,
 batches from its ``jax.random.permutation``; the JAX package runs its
 plain execution.
 
@@ -28,6 +29,7 @@ from neuroquant_tpu.quantization import qmodel as jqm
 from neuroquant_tpu.quantization import sensitivity as jsens
 from neuroquant_tpu.quantization.spec import make_spec as jax_make_spec
 from neuroquant_tpu_torch.models import build_model
+from neuroquant_tpu_torch.ops import tail_fused as ttf
 from neuroquant_tpu_torch.quantization import (
     get_perturbation, hessian_vector_product, make_spec,
     sensitivity_criterion)
@@ -117,6 +119,74 @@ def test_remat_gives_the_same_hv(setup, monkeypatch, arch, route):
         assert float(a.abs().max()) > 0
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
                                    atol=1e-6 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_recomputes_the_tail_layer_by_layer(setup, monkeypatch, arch):
+    """On the kernel route with remat, every conv_p of each tail layer runs
+    once in the forward and once more inside the backward (its segment's
+    recompute), and a layer is recomputed only after the next layer's dW
+    pass: one layer's inside is alive at a time. Without remat no conv_p
+    runs inside the backward."""
+    s = setup[arch]
+    model = s["tm"]["pallas_hvp"]
+    vec = get_perturbation(s["sd"], s["tspec"], s["tstate"])
+    frames, norm_idx = _inputs(s, arch)
+    conv_p, conv_dw = ttf.conv_p, ttf.conv_cf_dw
+    events = []
+
+    def in_backward():
+        return torch._C._current_graph_task_id() != -1
+
+    def rec_conv_p(plan, layer, *a, **k):
+        events.append(("conv", plan, layer, in_backward()))
+        return conv_p(plan, layer, *a, **k)
+
+    def rec_dw(x, g, plan, layer, *a, **k):
+        events.append(("dw", plan, layer, in_backward()))
+        return conv_dw(x, g, plan, layer, *a, **k)
+
+    monkeypatch.setattr(ttf, "conv_p", rec_conv_p)
+    monkeypatch.setattr(ttf, "conv_cf_dw", rec_dw)
+    for remat in (False, True):
+        events.clear()
+        hessian_vector_product(model, s["tspec"], vec, frames, norm_idx,
+                               s["batches"][:1], remat=remat)
+        plan = max({e[1] for e in events}, key=lambda p: len(p.layers))
+        layers = plan.layers
+        assert len(layers) >= 2, layers
+
+        def where(kind, layer, backward):
+            return [i for i, e in enumerate(events) if e[0] == kind
+                    and e[1] is plan and e[2] is layer and e[3] == backward]
+
+        for li, layer in enumerate(layers):
+            fwd = where("conv", layer, False)
+            rec = where("conv", layer, True)
+            assert len(fwd) in (2, 3), (li, len(fwd))
+            assert len(rec) == (len(fwd) if remat else 0), (li, rec, fwd)
+            if remat and li + 1 < len(layers):
+                later_dw = where("dw", layers[li + 1], True)
+                assert later_dw and min(rec) > max(later_dw), (li, rec,
+                                                               later_dw)
+            if remat:
+                assert max(rec) < min(where("dw", layer, True)), li
+
+
+def test_gelu_tangent_by_pieces_matches_whole():
+    """The tail's tangent GELU run piece by piece (as under remat; a last
+    piece shorter than the rest) gives the values and the closed-form
+    backward of the whole-tensor run, to fp32 rounding."""
+    gen = torch.Generator().manual_seed(0)
+    h, dh, gy, gd = (torch.randn(2, 24, 1000, generator=gen)
+                     for _ in range(4))
+    want = [ttf._gelu_tangent(h, dh), ttf._gelu_tangent_vjp(h, dh, gy, gd)]
+    hr, dhr = (t.clone().requires_grad_(True) for t in (h, dh))
+    got = ttf._GeluTangent.apply(hr, dhr, 777)
+    torch.autograd.backward(got, (gy, gd))
+    for g, w in zip([*got, hr.grad, dhr.grad], [*want[0], *want[1]]):
+        np.testing.assert_allclose(g.detach().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * float(w.abs().max()))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

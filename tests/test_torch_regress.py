@@ -512,6 +512,13 @@ class TestCLI:
         (["--mesh_devices", "2"], "item 14"),
         (["--matmul_precision", "bfloat16"], "item 16")])
     def test_unported_flags_name_their_item(self, flag, item):
+        if item == "item 14":
+            # ported: the flag parses (tests/test_torch_dp.py runs the CLI
+            # with it)
+            assert regress.parse_args(
+                ["--config", "c.yaml", "--arch", "hnerv", "--device",
+                 "cpu"] + flag).mesh_devices == 2
+            return
         with pytest.raises(NotImplementedError, match=item):
             regress.main(["--config", "c.yaml", "--arch", "hnerv",
                           "--device", "cpu"] + flag)
