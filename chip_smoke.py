@@ -4,7 +4,9 @@
 (configs/NeRV/Bunny_1280x640_3M.yaml) and PNeRV Bunny-3M
 (configs/PNeRV/Bunny_1280x640_3M.yaml) with seeded random weights, and the
 unit-scope calibration (calibrate_network --scope block|layer) at HNeRV
-and NeRV Bunny-3M.
+and NeRV Bunny-3M, and the reduced-precision modes (calibrate_network
+--compute_dtype bfloat16, regress --matmul_precision bfloat16) at HNeRV
+Bunny-3M.
 
   python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -148,6 +150,30 @@ Phases (any failure exits non-zero):
  18. bench -- ``python -m neuroquant_tpu_torch.bench --iters 264`` in its
      own process: its JSON line printed here, its phase-2 it/s and decode
      FPS
+ 19. bf16 at HNeRV Bunny-3M (run after phase 12) -- the tail kernels'
+     bf16 instantiations against their plain versions on the card: the
+     decode's convs at batch 1 and a calibration step's forward, dx and
+     dW at batch 2 (a bf16 output within one bf16 unit of each element
+     beyond CONV_TOL of the largest, the share that differs printed; dW
+     and db 1e-5 of the
+     largest), pack_cf from fp32 and from bf16, unpack_cf to bf16 and to
+     fp32, unpack_frames to fp32 and bf16 frames and on the width-tiled
+     plan (bit for bit, one unit); each timed beside its plain version,
+     its bound (bf16 FLOPs at 989 TFLOP/s or bf16 bytes) and cuDNN's or
+     PyTorch's bf16 call; ``calibrate_network --compute_dtype bfloat16``
+     with phase 9's settings (every step's launches phase 9's on the bf16
+     instantiations; the PSNR blocks against phase 9's within
+     BF16_PSNR_TOL), ``compress`` and ``eval_quantized --from_bitstream``;
+     one bf16 calibration step of HNeRV, NeRV and PNeRV1 Bunny-3M against
+     their fp32 step (BF16_TOL), HNeRV's timed in turns with it; ``regress
+     --matmul_precision bfloat16`` for phase 12's 3 epochs (every step's
+     launches phase 12's on the bf16 instantiations, finite losses,
+     --eval_only reproducing the last eval) and a stage-1 step and a
+     decode timed in turns with the default precision, with profiler
+     windows; both flags through --mesh_devices' rank function at world
+     size 1 over NCCL (bitwise to one process); calibrate_network
+     --compute_dtype bfloat16 and regress --matmul_precision bfloat16 for
+     NeRV, PNeRV1 and PNeRV2 Bunny-3M as phases 7 and 12 run them
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -165,8 +191,11 @@ launches under "pnerv2_launches"; the launches over phase 15's runs
 under "unit_scope_launches", over phase 16's runs in this process under
 "dp_launches" and on each gloo rank under "dp_rank_launches" (PNeRV1's
 two ranks under "pnerv_dp_rank_launches"), over phase 17's surface and
-line under "landscape_launches". The last line is
-{"ok": true, "device": ...}.
+line under "landscape_launches". Then one object per bf16 instantiation
+(phase 19), named with "_bf16": its launches over phase 19's
+calibrate_network and regress runs, its checks, its times and bound
+summed as its fp32 row's are. The last line is {"ok": true, "device":
+...}.
 """
 
 from __future__ import annotations
@@ -189,6 +218,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 SEED = 0
 N_FRAMES = 8
 PRECISION = [6, 5, 4, 5, 5, 6, 6]
@@ -201,7 +231,9 @@ CALIB_ITERS = 80     # batch 2 over 8 frames: 1 phase-1 and 19 phase-2 epochs
 # entries' pack_cf and its backward; the packed loss needs no unpack
 PER_STEP = {"tail_conv_cf": 8, "tail_conv_dw_cf": 4, "pack_cf": 2,
             "unpack_cf": 2, "unpack_frames": 0, "fq_uaq": 0, "fq_ada": 0,
-            "fq_uaq_bwd": 0, "fq_ada_bwd": 0}
+            "fq_uaq_bwd": 0, "fq_ada_bwd": 0, "tail_conv_cf_bf16": 0,
+            "tail_conv_dw_cf_bf16": 0, "pack_cf_bf16": 0,
+            "unpack_cf_bf16": 0, "unpack_frames_bf16": 0}
 # with fq_impl='pallas' a step's quantize_params adds one grouped
 # fake-quant launch over its seven layers and one backward launch: fq_uaq
 # and fq_uaq_bwd in phase 1, fq_ada and fq_ada_bwd in phase 2
@@ -253,6 +285,22 @@ CUDNN64_TOL = 1e-2
 # config of the same structure), and to GRAD_TOL, FQ_GRAD_TOL, HV64_TOL and
 # STAGE2_TOL with the stages in fp32
 BF16_TOL = 2.0 ** -5
+# phase 19: the tail kernels with a bf16 instantiation
+BF16_KERNELS = ("tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
+                "unpack_frames")
+# a bf16 step's gradients against the fp32 step's: BF16_TOL of each leaf's
+# largest, and no less than BF16_TOL of BF16_FLOOR times the step's largest
+# gradient: a leaf's bf16 error is bf16's unit of the cotangents it sums,
+# which scale with the step's, not with a sum that cancels (PNeRV1's first
+# gate: ~1e-10, against the head's ~1e-5, at the tiny CPU configuration)
+BF16_FLOOR = 1e-3
+# phase 19's calibrate_network in bf16 against phase 9's fp32 run: the
+# three blocks evaluated before calibrating are fp32 evals of the same
+# weights (PSNR_TOL); the calibrated block within BF16_PSNR_TOL dB plus a
+# tenth of what fp32 calibration gained over the unoptimized block (bf16
+# parts each step's gradients by ~1-3% of a leaf, phase 6's BF16_TOL, so
+# the 80 Adam steps end near, not on, the fp32 run's state)
+BF16_PSNR_TOL = 0.05
 # a stage-1 step's launches (batch 1): the calibration step's, the prefix's
 # dx included (the gradient reaches the encoder), and the unpack of the
 # frames the loss reads; its backward is the plain VJP, as in JAX
@@ -327,6 +375,15 @@ def _per_decode(arch: str) -> dict:
 
 def _per_stage1_step(arch: str) -> dict:
     return dict(_per_step(arch), unpack_frames=1)
+
+
+def _bf16(counts: dict) -> dict:
+    """Launch counts with the tail kernels' moved to their bf16
+    instantiations (what a bf16 step or decode launches)."""
+    out = dict(counts)
+    for k in BF16_KERNELS:
+        out[k + "_bf16"], out[k] = out[k], 0
+    return out
 
 
 def _n_layers(arch: str, cfg) -> int:
@@ -1243,12 +1300,14 @@ def _profile_steps(torch, one, n=5, what="step", host_rows=0):
 
 
 def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
-                     arch="hnerv"):
+                     arch="hnerv", bf16=False):
     """``calibrate_network.main --fq_impl <fq_impl>`` at Bunny-3M on the 8
     seeded frames, from a .pth of the seeded weights, under the directory
     `work`: both phases, the four eval blocks, both guards, the artifact;
     every step's launches (from a count taken at each loss call); the
-    artifact read back by ``eval_quantized``."""
+    artifact read back by ``eval_quantized``. With `bf16`, ``--compute_dtype
+    bfloat16``: every step on the tail kernels' bf16 instantiations, the
+    evals in fp32."""
     from neuroquant_tpu_torch.methods import calibrate_network, eval_quantized
     from neuroquant_tpu_torch.quantization import calibrate as tcal
 
@@ -1276,10 +1335,12 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
         out_path, state, _ = calibrate_network.main([
             "--config", os.path.join(REPO, _CONFIGS[arch]),
             "--arch", arch, "--data_path", frames_dir, "--vid", "Bunny",
-            "--outf", f"{arch}_{fq_impl}", "--ckpt", pth, "--precision",
+            "--outf", f"{arch}_{fq_impl}{'_bf16' if bf16 else ''}",
+            "--ckpt", pth, "--precision",
             *map(str, _precision(arch, cfg)), "--hadamard", "--channel_wise",
             "--batch_size", str(CALIB_BATCH), "--iters_w", str(CALIB_ITERS),
-            "--lr", "0.003", "--warmup", "0.2", "--fq_impl", fq_impl])
+            "--lr", "0.003", "--warmup", "0.2", "--fq_impl", fq_impl,
+            *(["--compute_dtype", "bfloat16"] if bf16 else [])])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(tf.KERNEL_LAUNCHES)
@@ -1297,10 +1358,11 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
     out_path = os.path.join(work, out_path)
     steps = [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
     assert len(snaps) == CALIB_ITERS, len(snaps)
-    per_step = _per_step(arch)
+    cast = _bf16 if bf16 else dict
+    per_step = cast(_per_step(arch))
     if fq_impl == "pallas":
         # phase 1's steps quantize on fq_uaq, phase 2's on fq_ada
-        phase1, phase2 = _fq_phases(arch, cfg)
+        phase1, phase2 = map(cast, _fq_phases(arch, cfg))
         n1 = sum(d == phase1 for d in steps)
         assert 0 < n1 < len(steps), (n1, steps[:2])
         # the last diff of phase 1 spans the hand-off between the phases
@@ -1324,10 +1386,20 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
         psnr, psnrs)
     for name, n in launches.items():
         # the evals' decodes launch unpack_frames; the fake-quant entries
-        # run only under fq_impl pallas
-        assert (n > 0) == (fq_impl == "pallas" or not name.startswith("fq_")
-                           ), (name, launches)
-    print(f"  calibrate_network --fq_impl {fq_impl}: {CALIB_ITERS} steps at "
+        # run only under fq_impl pallas; a bf16 run's steps launch the
+        # bf16 instantiations (the packed loss needs no unpack) and its
+        # fp32 evals the decode's fp32 kernels
+        if name.startswith("fq_"):
+            want = fq_impl == "pallas"
+        elif name.endswith("_bf16"):
+            want = bf16 and name != "unpack_frames_bf16"
+        else:
+            want = not bf16 or name in ("tail_conv_cf", "pack_cf",
+                                        "unpack_frames")
+        assert (n > 0) == want, (name, launches)
+    print(f"  calibrate_network --fq_impl {fq_impl}"
+          f"{' --compute_dtype bfloat16' if bf16 else ''}: {CALIB_ITERS} "
+          f"steps at "
           f"batch {CALIB_BATCH} in {wall:.1f} s wall (evals included); phase "
           f"2 {its} iters/s; every step's launches {per_step}; run launches "
           f"{launches}")
@@ -2080,7 +2152,8 @@ def _stage1_step_phase(torch, tf, cfg, sd, frames_dir, arch="hnerv",
                 profile=prof)
 
 
-def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
+def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv",
+                      bf16=False):
     """``regress.main`` at Bunny-3M on the 8 seeded frames, from a copy of
     the config with only epoch (STAGE1_EPOCHS) and eval_freq (1) changed,
     with --profile: every training step's launches (counted at each loss
@@ -2088,7 +2161,8 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
     from the Time/epoch lines; model_latest.pth and epoch3.pth loaded
     strictly into a fresh model with the trained tensors; then --eval_only
     --weight epoch3.pth, whose PSNR must equal the last in-training
-    eval's."""
+    eval's. With `bf16`, all of it under ``--matmul_precision
+    bfloat16``."""
     import yaml
 
     from neuroquant_tpu_torch.config import get_config
@@ -2126,7 +2200,9 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
         return out
 
     argv = ["--config", cfg_path, "--arch", arch, "--data_path",
-            frames_dir, "--vid", "Bunny"]
+            frames_dir, "--vid", "Bunny",
+            *(["--matmul_precision", "bfloat16"] if bf16 else [])]
+    tag = f"{arch}_bf16" if bf16 else arch
     cwd = os.getcwd()
     cap = _Capture()
     try:
@@ -2139,14 +2215,14 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
         torch.cuda.reset_peak_memory_stats()
         tf.reset_launch_counts()
         t0 = time.time()
-        model = regress.main(argv + ["--outf", f"stage1_{arch}",
+        model = regress.main(argv + ["--outf", f"stage1_{tag}",
                                      "--profile"])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(tf.KERNEL_LAUNCHES)
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         run_dir = os.path.dirname(glob.glob(os.path.join(
-            work, "results", f"stage1_{arch}", "*", "Encoder_*",
+            work, "results", f"stage1_{tag}", "*", "Encoder_*",
             "epoch*.pth"))[0])
         trained = {k: v.detach() for k, v in model.state_dict().items()}
         del model
@@ -2160,7 +2236,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
             print(f"  {name}: {len(sd)} tensors, loaded strictly, equal to "
                   f"the trained model's")
         n_train_evals = len(evals)
-        regress.main(argv + ["--outf", f"stage1_eval_{arch}", "--eval_only",
+        regress.main(argv + ["--outf", f"stage1_eval_{tag}", "--eval_only",
                              "--weight", os.path.join(
                                  run_dir, f"epoch{STAGE1_EPOCHS}.pth")])
         torch.cuda.synchronize()
@@ -2170,7 +2246,7 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
         logging.getLogger().removeHandler(cap)
         os.chdir(cwd)
     assert len(epochs) == STAGE1_EPOCHS, len(epochs)
-    per_step = _per_stage1_step(arch)
+    per_step = (_bf16 if bf16 else dict)(_per_stage1_step(arch))
     steps = None
     for e in epochs:
         sn = e["snaps"]
@@ -2191,7 +2267,9 @@ def _stage1_run_phase(torch, tf, frames_dir, card, work, arch="hnerv"):
     assert len(epoch_s) == STAGE1_EPOCHS, epoch_s
     assert len(evals) == n_train_evals + 1 == STAGE1_EPOCHS + 1, evals
     last, again = evals[n_train_evals - 1][0], evals[-1][0]
-    print(f"  regress.main --arch {arch}: {STAGE1_EPOCHS} epochs x {steps} "
+    print(f"  regress.main --arch {arch}"
+          f"{' --matmul_precision bfloat16' if bf16 else ''}: "
+          f"{STAGE1_EPOCHS} epochs x {steps} "
           f"steps at batch {base['batch_size']} "
           f"in {wall:.1f} s wall (evals included); every step's launches "
           f"{per_step}; losses "
@@ -2716,7 +2794,7 @@ BENCH_ITERS = 264    # phase 18: 4 phase-2 epochs of 66 steps
 
 
 def _dp_steps(mesh, work, frames_dir, pth, stage1_cfg, fq_impl, stage1,
-              arch="hnerv"):
+              arch="hnerv", calib_extra=(), stage1_extra=()):
     """Phase 16's run on one data-parallel rank (`mesh`) or in one process
     (None): ``calibrate_network.run`` of HNeRV for DP_STEPS phase-2 steps
     at batch 2 (--fq_impl `fq_impl`; None: none) and, with `stage1`,
@@ -2726,7 +2804,8 @@ def _dp_steps(mesh, work, frames_dir, pth, stage1_cfg, fq_impl, stage1,
     (the median from the third step on, the recorder synchronising at each
     step) and a stage-1 step (rank 0's last Time/epoch line). The function
     each rank of ``--mesh_devices`` runs, with a recorder around the
-    loss."""
+    loss. `calib_extra`, `stage1_extra`: more flags for either CLI (phase
+    19's bf16 ones)."""
     import torch
 
     from neuroquant_tpu_torch.methods import calibrate_network, regress
@@ -2756,7 +2835,8 @@ def _dp_steps(mesh, work, frames_dir, pth, stage1_cfg, fq_impl, stage1,
             return losses, psnrs
         return run_epoch
 
-    tag = "one" if mesh is None else f"dp{mesh.size}"
+    tag = ("one" if mesh is None else f"dp{mesh.size}") + (
+        "_extra" if calib_extra or stage1_extra else "")
     cwd = os.getcwd()
     cap = _Capture()
     out = {}
@@ -2774,14 +2854,15 @@ def _dp_steps(mesh, work, frames_dir, pth, stage1_cfg, fq_impl, stage1,
                 "--precision", *map(str, PRECISION), "--hadamard",
                 "--channel_wise", "--batch_size", str(CALIB_BATCH),
                 "--iters_w", str(DP_STEPS), "--lr", "0.003", "--warmup",
-                "0.2", "--fq_impl", fq_impl, "--calib_ckpt_freq", "0"])
+                "0.2", "--fq_impl", fq_impl, "--calib_ckpt_freq", "0",
+                *calib_extra])
             out["state"] = {ln: {k: v.detach().cpu() for k, v in s.items()}
                             for ln, s in state.items()}
         if stage1:
             model = regress.run(mesh, [
                 "--config", stage1_cfg, "--arch", arch, "--data_path",
                 frames_dir, "--vid", "Bunny", "--outf",
-                f"dp_stage1_{arch}_{tag}"])
+                f"dp_stage1_{arch}_{tag}", *stage1_extra])
             out["weights"] = {k: v.detach().cpu()
                               for k, v in model.state_dict().items()}
         torch.cuda.synchronize()
@@ -3122,6 +3203,550 @@ def _bench_phase(card):
     return dict(result, seconds=seconds)
 
 
+def _bf16_units(torch, got, want):
+    """Per element, |got - want| over the bf16 spacing at the element (the
+    larger of the two values' spacings: 2^-7 of the power of two at or
+    below each)."""
+    def spacing(t):
+        _, e = torch.frexp(t.float())
+        return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+    return ((got.float() - want.float()).abs()
+            / torch.maximum(spacing(got), spacing(want)))
+
+
+def _bf16_bound(nbytes: float, flops: float):
+    """The bound of a bf16 kernel: bf16 FLOPs at the dense tensor-core
+    peak, or its bytes at the memory rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _bf16_kernel_phase(torch, tf, cfg, model):
+    """Phase 19's kernels: each bf16 instantiation at HNeRV Bunny-3M's
+    shapes against its plain version on the card: the decode's convs at
+    batch 1 (the emits and act_in a decode and a step use), a calibration
+    step's forward, dx and dW passes at batch 2, pack_cf's two entries
+    from fp32 (the bf16 matmul precision's entry) at batch 1 and from bf16
+    (a bf16 calibration's) at batch 2, unpack_cf back to bf16 and to fp32
+    at batch 2, unpack_frames to fp32 and to bf16 frames and on the
+    width-tiled plan. A conv's bf16 output within one bf16 unit of each
+    element beyond CONV_TOL of the largest (the fp32 sums' other order),
+    the share of elements that differ printed; dW and db within 1e-5 of
+    the largest (exact products, fp32 sums in another order); the layout
+    kernels bit for bit, unpack_frames' bf16 frames within one unit and
+    its fp32 frames 1e-6. Each timed (CUDA events and the profiler's
+    device time) beside its plain version, its bound (bf16 FLOPs at 989
+    TFLOP/s or bf16 bytes at 3.35 TB/s) and the cuDNN / PyTorch call of
+    the same function in bf16."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    convs, pplan, plan, f, ch, entries = _conv_layers(torch, tf, cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    records = {k: {"per_launch": [], "max_abs_err": 0.0, "checks": []}
+               for k in BF16_KERNELS}
+
+    def check_conv(kname, what, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        units, differ, n, err = 0.0, 0, 0, 0.0
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == bf, (a.dtype, b.dtype)
+            allow = CONV_TOL * max(1.0, float(b.float().abs().max()))
+            diff = (a.float() - b.float()).abs()
+            u = _bf16_units(torch, a, b)
+            beyond = u[diff > allow]
+            units = max(units, float(beyond.max()) if beyond.numel() else 0)
+            differ += int((diff > 0).sum())
+            n += diff.numel()
+            err = max(err, float(diff.max()))
+        print(f"  {kname} bf16 {what}: max_abs_err {err:.3e}, "
+              f"{100 * differ / n:.4f}% of the elements differ, the largest "
+              f"{units:.2f} bf16 units beyond {CONV_TOL:.0e} of the largest "
+              f"(tol 1)")
+        assert units <= 1.0, (kname, what, units)
+        records[kname]["max_abs_err"] = max(records[kname]["max_abs_err"],
+                                            err)
+        records[kname]["checks"].append(dict(what=what, max_abs_err=err,
+                                             differ_share=differ / n,
+                                             units=units))
+
+    def check_close(kname, what, got, want, rel):
+        err = float((got.float() - want.float()).abs().max())
+        tol = rel * float(want.float().abs().max())
+        print(f"  {kname} bf16 {what}: max_abs_err {err:.3e} (tol "
+              f"{tol:.1e})")
+        assert err <= tol, (kname, what, err, tol)
+        records[kname]["max_abs_err"] = max(records[kname]["max_abs_err"],
+                                            err)
+
+    def record(kname, shape, fn, plain, lib, nbytes, flops, key="per_launch"):
+        ms = _time_ms(fn, iters=10)
+        plain_ms = _time_ms(plain, iters=3, warmup=1)
+        lib_ms = _time_ms(lib, iters=10)
+        bound_ms, by = _bf16_bound(nbytes, flops)
+        rec = dict(shape=shape, ms=ms, device_ms=_device_ms(fn),
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_device_ms=_device_ms(lib), bound_ms=bound_ms,
+                   bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        records[kname].setdefault(key, []).append(rec)
+
+        def f4(v):
+            return "not measured" if v is None else f"{v:.4f}"
+        print(f"  {kname} bf16 {shape}: {ms:.4f} ms back to back, "
+              f"{f4(rec['device_ms'])} on the device (plain {plain_ms:.4f}; "
+              f"library {lib_ms:.4f}, {f4(rec['library_device_ms'])} on the "
+              f"device; bound {bound_ms:.4f} by {by}"
+              + (f"; {flops / ms / 1e9:.1f} TFLOP/s" if flops else "") + ")")
+
+    def cf(p, c, b):
+        return _cf_input(torch, tf, p, c, gen, b).to(bf)
+
+    with torch.no_grad():
+        # the decode's convs at batch 1, and a calibration step's at batch 2
+        for name, p, layer, kk32, bias32, cin, cout, lib in convs:
+            kk = kk32.to(bf)
+            bias = None if bias32 is None else bias32.to(bf)
+            xs, ws, pad = lib
+            w_op = tf.conv_w_operand(kk, p, layer)
+            x1 = cf(p, layer.cin, 1)
+            for em, act in (("z", False), ("y", False), ("zy", False),
+                            ("z", True)):
+                check_conv("tail_conv_cf", f"{name} batch 1 emit={em} "
+                           f"act_in={act}",
+                           tf.conv_cf(x1, kk, bias, p, layer, em, act, w_op),
+                           tf.conv_cf_ref(x1, kk, bias, p, layer, em, act))
+            emit = "y" if name.startswith("tail") else "z"
+            flops = tf.conv_cf_flops(p, layer, 1, cin, cout)
+            xl = torch.randn(xs, generator=gen, device=dev).to(bf)
+            wl = (torch.randn(ws, generator=gen, device=dev) * 0.05).to(bf)
+            record("tail_conv_cf", f"{name} {layer.cin}->{layer.cout} "
+                   f"k{layer.side} grid {p.h}x{p.w} batch 1 emit={emit}",
+                   lambda: tf.conv_cf(x1, kk, bias, p, layer, emit,
+                                      w_op=w_op),
+                   lambda: tf.conv_cf_ref(x1, kk, bias, p, layer, emit),
+                   lambda: F.conv2d(xl, wl, padding=pad),
+                   2 * (x1.numel() + kk.numel() + layer.cout
+                        + layer.cout * p.mp), flops)
+            B = CALIB_BATCH
+            x, g = cf(p, layer.cin, B), cf(p, layer.cout, B)
+            xl2 = torch.randn((B, *xs[1:]), generator=gen, device=dev).to(bf)
+            gl2 = torch.randn((B, ws[0], *xs[2:]), generator=gen,
+                              device=dev).to(bf)
+            flops = tf.conv_cf_flops(p, layer, B, cin, cout)
+            geo = (f"{name} {layer.cin}->{layer.cout} k{layer.side} grid "
+                   f"{p.h}x{p.w} batch {B}")
+            emit = "zy" if name.startswith("tail") else "z"
+            check_conv("tail_conv_cf", f"forward {geo} emit={emit}",
+                       tf.conv_cf(x, kk, bias, p, layer, emit, False, w_op),
+                       tf.conv_cf_ref(x, kk, bias, p, layer, emit))
+            record("tail_conv_cf", f"forward {geo} emit={emit}",
+                   lambda: tf.conv_cf(x, kk, bias, p, layer, emit, False,
+                                      w_op),
+                   lambda: tf.conv_cf_ref(x, kk, bias, p, layer, emit),
+                   lambda: F.conv2d(xl2, wl, padding=pad),
+                   2 * (x.numel() + kk.numel() + layer.cout
+                        + g.numel() * len(emit)), flops,
+                   key="calibration_per_launch")
+            lt = layer.transposed()
+            kt = tf._kk_transpose(kk).contiguous()
+            om = x if layer.gelu_in else None
+            wt_op = tf.conv_w_operand(kt, p, lt)
+            check_conv("tail_conv_cf", f"dx {geo} out_mul={om is not None}",
+                       tf.conv_cf(g, kt, None, p, lt, w_op=wt_op, out_mul=om),
+                       tf.conv_cf_ref(g, kt, None, p, lt, out_mul=om))
+            record("tail_conv_cf", f"dx {geo}",
+                   lambda: tf.conv_cf(g, kt, None, p, lt, w_op=wt_op,
+                                      out_mul=om),
+                   lambda: tf.conv_cf_ref(g, kt, None, p, lt, out_mul=om),
+                   lambda: torch.nn.grad.conv2d_input(xl2.shape, wl, gl2,
+                                                      padding=pad),
+                   2 * (g.numel() + kt.numel()
+                        + x.numel() * (2 if om is not None else 1)), flops,
+                   key="calibration_per_launch")
+            blocks = tf._k_blocks(p, layer)
+            dkk, db = tf.conv_cf_dw(x, g, p, layer)
+            rkk, rdb = tf.conv_cf_dw_ref(x, g, p, layer, False, blocks)
+            check_close("tail_conv_dw_cf", f"dW {geo}", dkk, rkk, 1e-5)
+            check_close("tail_conv_dw_cf", f"db {geo}", db, rdb, 1e-5)
+            assert torch.equal(tf.conv_cf_dw(x, g, p, layer)[0], dkk)
+            if layer.gelu_in:
+                check_close("tail_conv_dw_cf", f"dW {geo} act_in=True",
+                            tf.conv_cf_dw(x, g, p, layer, True)[0],
+                            tf.conv_cf_dw_ref(x, g, p, layer, True,
+                                              blocks)[0], 1e-5)
+            record("tail_conv_dw_cf", f"dW {geo}",
+                   lambda: tf.conv_cf_dw(x, g, p, layer),
+                   lambda: tf.conv_cf_dw_ref(x, g, p, layer, False, blocks),
+                   lambda: torch.nn.grad.conv2d_weight(xl2, wl.shape, gl2,
+                                                       padding=pad),
+                   2 * (x.numel() + g.numel()) + 4 * (dkk.numel()
+                                                      + db.numel()), flops)
+
+        # the entries: from fp32 at batch 1 (a decode under the bf16
+        # precision), from bf16 at batch 2 (a bf16 calibration step), and
+        # unpack_cf's cotangents at batch 2 back to bf16 and to fp32
+        for batch, src, key in ((1, torch.float32, "per_launch"),
+                                (CALIB_BATCH, bf, "calibration_per_launch")):
+            for name, p, c in entries:
+                x = torch.randn((batch, p.h, p.w, c), generator=gen,
+                                device=dev).to(src)
+                out = tf.pack_cf(x, p, bf)
+                assert out.dtype == bf
+                assert torch.equal(out, tf.pack_cf_ref(x, p, bf)), name
+                what = (f"{name} {tuple(x.shape)} {str(src)[6:]} -> "
+                        f"{tuple(out.shape)} bfloat16")
+                print(f"  pack_cf bf16 {what}: bit for bit")
+                record("pack_cf", what, lambda: tf.pack_cf(x, p, bf),
+                       lambda: tf.pack_cf_ref(x, p, bf),
+                       lambda: x.permute(0, 3, 1, 2).to(
+                           bf, memory_format=torch.contiguous_format),
+                       x.numel() * x.element_size() + 2 * out.numel(), 0,
+                       key=key)
+        for dst in (bf, torch.float32):
+            for name, p, c in entries:
+                g = torch.randn((CALIB_BATCH, tf._r8(c), p.mp), generator=gen,
+                                device=dev).to(bf)
+                out = tf.unpack_cf(g, p, c, dst)
+                assert out.dtype == dst
+                assert torch.equal(out, tf.unpack_cf_ref(g, p, c, dst)), name
+                zl = torch.randn((CALIB_BATCH, c, p.h, p.w), generator=gen,
+                                 device=dev).to(bf)
+                what = (f"{name} {tuple(g.shape)} bfloat16 -> "
+                        f"{tuple(out.shape)} {str(dst)[6:]}")
+                print(f"  unpack_cf bf16 {what}: bit for bit")
+                record("unpack_cf", what, lambda: tf.unpack_cf(g, p, c, dst),
+                       lambda: tf.unpack_cf_ref(g, p, c, dst),
+                       (lambda: zl.permute(0, 2, 3, 1).contiguous())
+                       if dst is bf else
+                       lambda: zl.permute(0, 2, 3, 1).to(
+                           dst, memory_format=torch.contiguous_format),
+                       2 * out.numel() + out.numel() * out.element_size(), 0,
+                       key="per_launch" if dst is bf
+                       else "fp32_out_per_launch")
+
+        ob = _out_bias(cfg)
+        wplan, wf = tf.plan_geometry(4, 480, [(3, 17, 224, 4)], (3, 14, 3))
+        for key, p, ff, cc, b, dst in (
+                ("per_launch", plan, f, ch, 1, torch.float32),
+                ("bf16_out_per_launch", plan, f, ch, 1, bf),
+                ("width_tiled", wplan, wf, 48, 2, torch.float32)):
+            z = torch.randn((b, p.layers[-1].cout, p.mp), generator=gen,
+                            device=dev).to(bf)
+            out = tf.unpack_frames(z, p, ff, cc, ob, dst)
+            ref = tf.unpack_frames_ref(z, p, ff, cc, ob, dst)
+            assert out.dtype == ref.dtype == dst
+            what = (f"{tuple(z.shape)} bfloat16 -> {tuple(out.shape)} "
+                    f"{str(dst)[6:]} out_bias={ob}")
+            if dst is bf:
+                check_conv("unpack_frames", what, out, ref)
+            else:
+                check_close("unpack_frames", what, out, ref,
+                            1e-6 / max(float(ref.abs().max()), 1e-30))
+            zl = torch.randn((b, cc, p.h, p.w), generator=gen,
+                             device=dev).to(bf)
+            record("unpack_frames", what,
+                   lambda: tf.unpack_frames(z, p, ff, cc, ob, dst),
+                   lambda: tf.unpack_frames_ref(z, p, ff, cc, ob, dst),
+                   lambda: F.pixel_shuffle(zl, ff),
+                   2 * cc * p.h * p.w + out.numel() * out.element_size(), 0,
+                   key=key)
+    return records
+
+
+def _bf16_step(torch, tf, cfg, sd, frames_dir, arch, timed):
+    """One phase-2 calibration step of `arch` at Bunny-3M, batch 2, fq_impl
+    pallas, with the decode in fp32 and in bf16 (``make_loss(...,
+    compute_dtype=bfloat16)``) on the same state: the bf16 step's loss
+    within BF16_TOL and its gradients within BF16_TOL of each leaf's
+    largest (BF16_FLOOR) of the fp32 step's; its launches, the fp32
+    step's on the bf16 instantiations. With `timed`: both steps in turns,
+    fp32 / bf16 / bf16 / fp32, 10 steps each, ms a step."""
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.models import build_model, tail_plan_for
+    from neuroquant_tpu_torch.quantization import (
+        adaround_upgrade, init_quant_state, make_spec)
+    from neuroquant_tpu_torch.quantization.calibrate import make_loss
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    dev = torch.device("cuda")
+    model = build_model(arch, cfg, device=dev)
+    model.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
+    model.eval()
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    spec = make_spec(arch, cfg, channel_wise=True, scale_method="max",
+                     hadamard=True, fq_impl="pallas").with_bits(
+                         _precision(arch, cfg))
+    state = adaround_upgrade(params, spec, init_quant_state(params, spec))
+    data = VideoDataSet(cfg, frames_dir, device=dev)
+    with torch.no_grad():
+        emb = model.encode(model.model_input(data.frames, data.norm_idx)
+                           [:CALIB_BATCH])
+    plan, f, ch = tail_plan_for(arch, cfg)
+    pack = {"gt": tf.pack_targets(data.frames[:CALIB_BATCH], plan, f),
+            "mask": tf.border_mask(plan, ch=ch, device=dev),
+            "denom": cfg["crop_h"] * cfg["crop_w"]}
+    losses = {dt: make_loss(model, params, spec, "adaround", 2.0, pack,
+                            compute_dtype=dt)
+              for dt in (None, torch.bfloat16)}
+
+    def step(dt):
+        st = {ln: {k: v.clone().requires_grad_(k.endswith("alpha"))
+                   for k, v in s.items()} for ln, s in state.items()}
+        total = losses[dt](st, pack["gt"], emb, 1)[0]
+        total.backward()
+        return total, {(ln, k): st[ln][k].grad for ln in st
+                       for k in st[ln] if k.endswith("alpha")}
+
+    l32, g32 = step(None)
+    tf.reset_launch_counts()
+    l16, g16 = step(torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = dict(tf.KERNEL_LAUNCHES)
+    l32, l16 = float(l32.detach()), float(l16.detach())
+    top = max(float(g.abs().max()) for g in g32.values())
+    worst, worst_leaf = 0.0, None
+    for key, g in g32.items():
+        assert g16[key].dtype == torch.float32, key
+        scale = max(float(g.abs().max()), BF16_FLOOR * top)
+        e = float((g16[key] - g).abs().max()) / scale
+        if e > worst:
+            worst, worst_leaf = e, key
+    rel = abs(l16 - l32) / abs(l32)
+    want = _bf16(_fq_phases(arch, cfg)[1])
+    print(f"  {arch} one phase-2 step in bf16 against fp32 (batch "
+          f"{CALIB_BATCH}, fq_impl pallas): loss {l16:.7f} vs {l32:.7f} "
+          f"(rel {rel:.2e}, tol {BF16_TOL:.2e}); gradients, worst leaf "
+          f"{worst:.2e} of its largest (floor {BF16_FLOOR:.0e} of the "
+          f"step's) at {worst_leaf} (tol {BF16_TOL:.2e}); launches {counts}")
+    assert counts == want, (counts, want)
+    assert rel <= BF16_TOL and worst <= BF16_TOL, (rel, worst)
+    out = dict(loss_rel=rel, grad_rel=worst, launches=counts)
+    if not timed:
+        return out
+    ms = {None: [], torch.bfloat16: []}
+    for dt in (None, torch.bfloat16, torch.bfloat16, None):
+        step(dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(dt)
+        torch.cuda.synchronize()
+        ms[dt].append(1e3 * (time.perf_counter() - t0) / 10)
+    print(f"  {arch} calibration step (batch {CALIB_BATCH}, fq_impl pallas, "
+          f"10 a turn, turns fp32 / bf16 / bf16 / fp32): fp32 "
+          f"{ms[None][0]:.2f} / {ms[None][1]:.2f} ms, bf16 "
+          f"{ms[torch.bfloat16][0]:.2f} / {ms[torch.bfloat16][1]:.2f} ms")
+    prof = {dt: _profile_steps(torch, lambda dt=dt: step(dt), n=5,
+                               what="step")
+            for dt in (None, torch.bfloat16)}
+    return dict(out, fp32_ms=ms[None], bf16_ms=ms[torch.bfloat16],
+                fp32_profile=prof[None], bf16_profile=prof[torch.bfloat16])
+
+
+def _bf16_stage1_turns(torch, cfg, sd, frames_dir):
+    """A stage-1 step of HNeRV Bunny-3M at batch 1 as regress's loop runs
+    it (forward, loss, backward, Adam; no synchronize), 20 back to back in
+    turns: default / bfloat16 / bfloat16 / default matmul precision; then
+    a profiler window of each: ms a step, busy and idle share. The same
+    for a decode at batch 1 (the embedding given; CUDA events)."""
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.metrics import loss_fn
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.ops import precision
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    dev = torch.device("cuda")
+    model = build_model("hnerv", cfg, device=dev)
+    model.load_state_dict(state_dict_from_numpy(sd, dev), strict=True)
+    data = VideoDataSet(cfg, frames_dir, device=dev)
+    img = data.frames[:1].clone()
+    opt = torch.optim.Adam(model.parameters(), lr=cfg["learning_rate"],
+                           eps=1e-8)
+
+    def loop_step():
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model(img), img, cfg["loss"]).backward()
+        opt.step()
+
+    with torch.no_grad():
+        emb = model.encode(img)
+    dec_ms = {"default": [], "bfloat16": []}
+    for mode in ("default", "bfloat16", "bfloat16", "default"):
+        with precision.matmul_precision(mode), torch.no_grad():
+            dec_ms[mode].append(_time_ms(lambda: model.decode(emb), iters=20))
+    with precision.matmul_precision("bfloat16"), torch.no_grad():
+        dec_prof = _profile_steps(torch, lambda: model.decode(emb), n=20,
+                                  what="decode")
+    print(f"  decode (batch 1, 20 a turn, turns default / bfloat16 / "
+          f"bfloat16 / default): default {dec_ms['default'][0]:.3f} / "
+          f"{dec_ms['default'][1]:.3f} ms, bfloat16 "
+          f"{dec_ms['bfloat16'][0]:.3f} / {dec_ms['bfloat16'][1]:.3f} ms")
+    ms = {"default": [], "bfloat16": []}
+    for mode in ("default", "bfloat16", "bfloat16", "default"):
+        with precision.matmul_precision(mode):
+            for _ in range(3):
+                loop_step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                loop_step()
+            torch.cuda.synchronize()
+            ms[mode].append(1e3 * (time.perf_counter() - t0) / 20)
+    prof = {}
+    for mode in ("default", "bfloat16"):
+        with precision.matmul_precision(mode):
+            prof[mode] = _profile_steps(torch, loop_step, what="step")
+    print(f"  stage-1 step (batch 1, 20 a turn, turns default / bfloat16 / "
+          f"bfloat16 / default): default {ms['default'][0]:.3f} / "
+          f"{ms['default'][1]:.3f} ms, bfloat16 {ms['bfloat16'][0]:.3f} / "
+          f"{ms['bfloat16'][1]:.3f} ms")
+    return dict(ms=ms, profile=prof, decode_ms=dec_ms,
+                bf16_decode_profile=dec_prof)
+
+
+def _bf16_dp(torch, tf, sd, frames_dir, card, work):
+    """Both bf16 flags through the rank function ``--mesh_devices`` runs,
+    at world size 1 over NCCL, against one process (phase 16 (a)'s
+    arrangement): DP_STEPS bf16 calibration steps (fq_impl pallas) and
+    DP_STEPS bf16 stage-1 steps at batch 2, bitwise equal, every step on
+    the bf16 instantiations."""
+    import yaml
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.parallel.mesh import _free_port, run_rank
+
+    pth = os.path.join(work, "hnerv_seeded.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    stage1_cfg = os.path.join(work, "hnerv_dp_stage1.yaml")
+    with open(stage1_cfg, "w") as f:
+        yaml.safe_dump(dict(get_config(os.path.join(REPO, HNERV_CONFIG)),
+                            epoch=DP_STEPS * CALIB_BATCH // N_FRAMES,
+                            batch_size=CALIB_BATCH), f)
+    args = (work, frames_dir, pth, stage1_cfg, "pallas", True, "hnerv",
+            ("--compute_dtype", "bfloat16"),
+            ("--matmul_precision", "bfloat16"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = _dp_steps(None, *args)
+        ws1 = run_rank(0, 1, "cuda:0", "nccl",
+                       f"tcp://127.0.0.1:{_free_port()}", _dp_steps, args)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = _state_leaves(one["state"]), _state_leaves(ws1["state"])
+    same_state = all(torch.equal(a[k], b[k]) for k in a)
+    same_weights = all(torch.equal(ws1["weights"][k], w)
+                       for k, w in one["weights"].items())
+    print(f"  bf16 through --mesh_devices' rank function, world size 1 over "
+          f"NCCL, against one process: calibrate_network --compute_dtype "
+          f"bfloat16 --fq_impl pallas, {DP_STEPS} steps: state "
+          f"{'bitwise equal' if same_state else 'DIFFERENT'}; regress "
+          f"--matmul_precision bfloat16, {DP_STEPS} steps: weights "
+          f"{'bitwise equal' if same_weights else 'DIFFERENT'}; launches "
+          f"{ws1['launches']}; card {card}")
+    assert same_state and one["calib_losses"] == ws1["calib_losses"]
+    assert same_weights and one["stage1_losses"] == ws1["stage1_losses"]
+    for k in BF16_KERNELS:
+        assert ws1["launches"][k + "_bf16"] > 0 or k == "unpack_frames", (
+            k, ws1["launches"])
+    return dict(launches=ws1["launches"], calib_losses=ws1["calib_losses"],
+                stage1_losses=ws1["stage1_losses"])
+
+
+def _bf16_families(torch, tf, frames_dir, card, work):
+    """Both bf16 flags for NeRV, PNeRV1 and PNeRV2 Bunny-3M (seeded
+    weights for the calibration, torch's init for stage 1):
+    ``calibrate_network --compute_dtype bfloat16 --fq_impl pallas`` and
+    ``regress --matmul_precision bfloat16`` as phases 7 and 12 run them,
+    every step's launches on the bf16 instantiations."""
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.models import build_model
+
+    out = {}
+    for i, arch in enumerate(("nerv", "pnerv", "pnerv2")):
+        acfg = validate_config(get_config(os.path.join(REPO, _CONFIGS[arch])),
+                               arch)
+        acfg["workers"] = 0
+        if arch == "nerv":
+            acfg["n_frames"] = N_FRAMES
+        m = build_model(arch, acfg, device="cuda")
+        asd = _seeded_state_dict(m, np.random.RandomState(SEED + 190 + i))
+        del m
+        out[arch] = dict(
+            calibrate=_calibrate_phase(torch, tf, acfg, asd, frames_dir,
+                                       card, work, "pallas", arch=arch,
+                                       bf16=True),
+            stage1=_stage1_run_phase(torch, tf, frames_dir, card, work,
+                                     arch=arch, bf16=True))
+    return out
+
+
+def _bf16_phase(torch, tf, cfg, sd, frames_dir, card, work, calib_fq):
+    """Phase 19: the bf16 instantiations at HNeRV Bunny-3M against their
+    plain versions (:func:`_bf16_kernel_phase`); ``calibrate_network
+    --compute_dtype bfloat16 --fq_impl pallas`` (phase 9's settings) with
+    every step's launches on the bf16 instantiations, its PSNR blocks
+    against phase 9's, then ``compress`` and ``eval_quantized
+    --from_bitstream``; one bf16 calibration step of HNeRV, NeRV and
+    PNeRV1 against their fp32 step, HNeRV's timed in turns with it;
+    ``regress --matmul_precision bfloat16`` for phase 12's 3 epochs, and
+    a stage-1 step timed in turns with the default precision; both flags
+    through ``--mesh_devices``' rank function at world size 1; both CLIs
+    for NeRV, PNeRV1 and PNeRV2."""
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    _section("phase 19, bf16: kernels")
+    model = build_model("hnerv", cfg, device="cuda")
+    model.load_state_dict(state_dict_from_numpy(sd, "cuda"), strict=True)
+    kern = _bf16_kernel_phase(torch, tf, cfg, model)
+    del model
+    _section("phase 19, bf16: calibrate_network --compute_dtype bfloat16")
+    calib = _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work,
+                             "pallas", bf16=True)
+    gain = abs(calib_fq["psnr_blocks"][3] - calib_fq["psnr_blocks"][2])
+    tol = [PSNR_TOL] * 3 + [BF16_PSNR_TOL + 0.1 * gain]
+    gaps = [abs(a - b) for a, b in zip(calib["psnr_blocks"],
+                                       calib_fq["psnr_blocks"])]
+    print(f"  PSNR blocks, bf16 vs phase 9's fp32 (fq_impl pallas): "
+          f"{calib['psnr_blocks']} vs {calib_fq['psnr_blocks']}; gaps "
+          f"{[round(x, 4) for x in gaps]} dB (tol "
+          f"{[round(x, 4) for x in tol]}); phase 2 it/s bf16 "
+          f"{calib['phase2_its']}, fp32 {calib_fq['phase2_its']} (phase 9's "
+          f"run); card {card}")
+    assert all(g <= t for g, t in zip(gaps, tol)), (gaps, tol)
+    stream = _bitstream_phase(torch, tf, calib, frames_dir, card)
+    _section("phase 19, bf16: calibration steps")
+    steps = {"hnerv": _bf16_step(torch, tf, cfg, sd, frames_dir, "hnerv",
+                                 timed=True)}
+    for arch in ("nerv", "pnerv"):
+        acfg = validate_config(get_config(os.path.join(REPO, _CONFIGS[arch])),
+                               arch)
+        acfg["workers"] = 0
+        if arch == "nerv":
+            acfg["n_frames"] = N_FRAMES
+        m = build_model(arch, acfg, device="cuda")
+        asd = _seeded_state_dict(m, np.random.RandomState(SEED + 19))
+        del m
+        steps[arch] = _bf16_step(torch, tf, acfg, asd, frames_dir, arch,
+                                 timed=False)
+    _section("phase 19, bf16: regress --matmul_precision bfloat16")
+    s1 = _stage1_run_phase(torch, tf, frames_dir, card, work, bf16=True)
+    turns = _bf16_stage1_turns(torch, cfg, sd, frames_dir)
+    _section("phase 19, bf16: --mesh_devices, world size 1")
+    dp = _bf16_dp(torch, tf, sd, frames_dir, card, work)
+    _section("phase 19, bf16: NeRV, PNeRV1, PNeRV2")
+    families = _bf16_families(torch, tf, frames_dir, card, work)
+    return dict(kernels=kern, calibrate=calib, stream=stream, steps=steps,
+                stage1=s1, stage1_turns=turns, data_parallel=dp,
+                families=families)
+
+
 def _write_frames(path: str, rng):
     from PIL import Image
 
@@ -3333,6 +3958,14 @@ def main() -> int:
         print("[stage 1: regress]")
         s1run = _stage1_run_phase(torch, tf, frames_dir, card, work)
         del model
+        # phase 19 runs here, beside the phases of the same model: after
+        # phase 16's ranks and phase 18's process the profiler's traces
+        # drop device events now and then
+        t19 = time.time()
+        bf = _bf16_phase(torch, tf, cfg, sd, frames_dir, card, work,
+                         calib_fq)
+        _section()
+        bf["seconds"] = time.time() - t19
         nerv = _nerv_phase(torch, tf, card, frames_dir, work)
         pnerv = _pnerv_phase(torch, tf, card, frames_dir, work)
         unit = _unit_scope_phase(torch, tf, cfg, sd, frames_dir, card, work)
@@ -3445,6 +4078,40 @@ def main() -> int:
                                        s1unpack["backward"]]
     _add_model_records(kernels, nerv, "nerv")
     _add_model_records(kernels, pnerv, "pnerv")
+    # the bf16 instantiations (phase 19): launches over its calibrate_network
+    # and regress runs, summed as their fp32 rows are (per decode at batch
+    # 1, per calibration step at batch 2)
+    brec = bf["kernels"]
+    bf_runs = (bf["calibrate"]["launches"], bf["stage1"]["launches"])
+    for name, replaces, summed in (
+            ("tail_conv_cf", tpu(1133), "per decode"),
+            ("tail_conv_dw_cf", tpu(1172), "per step"),
+            ("pack_cf", tpu(656), "per decode, from fp32"),
+            ("unpack_cf", tpu(666), "per step, to bf16"),
+            ("unpack_frames", tpu(2016), "per decode, to fp32")):
+        per = brec[name]["per_launch"]
+        t_ops = sum(p["bound_ms"] for p in per
+                    if p["bound_by"] == "operations")
+        t_bytes = sum(p["bound_ms"] for p in per if p["bound_by"] == "bytes")
+        kernels.append({
+            "name": name + "_bf16", "route": "cuda", "source": src(name),
+            "replaces": replaces,
+            "launches": sum(r[name + "_bf16"] for r in bf_runs),
+            "calibrate_launches": bf_runs[0][name + "_bf16"],
+            "regress_launches": bf_runs[1][name + "_bf16"],
+            "max_abs_err": brec[name]["max_abs_err"],
+            "ms": sum(p["ms"] for p in per),
+            "device_ms": sum(p["device_ms"] or 0.0 for p in per),
+            "plain_ms": sum(p["plain_ms"] for p in per),
+            "bound_ms": sum(p["bound_ms"] for p in per),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": sum(p["library_ms"] for p in per),
+            "library_device_ms": sum(p["library_device_ms"] or 0.0
+                                     for p in per),
+            "summed": summed, "checks": brec[name]["checks"],
+            **{k: v for k, v in brec[name].items()
+               if k not in ("per_launch", "max_abs_err", "checks")},
+            "per_launch": per})
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):
@@ -3462,7 +4129,8 @@ def main() -> int:
           f"{dec['plain_decode_ms']:.3f} plain; calibration phase 2 "
           f"{calib['phase2_its']} it/s; phases 16 / 17 / 18 "
           f"{dp['seconds']:.1f} / {land['seconds']:.1f} / "
-          f"{bench['seconds']:.1f} s; card {card}")
+          f"{bench['seconds']:.1f} s; phase 19 {bf['seconds']:.1f} s; card "
+          f"{card}")
     print(json.dumps({"card": card, "decode": dec, "serving": serve,
                       "step": grad, "calibrate": calib,
                       "quantize_params": frecords["quantize_params"],
@@ -3474,7 +4142,9 @@ def main() -> int:
                       "pnerv": {k: v for k, v in pnerv.items()
                                 if not k.startswith(("kernels", "fq"))},
                       "unit_scope": unit, "data_parallel": dp,
-                      "loss_landscape": land, "bench": bench}))
+                      "loss_landscape": land, "bench": bench,
+                      "bf16": {k: v for k, v in bf.items()
+                               if k != "kernels"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,9 +29,17 @@
 // - Stores are 16-byte: a warp writes 16 channel rows x 8 positions, two
 //   float4 per row, so every 32-byte sector of the output is written whole
 //   by one instruction; the staged reads are at most 2-way bank-conflicted.
+//
+// Instantiated for fp32 -> fp32, and for the bf16 tail (the TPU kernel's
+// `out_dtype`, the fp32 -> bf16 entry of `_entry_and_cast` in one pass)
+// fp32 -> bf16 and bf16 -> bf16: the same kernel on the input's element
+// size (a 16-byte load is 8 bf16), values rounded to the output's type to
+// nearest even (bf16 -> bf16 is exact), 8-byte stores of 4 bf16 per lane.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nq_common.cuh"
 
 namespace {
 
@@ -49,31 +57,34 @@ __device__ __forceinline__ int interior_before(int m, int h, int w, int pad,
   return rows * w + part;
 }
 
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(THREADS)
-pack_cf_kernel(const float* __restrict__ in, float* __restrict__ out, int h,
+pack_cf_kernel(const TI* __restrict__ in, TO* __restrict__ out, int h,
                int w, int c, int c8, int pad, int mp, int tm, int log_pairs) {
-  extern __shared__ float4 smem4[];
+  constexpr int VEC = 16 / sizeof(TI);                   // elements a load
+  extern __shared__ uint4 smem4[];
   int* src = reinterpret_cast<int*>(smem4);             // [tm] run offsets
-  float* run = reinterpret_cast<float*>(smem4) + tm;     // staged input run
+  TI* run = reinterpret_cast<TI*>(src + tm);             // staged input run
   const int m0 = blockIdx.x * tm, b = blockIdx.y;
   const int wp = w + 2 * pad, hpwp = (h + 2 * pad) * wp;
   const int q0 = interior_before(min(m0, hpwp), h, w, pad, wp);
   const int q1 = interior_before(min(m0 + tm, hpwp), h, w, pad, wp);
-  const float* base = in + ((size_t)b * h * w + q0) * c;
-  const int shift = (int)((reinterpret_cast<uintptr_t>(base) >> 2) & 3);
-  const int nv4 = q1 > q0 ? ((q1 - q0) * c + shift + 3) >> 2 : 0;
-  const float4* cover = reinterpret_cast<const float4*>(base - shift);
-  float4* run4 = reinterpret_cast<float4*>(run);
+  const TI* base = in + ((size_t)b * h * w + q0) * c;
+  const int shift =
+      (int)((reinterpret_cast<uintptr_t>(base) / sizeof(TI)) & (VEC - 1));
+  const int nv = q1 > q0 ? ((q1 - q0) * c + shift + VEC - 1) / VEC : 0;
+  const uint4* cover = reinterpret_cast<const uint4*>(base - shift);
+  uint4* run4 = reinterpret_cast<uint4*>(run);
   // all LOADS_IN_FLIGHT loads of a thread are issued before any is stored,
   // so a block waits for one memory round trip, not one per load
-  for (int i0 = threadIdx.x; i0 < nv4; i0 += THREADS * LOADS_IN_FLIGHT) {
-    float4 v[LOADS_IN_FLIGHT];
+  for (int i0 = threadIdx.x; i0 < nv; i0 += THREADS * LOADS_IN_FLIGHT) {
+    uint4 v[LOADS_IN_FLIGHT];
 #pragma unroll
     for (int k = 0; k < LOADS_IN_FLIGHT; ++k)
-      if (i0 + k * THREADS < nv4) v[k] = __ldg(cover + i0 + k * THREADS);
+      if (i0 + k * THREADS < nv) v[k] = __ldg(cover + i0 + k * THREADS);
 #pragma unroll
     for (int k = 0; k < LOADS_IN_FLIGHT; ++k)
-      if (i0 + k * THREADS < nv4) run4[i0 + k * THREADS] = v[k];
+      if (i0 + k * THREADS < nv) run4[i0 + k * THREADS] = v[k];
   }
   for (int t = threadIdx.x; t < tm; t += THREADS) {
     const int m = m0 + t, r = m / wp, col = m - r * wp;
@@ -95,33 +106,50 @@ pack_cf_kernel(const float* __restrict__ in, float* __restrict__ out, int h,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int s = src[p + i];
-      v[i] = (ch < c && s >= 0) ? run[s + ch] : 0.f;
+      v[i] = (ch < c && s >= 0) ? nq_f32(run[s + ch]) : 0.f;
     }
-    *reinterpret_cast<float4*>(out + ((size_t)b * c8 + ch) * mp + m0 + p) =
-        make_float4(v[0], v[1], v[2], v[3]);
+    nq_store4(out + ((size_t)b * c8 + ch) * mp + m0 + p, v[0], v[1], v[2],
+              v[3]);
   }
 }
 
 }  // namespace
 
-// prm: batch, h, w, c, c8, pad, mp, tm (see tail_fused.pack_cf_geometry)
-extern "C" int nq_pack_cf(const float* in, float* out, const int* prm,
+// prm: batch, h, w, c, c8, pad, mp, tm (see tail_fused.pack_cf_geometry),
+// then the input's and the output's type: 0 fp32, 1 bf16 (fp32 -> fp32,
+// fp32 -> bf16, bf16 -> bf16)
+extern "C" int nq_pack_cf(const void* in, void* out, const int* prm,
                           void* stream) {
   if (prm == nullptr || prm[0] < 1) return (int)cudaErrorInvalidValue;
   const int batch = prm[0], h = prm[1], w = prm[2], c = prm[3], c8 = prm[4],
-            pad = prm[5], mp = prm[6], tm = prm[7];
+            pad = prm[5], mp = prm[6], tm = prm[7], tin = prm[8],
+            tout = prm[9];
   int log_pairs = 0;
   while ((8 << log_pairs) < tm) ++log_pairs;
+  const size_t isz = tin == 1 ? 2 : 4;
+  // the offset table, the staged run and room for its 16-byte cover
   const size_t smem = (size_t)tm * sizeof(int) +
-                      ((size_t)tm * c + 8) * sizeof(float);
+                      ((size_t)tm * c + 32 / isz) * isz;
   if (h < 1 || w < 1 || c < 1 || c8 < c || pad < 0 || tm < 8 || tm > 128 ||
       (8 << log_pairs) != tm || mp % tm ||
       mp < (h + 2 * pad) * (w + 2 * pad) || smem > SMEM_MAX ||
-      (reinterpret_cast<uintptr_t>(out) & 15) ||
-      (reinterpret_cast<uintptr_t>(in) & 3))
+      (tin == 1 && tout != 1) || tin < 0 || tin > 1 || tout < 0 ||
+      tout > 1 || (reinterpret_cast<uintptr_t>(out) & 15) ||
+      (reinterpret_cast<uintptr_t>(in) & (isz - 1)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(mp / tm, batch);
-  pack_cf_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, h, w, c, c8, pad, mp, tm, log_pairs);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tin == 0 && tout == 0)
+    pack_cf_kernel<float, float><<<grid, THREADS, smem, st>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), h, w, c, c8,
+        pad, mp, tm, log_pairs);
+  else if (tin == 0)
+    pack_cf_kernel<float, nq_bf16><<<grid, THREADS, smem, st>>>(
+        static_cast<const float*>(in), static_cast<nq_bf16*>(out), h, w, c,
+        c8, pad, mp, tm, log_pairs);
+  else
+    pack_cf_kernel<nq_bf16, nq_bf16><<<grid, THREADS, smem, st>>>(
+        static_cast<const nq_bf16*>(in), static_cast<nq_bf16*>(out), h, w, c,
+        c8, pad, mp, tm, log_pairs);
   return (int)cudaGetLastError();
 }

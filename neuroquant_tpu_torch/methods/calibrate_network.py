@@ -99,7 +99,11 @@ def parse_args(argv):
                         choices=["network", "block", "layer"])
     parser.add_argument("--dump_vis", action="store_true", default=False)
     parser.add_argument("--compute_dtype", default="float32", type=str,
-                        choices=["float32", "bfloat16"])
+                        choices=["float32", "bfloat16"],
+                        help="network scope: the calibration decode's dtype "
+                             "(bfloat16: the tail on the kernels' bf16 "
+                             "instantiations; the quantization stays fp32); "
+                             "--scope block|layer ignores it, as in JAX")
     parser.add_argument("--unit_cache", default="stream", type=str,
                         choices=["stream", "shared"],
                         help="block/layer scope only")
@@ -142,16 +146,7 @@ def parse_args(argv):
                                              or args.rounding != "adaround"):
         parser.error("--adaround_layers requires --scope network and "
                      "--rounding adaround")
-    _refuse_unported(args)
     return args
-
-
-def _refuse_unported(args):
-    """Flags whose path is not ported raise, naming their ROADMAP item."""
-    if args.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16: the kernels take fp32; reduced-"
-            "precision calibration is ROADMAP queue A item 16")
 
 
 def _eval_block(title, model, params, dataset, args, cfg, dump_vis=False,
@@ -319,7 +314,9 @@ def calibrate(args, cfg, mesh=None):
             adaround_only=(tuple(spec.layer_names[i]
                                  for i in args.adaround_layers)
                            if args.adaround_layers is not None else None),
-            mesh=mesh)
+            mesh=mesh,
+            compute_dtype=(torch.bfloat16 if args.compute_dtype == "bfloat16"
+                           else None))
     else:
         state = _unit_scope(args, model, params, spec, state, cali_data)
         mode = "adaround"

@@ -39,6 +39,7 @@ from neuroquant_tpu_torch.data import VideoDataSet
 from neuroquant_tpu_torch.logging_utils import setup_logger
 from neuroquant_tpu_torch.methods import common
 from neuroquant_tpu_torch.metrics import loss_fn, psnr_fn_single
+from neuroquant_tpu_torch.ops import precision as precision_mod
 from neuroquant_tpu_torch.parallel.mesh import (
     all_reduce_sum, check_batch, data_parallel_step, is_main, launch,
     replicate, shard_batch)
@@ -81,7 +82,11 @@ def parse_args(argv):
                                  "highest"],
                         help="default and highest: fp32, TF32 off; "
                              "tensorfloat32: cuDNN and matmuls may use TF32 "
-                             "(the tail kernels stay 3xTF32)")
+                             "(the tail kernels stay 3xTF32); bfloat16: "
+                             "every conv and matmul on bf16 operands with "
+                             "fp32 sums, the tail and fused prefix on the "
+                             "kernels' bf16 instantiations "
+                             "(ops/precision.py)")
     parser.add_argument("--profile", action="store_true", default=False,
                         help="write a torch.profiler trace of epoch 2 to "
                              "<outf>/profile and log the top kernels")
@@ -94,23 +99,22 @@ def parse_args(argv):
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     return args
-
-
-def _refuse_unported(args):
-    """Flags whose path is not ported raise, naming their ROADMAP item."""
-    if args.matmul_precision == "bfloat16":
-        raise NotImplementedError(
-            "--matmul_precision bfloat16: the kernels take fp32; reduced-"
-            "precision training is ROADMAP queue A item 16")
 
 
 @contextlib.contextmanager
 def matmul_precision(precision: str, device):
     """'tensorfloat32' lets cuDNN and matmuls round fp32 operands to TF32
-    on the card for the enclosed region; 'default' and 'highest' keep the
-    port's fp32 (TF32 off, ``utils.device.resolve_device``)."""
+    on the card for the enclosed region; 'bfloat16' runs every conv and
+    matmul on bf16 operands, and the fused tail and prefix on the kernels'
+    bf16 instantiations, on any device (``ops.precision``, the port's
+    definition: on the CPU the JAX package computes fp32); 'default' and
+    'highest' keep the port's fp32 (TF32 off,
+    ``utils.device.resolve_device``)."""
+    if precision == "bfloat16":
+        with precision_mod.matmul_precision("bfloat16"):
+            yield
+        return
     if precision != "tensorfloat32" or torch.device(device).type != "cuda":
         yield
         return

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from neuroquant_tpu_torch.models.layers import (
     Conv2d, NeRVBlock, collect_tail_params, fuses_prefix_block, out_img,
     run_prefix_blocks)
+from neuroquant_tpu_torch.ops import precision
 from neuroquant_tpu_torch.ops.packed_decode import (
     depth_to_space, resolve_pack_start)
 from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
@@ -260,10 +261,13 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
                                  memo=self._kernel_weights)
 
     def _tail_weights(self, x):
+        """The tail's packed weights, in the dtype its kernels take for x
+        (``precision.operand_dtype``)."""
         h, w = int(x.shape[1]), int(x.shape[2])
-        return self._kernel_weights(("tail", h, w), lambda: prepare_tail(
+        dt = precision.operand_dtype(x)
+        return self._kernel_weights(("tail", h, w, dt), lambda: prepare_tail(
             h, w, *collect_tail_params(self.blocks, self.head_layer,
-                                       self.pack_start)))
+                                       self.pack_start), dtype=dt))
 
     def decode_cf(self, img_embed):
         """Decode to the packed channels-first head output with `out_bias`

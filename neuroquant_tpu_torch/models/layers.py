@@ -6,7 +6,9 @@ Parameters keep torch's layouts (OIHW conv weights, (out, in) Linear
 weights), so a reference ``.pth`` or a checkpoint written by the JAX
 ``save_pth`` loads with ``strict=True``. Activations stay NHWC as in the
 JAX package: a conv permutes to NCHW, which for an NHWC-contiguous tensor is
-PyTorch's channels-last layout, and back.
+PyTorch's channels-last layout, and back. Convs, linears and KFc's
+products follow ``ops/precision.py`` (bf16 operands under ``regress
+--matmul_precision bfloat16``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from neuroquant_tpu_torch.ops import precision
 from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from neuroquant_tpu_torch.ops.tail_fused import (  # noqa: F401 (out_img)
     out_img, prefix_cf_to_nhwc, prepare_prefix_block,
@@ -49,8 +52,8 @@ class Conv2d(nn.Module):
         return self.weight.permute(2, 3, 1, 0)
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding, groups=self.groups)
+        y = precision.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                             self.stride, self.padding, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -200,8 +203,9 @@ class KFcBias(nn.Module):
         c, oh, ow = self.w_L.shape[1], self.w_L.shape[2], self.w_R.shape[3]
         b = (self.b_c @ (self.b_h @ self.b_w).reshape(1, oh * ow)).reshape(
             c, oh, ow)
-        y = torch.einsum("coh,bchw->bcow", self.w_L[0], x.permute(0, 3, 1, 2))
-        y = torch.einsum("bcow,cwq->bcoq", y, self.w_R[0]) + b
+        y = precision.einsum("coh,bchw->bcow", self.w_L[0],
+                             x.permute(0, 3, 1, 2))
+        y = precision.einsum("bcow,cwq->bcoq", y, self.w_R[0]) + b
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -284,7 +288,10 @@ class ConvNeXtBlock(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init_value))
 
     def forward(self, x):
-        y = self.pwconv2(F.gelu(self.pwconv1(self.norm(self.dwconv(x)))))
+        y = self.norm(self.dwconv(x))
+        y = precision.linear(y, self.pwconv1.weight, self.pwconv1.bias)
+        y = precision.linear(F.gelu(y), self.pwconv2.weight,
+                             self.pwconv2.bias)
         return x + self.gamma * y
 
 
@@ -337,6 +344,9 @@ def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
     Gradients pass: the fused block runs through the tail's and
     ``pack_cf``'s autograd Functions, the relabel back is plain torch.
 
+    The fused block runs in ``precision.operand_dtype(x)``: bf16 weights
+    under the bf16 matmul precision.
+
     The JAX package also gates this on a minimum grid (``PREFIX_MIN_GRID``,
     a TPU per-call overhead knob); the port fuses at any grid size."""
     last = t - 1
@@ -346,8 +356,9 @@ def run_prefix_blocks(blocks, t: int, x, impl, *, fused_prefix: str,
     if fused:
         blk = blocks[last]
         h, w = int(x.shape[1]), int(x.shape[2])
-        wts = memo(("prefix", h, w), lambda: prepare_prefix_block(
-            h, w, *blk.conv_params(), blk.stride))
+        dt = precision.operand_dtype(x)
+        wts = memo(("prefix", h, w, dt), lambda: prepare_prefix_block(
+            h, w, *blk.conv_params(), blk.stride, dtype=dt))
         z = run_fused_prefix_block(x, wts)
         x = blk.act_fn(prefix_cf_to_nhwc(z, wts.plan, blk.stride,
                                          blk.out_channel))

@@ -35,6 +35,7 @@ from neuroquant_tpu_torch.models.decoder import (
 from neuroquant_tpu_torch.models.layers import (
     BatchNorm2d, Conv2d, ConvNeXtBlock, KFcBias, LayerNorm, NeRVBlock,
     activation, collect_tail_params, out_img)
+from neuroquant_tpu_torch.ops import precision
 from neuroquant_tpu_torch.ops.packed_decode import plan_packed_tail
 from neuroquant_tpu_torch.ops.tail_fused import (
     prepare_tail, resolve_impl, run_fused_tail_cf, run_fused_tail_frames)
@@ -233,9 +234,10 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
 
     def _tail_weights(self, x):
         h, w = int(x.shape[1]), int(x.shape[2])
-        return self._kernel_weights(("tail", h, w), lambda: prepare_tail(
+        dt = precision.operand_dtype(x)
+        return self._kernel_weights(("tail", h, w, dt), lambda: prepare_tail(
             h, w, *collect_tail_params(self.dec_layers, self.dec_head_layers,
-                                       self.n_fused)))
+                                       self.n_fused), dtype=dt))
 
     def _fusion(self, content, tangents=None, run=_run):
         """The excitation block and the fusion stages: the tail-entry NHWC

@@ -97,15 +97,23 @@ def lib() -> ctypes.CDLL:
         # stream
         "nq_tail_conv_cf": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                             p],
+        # the same arguments, bf16 x, w, bias, out_mul, out_z, out_y
+        "nq_tail_conv_cf_bf16": [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                 i, i, p],
         # x, g, ksteps, part, out, B, cin, cout, mp, nsteps, splits, chunk,
         # act_in, stream
         "nq_tail_conv_dw_cf": [p, p, p, p, p, i, i, i, i, i, i, i, i, p],
-        # x, out, parameter block (B, h, w, c, c8, pad, mp, tm), stream
+        # the same arguments, bf16 x and g
+        "nq_tail_conv_dw_cf_bf16": [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                    p],
+        # x, out, parameter block (B, h, w, c, c8, pad, mp, tm, in type,
+        # out type), stream
         "nq_pack_cf": [p, p, p, p],
-        # g, out, parameter block (B, h, w, c, c8, pad, mp), stream
+        # g, out, parameter block (B, h, w, c, c8, pad, mp, tq, in type,
+        # out type), stream
         "nq_unpack_cf": [p, p, p, p],
         # z, out, parameter block (B, cp, mp, h, w, pad, f, c, mode, tx,
-        # fu), offset, stream
+        # fu, in type, out type), offset, stream
         "nq_unpack_frames": [p, p, p, f, p],
         # the group's descriptor (ops/fused_fakequant._Group), stream
         "nq_fq_group_forward": [p, p],

@@ -28,6 +28,18 @@ Each wrapper takes its plain PyTorch version (``conv_cf_ref``,
 on the GPU; a kernel that cannot build or launch raises.
 ``KERNEL_LAUNCHES`` counts the kernel launches.
 
+Each kernel has an fp32 and a bf16 instantiation, picked by the dtype of
+the tensors it is given (any other dtype raises). The bf16 one is the TPU
+kernels' own numeric contract (the JAX ``_mxu_cast`` / ``_entry_and_cast``):
+bf16 activations, weights and biases, fp32 sums, every bias, GELU, GELU'
+and mask applied to the fp32 sum, each layer output rounded once to bf16;
+dW and db in fp32 (the Functions cast them to the weights' dtype, as
+``_tail_apply_bwd`` does). ``pack_cf`` writes its output dtype from an
+fp32 or bf16 input, ``unpack_cf`` and ``unpack_frames`` read bf16 and write
+the dtype asked for; the weights' dtype (``prepare_tail(..., dtype=)``)
+picks the tail's, and ``ops/precision.py`` says when it is bf16. A bf16
+launch counts under the kernel's name with ``_bf16`` appended.
+
 Gradients: ``tail_apply``, ``pack_cf`` and ``unpack_frames`` are
 ``torch.autograd.Function``s when an input requires a gradient. The tail's
 backward is the JAX ``_tail_apply_bwd``: dW/db from ``tail_conv_dw_cf``,
@@ -44,13 +56,14 @@ Left out as TPU scheduling: the execution modes and their cost model
 (``ExecCfg``, ``_exec_cfg``, ``_SWEEP_PINS*``, ``NQ_TAIL_MODE``), the VMEM
 budget and cout-row split (``_VMEM_BUDGET``, ``_split_parts``,
 ``_bwd_needs_split``), the halo DMA streaming, and the bf16 operand cast
-(``_mxu_cast``, ``_entry_and_cast``): the kernels take fp32 operands and
-accumulate in fp32 (the two conv kernels multiply on the tensor cores with
-each fp32 operand split into two TF32 parts, three products per product,
-which keeps fp32 accuracy). What is kept from the modes is the union-sparse
-K axis of a layer packed with f >= 2 (``_union_blocks``): it skips the
-kernel's structurally zero blocks, 4x fewer MACs at the HNeRV Bunny head,
-in the forward, dx and dW alike. The kernels read the K axis as a list of
+(``_mxu_cast``, ``_entry_and_cast``, on the TPU always on): by default the
+kernels take fp32 operands and accumulate in fp32 (the two conv kernels
+multiply on the tensor cores with each fp32 operand split into two TF32
+parts, three products per product, which keeps fp32 accuracy), and take
+the bf16 contract only when asked. What is kept from the modes is the
+union-sparse K axis of a layer packed with f >= 2 (``_union_blocks``): it
+skips the kernel's structurally zero blocks, 4x fewer MACs at the HNeRV
+Bunny head, in the forward, dx and dW alike. The kernels read the K axis as a list of
 steps of 4 rows, each one box of x: consecutive channels at one flat shift
 (``_k_steps``).
 
@@ -81,9 +94,20 @@ from neuroquant_tpu_torch.ops.packed_decode import (
 # kernel launches per wrapper, since the last reset_launch_counts()
 # (fq_uaq, fq_ada and their _bwd: ops/fused_fakequant.py's grouped forward
 # and backward launches, named as that module says)
+# (the bf16 instantiations under the kernel's name + "_bf16")
 KERNEL_LAUNCHES = {"tail_conv_cf": 0, "tail_conv_dw_cf": 0, "pack_cf": 0,
                    "unpack_cf": 0, "unpack_frames": 0, "fq_uaq": 0,
-                   "fq_ada": 0, "fq_uaq_bwd": 0, "fq_ada_bwd": 0}
+                   "fq_ada": 0, "fq_uaq_bwd": 0, "fq_ada_bwd": 0,
+                   "tail_conv_cf_bf16": 0, "tail_conv_dw_cf_bf16": 0,
+                   "pack_cf_bf16": 0, "unpack_cf_bf16": 0,
+                   "unpack_frames_bf16": 0}
+# the element types the kernels take, with their launchers' type codes
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the layout kernels' (input, output) dtypes: pack_cf may narrow fp32 to
+# bf16 (the tail's bf16 entry), unpack_cf and unpack_frames widen back
+_F32, _B16 = torch.float32, torch.bfloat16
+_PACK_TYPES = ((_F32, _F32), (_F32, _B16), (_B16, _B16))
+_UNPACK_TYPES = ((_F32, _F32), (_B16, _F32), (_B16, _B16))
 
 
 def reset_launch_counts() -> None:
@@ -268,6 +292,28 @@ def _check(t, name: str, shape, dtype=torch.float32):
     raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def _kernel_dtype(t, name: str):
+    """t's dtype where a kernel has an instantiation for it (fp32, bf16);
+    anything else raises."""
+    if t.dtype not in _TYPE_CODES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return t.dtype
+
+
+def _layout_types(name: str, src, dst, pairs):
+    """The launcher's (input, output) type codes of a layout kernel's
+    instantiation from `src` to `dst`; a pair it has none for raises."""
+    if (src, dst) not in pairs:
+        raise TypeError(f"{name}: no instantiation from {src} to {dst}")
+    return _TYPE_CODES[src], _TYPE_CODES[dst]
+
+
+def _counted(name: str, dtype) -> str:
+    """The launch count's name of `name`'s instantiation for `dtype`."""
+    return name if dtype is torch.float32 else name + "_bf16"
+
+
 def _route(x, name: str) -> bool:
     """True -> run the kernel (CUDA tensor); False -> the plain version (CPU
     tensor); anything else raises."""
@@ -308,47 +354,52 @@ class PackGeometry(NamedTuple):
     smem: int       # shared-memory bytes per block
 
 
-def _pack_cf_smem(tm: int, c: int) -> int:
+def _pack_cf_smem(tm: int, c: int, isz: int = 4) -> int:
     """The tile's offset table (tm ints) and its staged input run (tm*c
-    floats and room for the 16-byte cover)."""
-    return 4 * tm + 4 * (tm * c + 8)
+    elements of `isz` bytes and room for the 16-byte cover)."""
+    return 4 * tm + isz * (tm * c + 32 // isz)
 
 
 @lru_cache(maxsize=256)
-def pack_cf_geometry(mp: int, c: int, batch: int) -> PackGeometry:
-    """Tile of :func:`pack_cf`'s kernel: 128 positions, halved while the
-    staged run would not fit a block's shared memory, or while the launch
-    has fewer blocks than the card holds (_SM_SLOTS) and the tile is above
-    16 positions: small entries are bound by latency, not bytes."""
+def pack_cf_geometry(mp: int, c: int, batch: int,
+                     isz: int = 4) -> PackGeometry:
+    """Tile of :func:`pack_cf`'s kernel (input elements of `isz` bytes):
+    128 positions, halved while the staged run would not fit a block's
+    shared memory, or while the launch has fewer blocks than the card holds
+    (_SM_SLOTS) and the tile is above 16 positions: small entries are bound
+    by latency, not bytes."""
     tm = PACK_TILE_MAX
-    while tm > 8 and (_pack_cf_smem(tm, c) > LAYOUT_SMEM or (
+    while tm > 8 and (_pack_cf_smem(tm, c, isz) > LAYOUT_SMEM or (
             tm > 16 and mp // tm * batch < _SM_SLOTS)):
         tm //= 2
-    if _pack_cf_smem(tm, c) > LAYOUT_SMEM:
+    if _pack_cf_smem(tm, c, isz) > LAYOUT_SMEM:
         raise ValueError(f"pack_cf: {c} channels do not fit a tile of "
                          f"{tm} positions in {LAYOUT_SMEM} bytes")
     if mp % tm:
         raise ValueError(f"pack_cf: Mp={mp} is not a multiple of {tm}")
-    return PackGeometry(tm, mp // tm, _pack_cf_smem(tm, c))
+    return PackGeometry(tm, mp // tm, _pack_cf_smem(tm, c, isz))
 
 
-def _unpack_cf_table(tq: int, w: int, pad: int) -> int:
+def _unpack_cf_table(tq: int, w: int, pad: int, vec: int = 4) -> int:
     """Ints of unpack_cf's cover table (``table_ints`` in the source): the
     tq positions' stretch of a padded row, with the 2*pad border columns of
-    every row crossing, the cover's offset (< 8) and rounding; a multiple
-    of 4."""
-    return (tq + 2 * pad * ((tq - 1) // w + 1) + 12 + 3) // 4 * 4
+    every row crossing, the cover's offset (< 2*vec, vec the input
+    elements of a 16-byte load) and rounding; a multiple of 4."""
+    return (tq + 2 * pad * ((tq - 1) // w + 1) + 3 * vec + 3) // 4 * 4
 
 
-def _unpack_cf_smem(tq: int, w: int, pad: int, c: int) -> int:
-    """The cover table and the staged output run (tq*c floats and room
-    for its offset in a float4)."""
-    return 4 * _unpack_cf_table(tq, w, pad) + 4 * (tq * c + 4)
+def _unpack_cf_smem(tq: int, w: int, pad: int, c: int, isz: int = 4,
+                    osz: int = 4) -> int:
+    """The cover table and the staged output run (tq*c elements of `osz`
+    bytes and room for its offset in 16 bytes); input elements of `isz`
+    bytes."""
+    return (4 * _unpack_cf_table(tq, w, pad, 16 // isz)
+            + osz * (tq * c + 16 // osz))
 
 
 @lru_cache(maxsize=256)
-def unpack_cf_geometry(h: int, w: int, pad: int, c: int,
-                       batch: int) -> PackGeometry:
+def unpack_cf_geometry(h: int, w: int, pad: int, c: int, batch: int,
+                       isz: int = 4, osz: int = 4) -> PackGeometry:
     """Tile of :func:`unpack_cf`'s kernel: positions of one image per
     block, 128 halved while the staged run would not fit a block's shared
     memory, or while the launch has fewer blocks than the card holds
@@ -358,13 +409,14 @@ def unpack_cf_geometry(h: int, w: int, pad: int, c: int,
     at 16 and 128, 0.0063 at 8; the tail entry 0.0180 at 128, 0.0199 at 64
     (scripts/torch_layout_bench.py --sweep)."""
     tq = PACK_TILE_MAX
-    while tq > 8 and (_unpack_cf_smem(tq, w, pad, c) > LAYOUT_SMEM or (
-            tq > 32 and _cdiv(h * w, tq) * batch < _SM_SLOTS)):
+    while tq > 8 and (_unpack_cf_smem(tq, w, pad, c, isz, osz) > LAYOUT_SMEM
+                      or (tq > 32 and _cdiv(h * w, tq) * batch < _SM_SLOTS)):
         tq //= 2
-    if _unpack_cf_smem(tq, w, pad, c) > LAYOUT_SMEM:
+    if _unpack_cf_smem(tq, w, pad, c, isz, osz) > LAYOUT_SMEM:
         raise ValueError(f"unpack_cf: {c} channels do not fit a tile of "
                          f"{tq} positions in {LAYOUT_SMEM} bytes")
-    return PackGeometry(tq, _cdiv(h * w, tq), _unpack_cf_smem(tq, w, pad, c))
+    return PackGeometry(tq, _cdiv(h * w, tq),
+                        _unpack_cf_smem(tq, w, pad, c, isz, osz))
 
 
 class UnpackGeometry(NamedTuple):
@@ -376,8 +428,8 @@ class UnpackGeometry(NamedTuple):
 
 
 @lru_cache(maxsize=256)
-def unpack_frames_geometry(h: int, w: int, f: int, c: int,
-                           batch: int) -> UnpackGeometry:
+def unpack_frames_geometry(h: int, w: int, f: int, c: int, batch: int,
+                           vec: int = 4) -> UnpackGeometry:
     """Block shape of :func:`unpack_frames`'s kernel: all f output rows and
     the widest span up to 124 columns whose staged channel rows (tx + 4
     floats each, for the 16-byte cover) fit a block's shared memory, cut
@@ -385,10 +437,12 @@ def unpack_frames_geometry(h: int, w: int, f: int, c: int,
     launch would have fewer blocks than the card holds (_SM_SLOTS). On an
     H100 one row a block took 0.63x the time of four at the width-tiled
     plan, and narrower spans took longer at every plan measured
-    (scripts/torch_layout_bench.py --sweep)."""
-    def widest(fu):
+    (scripts/torch_layout_bench.py --sweep). `vec`: input elements of a
+    16-byte load (4 fp32, 8 bf16): a staged row holds the span rounded up
+    to whole loads and one load more for its cover."""
+    def widest(fu):             # a multiple of vec: staged rows round to it
         return min(UNPACK_TILE_MAX,
-                   (LAYOUT_SMEM // (4 * fu * f * c) - 4) // 4 * 4)
+                   (LAYOUT_SMEM // (4 * fu * f * c) - vec) // vec * vec)
 
     def span(fu):               # equal spans, each a multiple of 4
         return _cdiv(_cdiv(w, _cdiv(w, widest(fu))), 4) * 4
@@ -402,89 +456,102 @@ def unpack_frames_geometry(h: int, w: int, f: int, c: int,
                          f"a block's {LAYOUT_SMEM} bytes")
     tx = span(fu)
     g = f * c
-    return UnpackGeometry(tx, _cdiv(w, tx), fu, 4 * fu * g * (tx + 4),
+    return UnpackGeometry(tx, _cdiv(w, tx), fu,
+                          4 * fu * g * (_cdiv(tx, vec) * vec + vec),
                           g if g in UNPACK_G_TEMPLATES else 0)
 
 
 # --------------------------------------------------------------------------
 # Kernels 1 and 2: pack_cf and its backward, unpack_cf
 # --------------------------------------------------------------------------
-def pack_cf_ref(x, plan: TailPlan):
-    """Plain version of :func:`pack_cf` (the JAX ``nhwc_to_cf``)."""
-    return nhwc_to_cf(x, plan)
+def pack_cf_ref(x, plan: TailPlan, dtype=None):
+    """Plain version of :func:`pack_cf` (the JAX ``nhwc_to_cf``, then the
+    cast to the output dtype)."""
+    return nhwc_to_cf(x, plan).to(dtype or x.dtype)
 
 
 @lru_cache(maxsize=256)
-def _pack_cf_launch(b: int, h: int, w: int, pad: int, tm: int, c: int):
+def _pack_cf_launch(b: int, h: int, w: int, pad: int, tm: int, c: int,
+                    tin: int = 0, tout: int = 0):
     """(output shape, parameter block and its address) of one pack_cf
-    launch, per plan geometry and input shape."""
+    launch, per plan geometry, input shape and element types (type codes:
+    0 fp32, 1 bf16)."""
     mp = _cdiv((h + 2 * pad) * (w + 2 * pad), tm) * tm
-    geo = pack_cf_geometry(mp, c, b)
+    geo = pack_cf_geometry(mp, c, b, 2 if tin else 4)
     return ((b, _r8(c), mp),
-            *_c_ints(b, h, w, c, _r8(c), pad, mp, geo.tm))
+            *_c_ints(b, h, w, c, _r8(c), pad, mp, geo.tm, tin, tout))
 
 
-def _pack_cf_kernel(x, plan: TailPlan):
+def _pack_cf_kernel(x, plan: TailPlan, dtype=None):
+    dtype = dtype or x.dtype
     if not _route(x, "pack_cf"):
-        return pack_cf_ref(x, plan)
+        return pack_cf_ref(x, plan, dtype)
     b, _, _, c = x.shape
+    tin, tout = _layout_types("pack_cf", x.dtype, dtype, _PACK_TYPES)
     # `block` keeps the parameter block alive while the launcher reads it
     shape, block, prm = _pack_cf_launch(b, plan.h, plan.w, plan.pad, plan.tm,
-                                        c)
-    _check(x, "pack_cf x", (b, plan.h, plan.w, c))
-    out = x.new_empty(shape)
-    _launch("pack_cf", _cuda.lib().nq_pack_cf, x.data_ptr(), out.data_ptr(),
-            prm)
+                                        c, tin, tout)
+    _check(x, "pack_cf x", (b, plan.h, plan.w, c), x.dtype)
+    out = x.new_empty(shape, dtype=dtype)
+    _launch(_counted("pack_cf", dtype), _cuda.lib().nq_pack_cf,
+            x.data_ptr(), out.data_ptr(), prm)
     return out
 
 
-def unpack_cf_ref(g, plan: TailPlan, c: int):
-    """Plain version of :func:`unpack_cf` (the JAX ``pack_cf`` backward)."""
-    return cf_to_nhwc(g, plan, c).contiguous()
+def unpack_cf_ref(g, plan: TailPlan, c: int, dtype=None):
+    """Plain version of :func:`unpack_cf` (the JAX ``pack_cf`` backward,
+    cast to the forward input's dtype)."""
+    return cf_to_nhwc(g, plan, c).to(dtype or g.dtype).contiguous()
 
 
 @lru_cache(maxsize=256)
 def _unpack_cf_launch(b: int, h: int, w: int, c: int, c8: int, pad: int,
-                      mp: int):
+                      mp: int, tin: int = 0, tout: int = 0):
     """(output shape, parameter block and its address) of one unpack_cf
     launch."""
-    geo = unpack_cf_geometry(h, w, pad, c, b)
-    return ((b, h, w, c), *_c_ints(b, h, w, c, c8, pad, mp, geo.tm))
+    geo = unpack_cf_geometry(h, w, pad, c, b, 2 if tin else 4,
+                             2 if tout else 4)
+    return ((b, h, w, c), *_c_ints(b, h, w, c, c8, pad, mp, geo.tm, tin,
+                                   tout))
 
 
-def unpack_cf(g, plan: TailPlan, c: int):
-    """Channels-first (B, C8, Mp) -> NHWC (B, h, w, c): the interior, the
-    channel pad dropped, in one pass. The transpose of :func:`pack_cf`."""
+def unpack_cf(g, plan: TailPlan, c: int, dtype=None):
+    """Channels-first (B, C8, Mp) -> NHWC (B, h, w, c) of `dtype` (g's by
+    default; bf16 g may come out fp32): the interior, the channel pad
+    dropped, in one pass. The transpose of :func:`pack_cf`."""
+    dtype = dtype or g.dtype
     if not _route(g, "unpack_cf"):
-        return unpack_cf_ref(g, plan, c)
+        return unpack_cf_ref(g, plan, c, dtype)
     b, c8, _ = g.shape
     if c > c8:
         raise ValueError(f"unpack_cf: {c} channels from {c8} rows")
-    _check(g, "unpack_cf g", (b, c8, plan.mp))
+    tin, tout = _layout_types("unpack_cf", g.dtype, dtype, _UNPACK_TYPES)
+    _check(g, "unpack_cf g", (b, c8, plan.mp), g.dtype)
     # `block` keeps the parameter block alive while the launcher reads it
     shape, block, prm = _unpack_cf_launch(b, plan.h, plan.w, c, c8, plan.pad,
-                                          plan.mp)
-    out = g.new_empty(shape)
-    _launch("unpack_cf", _cuda.lib().nq_unpack_cf, g.data_ptr(),
-            out.data_ptr(), prm)
+                                          plan.mp, tin, tout)
+    out = g.new_empty(shape, dtype=dtype)
+    _launch(_counted("unpack_cf", g.dtype), _cuda.lib().nq_unpack_cf,
+            g.data_ptr(), out.data_ptr(), prm)
     return out
 
 
 class _PackCF(torch.autograd.Function):
-    """pack_cf is linear; its backward is the transpose, unpack_cf. The
-    kernel builds no graph, so the backward is first-order on the CPU and
-    the card alike (``once_differentiable``): a second derivative through
-    it raises."""
+    """pack_cf is linear; its backward is the transpose, unpack_cf, back to
+    the input's dtype. The kernel builds no graph, so the backward is
+    first-order on the CPU and the card alike (``once_differentiable``): a
+    second derivative through it raises."""
 
     @staticmethod
-    def forward(ctx, x, plan):
-        ctx.plan, ctx.c = plan, x.shape[-1]
-        return _pack_cf_kernel(x, plan)
+    def forward(ctx, x, plan, dtype):
+        ctx.plan, ctx.c, ctx.dtype = plan, x.shape[-1], x.dtype
+        return _pack_cf_kernel(x, plan, dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return unpack_cf(g.contiguous(), ctx.plan, ctx.c), None
+        return unpack_cf(g.contiguous(), ctx.plan, ctx.c, ctx.dtype), None, \
+            None
 
 
 def _needs_grad(*tensors) -> bool:
@@ -492,12 +559,13 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def pack_cf(x, plan: TailPlan):
-    """NHWC (B, h, w, C) fp32 -> channels-first (B, C8, Mp) with the border
+def pack_cf(x, plan: TailPlan, dtype=None):
+    """NHWC (B, h, w, C) -> channels-first (B, C8, Mp) of `dtype` (x's by
+    default; fp32 x may go to bf16, the tail's bf16 entry) with the border
     ring, channel pad and flat tail pad written as zeros, in one pass."""
     if _needs_grad(x):
-        return _PackCF.apply(x, plan)
-    return _pack_cf_kernel(x, plan)
+        return _PackCF.apply(x, plan, dtype)
+    return _pack_cf_kernel(x, plan, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -746,21 +814,23 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
     (cout, 1) or None; w_op, if given, is ``conv_w_operand(kk, plan,
     layer)`` made beforehand. out_mul (B, cout, Mp), the backward's dx
     epilogue, multiplies z by GELU'(out_mul) before the border mask (the
-    JAX order)."""
+    JAX order). All of x, kk, bias, out_mul and w_op are fp32, or all bf16
+    (the bf16 instantiation: fp32 sums, z and y rounded once to bf16)."""
     blocks = _k_blocks(plan, layer)
     if not _route(x, "tail_conv_cf"):
         return conv_cf_ref(x, kk, bias, plan, layer, emit, act_in, blocks,
                            out_mul, steps=True)
     if emit not in _EMITS:
         raise ValueError(f"emit={emit!r} (use 'z', 'y' or 'zy')")
+    dt = _kernel_dtype(x, "tail_conv_cf x")
     b = x.shape[0]
-    _check(x, "tail_conv_cf x", (b, layer.cin, plan.mp))
+    _check(x, "tail_conv_cf x", (b, layer.cin, plan.mp), dt)
     _check(kk, "tail_conv_cf kk", (layer.side, layer.side, layer.cin,
-                                   layer.cout))
+                                   layer.cout), dt)
     if bias is not None:
-        _check(bias, "tail_conv_cf bias", (layer.cout, 1))
+        _check(bias, "tail_conv_cf bias", (layer.cout, 1), dt)
     if out_mul is not None:
-        _check(out_mul, "tail_conv_cf out_mul", (b, layer.cout, plan.mp))
+        _check(out_mul, "tail_conv_cf out_mul", (b, layer.cout, plan.mp), dt)
     if plan.mp % CONV_TILE_N:
         raise ValueError(f"tail_conv_cf: Mp={plan.mp} is not a multiple "
                          f"of {CONV_TILE_N}")
@@ -769,22 +839,25 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
     nsteps = int(steps.shape[0])
     if w_op is None:
         w_op = conv_w_operand(kk, plan, layer)
-    _check(w_op, "tail_conv_cf w_op", (nsteps * K_STEP, layer.cout))
+    _check(w_op, "tail_conv_cf w_op", (nsteps * K_STEP, layer.cout), dt)
     splits = _conv_split(layer.cout, plan.mp, b, nsteps)
     shape = (b, layer.cout, plan.mp)
-    out_z = torch.empty(shape, dtype=x.dtype, device=x.device) \
+    out_z = torch.empty(shape, dtype=dt, device=x.device) \
         if "z" in emit else None
-    out_y = torch.empty(shape, dtype=x.dtype, device=x.device) \
+    out_y = torch.empty(shape, dtype=dt, device=x.device) \
         if "y" in emit else None
-    # per-split partial sums, added in a fixed order by the second pass
-    part = torch.empty((splits, *shape), dtype=x.dtype, device=x.device) \
-        if splits > 1 else None
+    # per-split fp32 partial sums, added in a fixed order by the second pass
+    part = torch.empty((splits, *shape), dtype=torch.float32,
+                       device=x.device) if splits > 1 else None
     mask = _mask_on(plan.h, plan.w, plan.pad, plan.mp, dev)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    _launch("tail_conv_cf", _cuda.lib().nq_tail_conv_cf, x.data_ptr(),
+    lib = _cuda.lib()
+    fn = lib.nq_tail_conv_cf if dt is torch.float32 else \
+        lib.nq_tail_conv_cf_bf16
+    _launch(_counted("tail_conv_cf", dt), fn, x.data_ptr(),
             w_op.data_ptr(), ptr(bias), ptr(out_mul), mask.data_ptr(),
             steps.data_ptr(), ptr(out_z), ptr(out_y), ptr(part), b,
             layer.cin, layer.cout, plan.mp, nsteps, splits, int(act_in))
@@ -836,16 +909,18 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
                act_in: bool = False):
     """dW and db of one layer: x its input (B, cin, Mp), g the cotangent of
     its output (B, cout, Mp), border-masked -> (dkk (side, side, cin, cout),
-    db (cout, 1)), fp32. act_in applies GELU to x as it is read (for a
-    residual kept as a pre-activation). The sum runs over the layer's
-    K-step list (union-sparse for f >= 2), as the forward does, and is
-    scattered back to the canonical kernel (:func:`_scatter_dw`)."""
+    db (cout, 1)), fp32 whether x and g are fp32 or bf16. act_in applies
+    GELU to x as it is read (for a residual kept as a pre-activation). The
+    sum runs over the layer's K-step list (union-sparse for f >= 2), as
+    the forward does, and is scattered back to the canonical kernel
+    (:func:`_scatter_dw`)."""
     blocks = _k_blocks(plan, layer)
     if not _route(x, "tail_conv_dw_cf"):
         return conv_cf_dw_ref(x, g, plan, layer, act_in, blocks, steps=True)
+    dt = _kernel_dtype(x, "tail_conv_dw_cf x")
     b = x.shape[0]
-    _check(x, "tail_conv_dw_cf x", (b, layer.cin, plan.mp))
-    _check(g, "tail_conv_dw_cf g", (b, layer.cout, plan.mp))
+    _check(x, "tail_conv_dw_cf x", (b, layer.cin, plan.mp), dt)
+    _check(g, "tail_conv_dw_cf g", (b, layer.cout, plan.mp), dt)
     if plan.mp % DW_STEP:
         raise ValueError(f"tail_conv_dw_cf: Mp={plan.mp} is not a multiple "
                          f"of {DW_STEP}")
@@ -858,7 +933,10 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
     part = torch.empty((splits, nk, layer.cout), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((nk, layer.cout), dtype=torch.float32, device=x.device)
-    _launch("tail_conv_dw_cf", _cuda.lib().nq_tail_conv_dw_cf, x.data_ptr(),
+    lib = _cuda.lib()
+    fn = lib.nq_tail_conv_dw_cf if dt is torch.float32 else \
+        lib.nq_tail_conv_dw_cf_bf16
+    _launch(_counted("tail_conv_dw_cf", dt), fn, x.data_ptr(),
             g.data_ptr(), steps.data_ptr(), part.data_ptr(), out.data_ptr(),
             b, layer.cin, layer.cout, plan.mp, nsteps, splits, chunk,
             int(act_in))
@@ -924,7 +1002,8 @@ class _TailApply(torch.autograd.Function):
                 pre.append(z)
         ctx.save_for_backward(*inputs, *kks, *pre)
         ctx.plan, ctx.n = plan, n
-        ctx.has_bias = tuple(bb is not None for bb in biases)
+        ctx.bias_dtypes = tuple(None if bb is None else bb.dtype
+                                for bb in biases)
         return h
 
     @staticmethod
@@ -938,8 +1017,11 @@ class _TailApply(torch.autograd.Function):
         dkks, dbs = [None] * n, [None] * n
         for li in range(n - 1, -1, -1):
             layer = plan.layers[li]
-            dkks[li], db = conv_cf_dw(inputs[li], g, plan, layer)
-            dbs[li] = db if ctx.has_bias[li] else None
+            # fp32 sums, returned in the weights' dtype (_tail_apply_bwd)
+            dkk, db = conv_cf_dw(inputs[li], g, plan, layer)
+            dkks[li] = dkk.to(kks[li].dtype)
+            bdt = ctx.bias_dtypes[li]
+            dbs[li] = None if bdt is None else db.to(bdt)
             if li == 0 and not ctx.needs_input_grad[3]:
                 g = None
                 break
@@ -990,6 +1072,7 @@ class _ConvP(torch.autograd.Function):
     def forward(ctx, plan, layer, x, kk, bias):
         ctx.save_for_backward(x, kk)
         ctx.plan, ctx.layer, ctx.has_bias = plan, layer, bias is not None
+        ctx.bias_dtype = None if bias is None else bias.dtype
         return conv_cf(x, kk, bias, plan, layer)
 
     @staticmethod
@@ -1001,6 +1084,8 @@ class _ConvP(torch.autograd.Function):
         dkk = db = dx = None
         if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
             dkk, db = conv_cf_dw(x, g, plan, layer)
+            dkk = dkk.to(kk.dtype)
+            db = db if ctx.bias_dtype is None else db.to(ctx.bias_dtype)
         if ctx.needs_input_grad[2]:
             dx = conv_cf(g, _kk_transpose(kk).contiguous(), None, plan,
                          layer.transposed())
@@ -1277,39 +1362,50 @@ def out_img(x, out_bias: str = "tanh"):
     return x + float(out_bias)
 
 
-def unpack_frames_ref(z, plan: TailPlan, f: int, ch: int, out_bias: str):
-    """Plain version of :func:`unpack_frames` (the JAX ``_unpack_jnp``)."""
-    return depth_to_space(out_img(cf_to_nhwc(z, plan, ch), out_bias), f)
+def unpack_frames_ref(z, plan: TailPlan, f: int, ch: int, out_bias: str,
+                      dtype=None):
+    """Plain version of :func:`unpack_frames` (the JAX ``_unpack_jnp``):
+    out_img in fp32 on the interior, one rounding to `dtype` (z's by
+    default), as the TPU kernel does."""
+    y = out_img(cf_to_nhwc(z, plan, ch).float(), out_bias)
+    return depth_to_space(y.to(dtype or z.dtype), f)
 
 
 @lru_cache(maxsize=256)
 def _unpack_frames_launch(b: int, cp: int, h: int, w: int, pad: int, tm: int,
-                          f: int, ch: int, out_bias: str):
+                          f: int, ch: int, out_bias: str, tin: int = 0,
+                          tout: int = 0):
     """(z's Mp, output shape, parameter block and its address, offset) of
-    one unpack_frames launch, per plan geometry, shape and out_bias."""
+    one unpack_frames launch, per plan geometry, shape, out_bias and
+    element types."""
     c = ch // (f * f)
     if c * f * f != ch or ch > cp:
         raise ValueError(f"unpack_frames: {ch} channels do not unpack by "
                          f"f={f} from {cp} packed rows")
     mp = _cdiv((h + 2 * pad) * (w + 2 * pad), tm) * tm
     mode = _OUT_MODES.get(out_bias, 2)
-    geo = unpack_frames_geometry(h, w, f, c, b)
+    geo = unpack_frames_geometry(h, w, f, c, b, 8 if tin else 4)
     return (mp, (b, h * f, w * f, c),
-            *_c_ints(b, cp, mp, h, w, pad, f, c, mode, geo.tx, geo.fu),
+            *_c_ints(b, cp, mp, h, w, pad, f, c, mode, geo.tx, geo.fu, tin,
+                     tout),
             0.0 if mode < 2 else float(out_bias))
 
 
-def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str):
+def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str,
+                          dtype=None):
+    dtype = dtype or z.dtype
     if not _route(z, "unpack_frames"):
-        return unpack_frames_ref(z, plan, f, ch, out_bias)
+        return unpack_frames_ref(z, plan, f, ch, out_bias, dtype)
     b, cp, _ = z.shape
+    tin, tout = _layout_types("unpack_frames", z.dtype, dtype,
+                              _UNPACK_TYPES)
     # `block` keeps the parameter block alive while the launcher reads it
     mp, shape, block, prm, offset = _unpack_frames_launch(
-        b, cp, plan.h, plan.w, plan.pad, plan.tm, f, ch, out_bias)
-    _check(z, "unpack_frames z", (b, cp, mp))
-    out = z.new_empty(shape)
-    _launch("unpack_frames", _cuda.lib().nq_unpack_frames, z.data_ptr(),
-            out.data_ptr(), prm, offset)
+        b, cp, plan.h, plan.w, plan.pad, plan.tm, f, ch, out_bias, tin, tout)
+    _check(z, "unpack_frames z", (b, cp, mp), z.dtype)
+    out = z.new_empty(shape, dtype=dtype)
+    _launch(_counted("unpack_frames", z.dtype), _cuda.lib().nq_unpack_frames,
+            z.data_ptr(), out.data_ptr(), prm, offset)
     return out
 
 
@@ -1320,10 +1416,10 @@ class _UnpackFrames(torch.autograd.Function):
     derivative through it raises."""
 
     @staticmethod
-    def forward(ctx, z, plan, f, ch, out_bias):
+    def forward(ctx, z, plan, f, ch, out_bias, dtype):
         ctx.save_for_backward(z)
-        ctx.args = (plan, f, ch, out_bias)
-        return _unpack_frames_kernel(z, plan, f, ch, out_bias)
+        ctx.args = (plan, f, ch, out_bias, dtype)
+        return _unpack_frames_kernel(z, plan, f, ch, out_bias, dtype)
 
     @staticmethod
     @once_differentiable
@@ -1333,15 +1429,17 @@ class _UnpackFrames(torch.autograd.Function):
             zz = z.detach().requires_grad_()
             (dz,) = torch.autograd.grad(unpack_frames_ref(zz, *ctx.args),
                                         zz, g)
-        return dz, None, None, None, None
+        return dz, None, None, None, None, None
 
 
-def unpack_frames(z, plan: TailPlan, f: int, ch: int, out_bias: str):
-    """Head output z (B, Cp, Mp) -> frames (B, h*f, w*f, ch/f^2): interior
-    slice, out_img, depth-to-space, in one pass."""
+def unpack_frames(z, plan: TailPlan, f: int, ch: int, out_bias: str,
+                  dtype=None):
+    """Head output z (B, Cp, Mp) -> frames (B, h*f, w*f, ch/f^2) of
+    `dtype` (z's by default; bf16 z may come out fp32): interior slice,
+    out_img, depth-to-space, in one pass."""
     if _needs_grad(z):
-        return _UnpackFrames.apply(z, plan, f, ch, out_bias)
-    return _unpack_frames_kernel(z, plan, f, ch, out_bias)
+        return _UnpackFrames.apply(z, plan, f, ch, out_bias, dtype)
+    return _unpack_frames_kernel(z, plan, f, ch, out_bias, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -1377,10 +1475,15 @@ class TailWeights(NamedTuple):
     w_ops: tuple | None  # per-layer conv_w_operand on the GPU, else None
 
 
-def _with_w_ops(plan, kks, biases, f, ch) -> TailWeights:
-    """The weights with their conv operands gathered (on the GPU; the
-    plain versions gather their own). The operands carry no graph: a
-    gradient reaches the weights through ``kks``."""
+def _with_w_ops(plan, kks, biases, f, ch, dtype=None) -> TailWeights:
+    """The weights, cast to `dtype` if one is given (the kernels'
+    instantiation: bf16 for the TPU's contract), with their conv operands
+    gathered (on the GPU; the plain versions gather their own). The
+    operands carry no graph: a gradient reaches the weights through
+    ``kks`` (and through the cast, in the weights' own dtype)."""
+    if dtype is not None:
+        kks = tuple(kk.to(dtype) for kk in kks)
+        biases = tuple(None if bb is None else bb.to(dtype) for bb in biases)
     w_ops = None
     if kks[0].device.type == "cuda":
         with torch.no_grad():
@@ -1389,29 +1492,38 @@ def _with_w_ops(plan, kks, biases, f, ch) -> TailWeights:
     return TailWeights(plan, tuple(kks), tuple(biases), f, ch, w_ops)
 
 
-def prepare_tail(h: int, w: int, blocks, head, tm: int = 0) -> TailWeights:
-    """:func:`plan_and_pack`, plus the kernels' weight operands on the GPU."""
-    return _with_w_ops(*plan_and_pack(h, w, blocks, head, tm=tm))
+def prepare_tail(h: int, w: int, blocks, head, tm: int = 0,
+                 dtype=None) -> TailWeights:
+    """:func:`plan_and_pack`, cast to `dtype` if given, plus the kernels'
+    weight operands on the GPU."""
+    return _with_w_ops(*plan_and_pack(h, w, blocks, head, tm=tm),
+                       dtype=dtype)
+
+
+def _entry(x, wts: TailWeights):
+    """The tail's input packed channels-first in the weights' dtype (the
+    JAX ``_entry_and_cast``: fp32 x enters a bf16 tail in one pass)."""
+    return pack_cf(x.contiguous(), wts.plan, wts.kks[0].dtype)
 
 
 def run_fused_tail_frames(x, wts: TailWeights, out_bias: str):
     """NHWC input x at the tail-entry resolution -> full-resolution frames
-    (B, H, W, C): pack_cf, one tail_conv_cf per layer, unpack_frames. The
-    JAX function takes the raw (blocks, head) and packs them every call;
-    here the caller passes them packed once (:func:`prepare_tail`)."""
-    z = tail_apply(wts.plan, pack_cf(x.contiguous(), wts.plan), wts.kks,
-                   wts.biases, wts.w_ops)
-    return unpack_frames(z, wts.plan, wts.f, wts.ch, out_bias)
+    (B, H, W, C) in x's dtype: pack_cf, one tail_conv_cf per layer,
+    unpack_frames, in the weights' dtype between. The JAX function takes
+    the raw (blocks, head) and packs them every call; here the caller
+    passes them packed once (:func:`prepare_tail`)."""
+    z = tail_apply(wts.plan, _entry(x, wts), wts.kks, wts.biases, wts.w_ops)
+    return unpack_frames(z, wts.plan, wts.f, wts.ch, out_bias, x.dtype)
 
 
 def run_fused_tail_cf(x, wts: TailWeights):
     """Like :func:`run_fused_tail_frames` but stays channels-first: returns
-    (z_cf (B, ch8, Mp), plan, ch, f), so that a loss can be computed in the
-    packed flat domain against :func:`pack_targets` (the depth-to-space is
-    a permutation, so a sum of elementwise losses does not change)."""
-    z = tail_apply(wts.plan, pack_cf(x.contiguous(), wts.plan), wts.kks,
-                   wts.biases, wts.w_ops)
-    return z, wts.plan, wts.ch, wts.f
+    (z_cf (B, ch8, Mp) in x's dtype, plan, ch, f), so that a loss can be
+    computed in the packed flat domain against :func:`pack_targets` (the
+    depth-to-space is a permutation, so a sum of elementwise losses does
+    not change)."""
+    z = tail_apply(wts.plan, _entry(x, wts), wts.kks, wts.biases, wts.w_ops)
+    return z.to(x.dtype), wts.plan, wts.ch, wts.f
 
 
 def pack_targets(frames, plan: TailPlan, f: int):
@@ -1444,19 +1556,21 @@ def pack_prefix_block(h: int, w: int, kernel, bias, r: int):
     return plan, (kk,), (bm,), r, cout_rr
 
 
-def prepare_prefix_block(h: int, w: int, kernel, bias, r: int) -> TailWeights:
-    """:func:`pack_prefix_block`, plus the kernel's weight operand on the
-    GPU."""
-    return _with_w_ops(*pack_prefix_block(h, w, kernel, bias, r))
+def prepare_prefix_block(h: int, w: int, kernel, bias, r: int,
+                         dtype=None) -> TailWeights:
+    """:func:`pack_prefix_block`, cast to `dtype` if given, plus the
+    kernel's weight operand on the GPU."""
+    return _with_w_ops(*pack_prefix_block(h, w, kernel, bias, r),
+                       dtype=dtype)
 
 
 def run_fused_prefix_block(x, wts: TailWeights):
     """NHWC x (B, h, w, cin) -> the prefix conv's output (B, cout*r*r
-    padded, Mp), pre-PixelShuffle and pre-activation. The weights come
-    packed by :func:`prepare_prefix_block`, not raw as in the JAX
-    function."""
-    return tail_apply(wts.plan, pack_cf(x.contiguous(), wts.plan), wts.kks,
-                      wts.biases, wts.w_ops)
+    padded, Mp) in x's dtype, pre-PixelShuffle and pre-activation, run in
+    the weights' dtype. The weights come packed by
+    :func:`prepare_prefix_block`, not raw as in the JAX function."""
+    return tail_apply(wts.plan, _entry(x, wts), wts.kks, wts.biases,
+                      wts.w_ops).to(x.dtype)
 
 
 def prefix_cf_to_nhwc(z, plan: TailPlan, r: int, out_channel: int):

@@ -17,7 +17,12 @@ step fake-quantizes the decoder's weights from the state, decodes a batch of
 calibration embeddings with them (``torch.func.functional_call``) and takes
 the loss against the frames; by default in the packed channels-first domain
 (the model's ``decode_cf`` against ``tail_fused.pack_targets``), where the
-decoder tail runs forward and backward on the CUDA kernels.
+decoder tail runs forward and backward on the CUDA kernels. With a
+`compute_dtype` (bf16: ``calibrate_network --compute_dtype bfloat16``) the
+fake-quantized parameters and the inputs are cast to it after the fp32
+quantization and the decode runs in it (the tail on the kernels' bf16
+instantiations); the prediction comes back to fp32 for the loss, and the
+gradients reach the fp32 state through the cast, as in the JAX package.
 
 An epoch is a Python loop over its shuffled batches (the JAX package scans
 one jitted epoch). Shuffles come from a ``torch.Generator`` seeded from the
@@ -106,7 +111,7 @@ class _Decoder(nn.Module):
 
 
 def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,
-              cf_pack=None, loss_extra=None):
+              cf_pack=None, loss_extra=None, compute_dtype=None):
     """The calibration loss: ``loss(state, img, inputs, count, share=None,
     extra=True) -> (total, (rec, rnd, b))``. The decoder's quantized layers
     are replaced by ``quantize_params(params, spec, state, mode,
@@ -115,17 +120,28 @@ def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,
     the packed domain; otherwise on NHWC frames through ``decode``. A
     data-parallel rank passes `share`, its rows over the global batch, so
     that the ranks' rec sum to the global batch's; and `extra` on rank 0
-    only, so that the rounding term counts once."""
+    only, so that the rounding term counts once. With `compute_dtype`
+    every parameter the decode reads (the whole state dict, the layers
+    that are not quantized too) and the inputs are cast to it after the
+    quantization, which stays fp32 (the JAX ``loss_at``)."""
     dec = _Decoder(model, "decode_cf" if cf_pack is not None else "decode")
     keys = [f"{pre}.{leaf}" for pre in spec.layer_keys
             for leaf in ("weight", "bias")]
     if cf_pack is not None:
         cf_mask, cf_denom = cf_pack["mask"], float(cf_pack["denom"])
+    # the parameters no step changes, cast once
+    fixed = {} if compute_dtype is None else {
+        f"model.{k}": v.detach().to(compute_dtype)
+        for k, v in params.items() if k not in keys}
 
     def loss(state, img, inputs, count, share=None, extra=True):
         qp = quantize_params(params, spec, state, mode=mode, soft=True)
-        pred = functional_call(dec, {f"model.{k}": qp[k] for k in keys},
-                               (inputs,)).float()
+        swap = {f"model.{k}": qp[k] for k in keys}
+        if compute_dtype is not None:
+            swap = {**fixed, **{k: v.to(compute_dtype)
+                                for k, v in swap.items()}}
+            inputs = inputs.to(compute_dtype)
+        pred = functional_call(dec, swap, (inputs,)).float()
         if cf_pack is not None:
             diff = (pred - img) * cf_mask
             d = diff * diff if p == 2.0 else torch.abs(diff) ** p
@@ -262,7 +278,8 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
                          ckpt_every_epochs: int = 25, cf_pack="auto",
                          rounding: str = "adaround",
                          adaround_only: tuple | None = None,
-                         epoch_orders=None, mesh=None, epoch_hook=None):
+                         epoch_orders=None, mesh=None, epoch_hook=None,
+                         compute_dtype=None):
     """Returns (calibrated QuantState, mode); decode the result with
     ``quantize_params(..., mode=mode, soft=False)``.
 
@@ -281,7 +298,9 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
     data-parallel ``parallel.Mesh``; every rank calls this with the same
     arguments, and only rank 0 writes the checkpoint. epoch_hook(epoch,
     count, state): called after every phase-2 epoch (a throughput probe
-    synchronises there)."""
+    synchronises there). compute_dtype: the decode's dtype in both phases
+    (:func:`make_loss`; None: fp32); the state, its checkpoint and the
+    Adam moments stay fp32."""
     assert rounding in ("adaround", "nearest"), rounding
     check_batch(model, batch_size, mesh)
     if rounding == "nearest":
@@ -319,7 +338,8 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
     if resume is None:
         t0 = time.time()
         state, _ = _run_phase(
-            loss=make_loss(model, params, spec, "uaq", p, cf_pack),
+            loss=make_loss(model, params, spec, "uaq", p, cf_pack,
+                           compute_dtype=compute_dtype),
             state=state, cali_data=cali_data, gt=gt,
             trainable_keys=("w_delta", "b_delta"), lr=0.001, epochs=epochs1,
             steps_per_epoch=steps_per_epoch, batch_size=batch_size,
@@ -367,7 +387,7 @@ def model_reconstruction(model, params, spec: QuantSpec, state: Dict,
     t0 = time.time()
     state, count = _run_phase(
         loss=make_loss(model, params, spec, "adaround", p, cf_pack,
-                       loss_extra),
+                       loss_extra, compute_dtype=compute_dtype),
         state=state, cali_data=cali_data, gt=gt,
         trainable_keys=("w_alpha", "b_alpha"), lr=lr, epochs=epochs2,
         steps_per_epoch=steps_per_epoch, batch_size=batch_size,

@@ -266,7 +266,7 @@ def _sweep(torch, tf, cu):
                 if tf._pack_cf_smem(tm, c) > tf.LAYOUT_SMEM or p.mp % tm:
                     continue
                 prm, addr = tf._c_ints(b, p.h, p.w, c, tf._r8(c), p.pad,
-                                       p.mp, tm)
+                                       p.mp, tm, 0, 0)
                 ms = _device_ms(torch, lambda: lib.nq_pack_cf(
                     x.data_ptr(), out.data_ptr(), addr, stream))
                 rows.append(dict(kernel="pack_cf", shape=f"{label} batch {b}",
@@ -279,7 +279,8 @@ def _sweep(torch, tf, cu):
         for tq in (8, 16, 32, 64, 128):
             if tf._unpack_cf_smem(tq, p.w, p.pad, c) > tf.LAYOUT_SMEM:
                 continue
-            prm, addr = tf._c_ints(2, p.h, p.w, c, tf._r8(c), p.pad, p.mp, tq)
+            prm, addr = tf._c_ints(2, p.h, p.w, c, tf._r8(c), p.pad, p.mp,
+                                   tq, 0, 0)
             ms = _device_ms(torch, lambda: lib.nq_unpack_cf(
                 g.data_ptr(), out.data_ptr(), addr, stream))
             rows.append(dict(kernel="unpack_cf", shape=f"{label} batch 2",
@@ -292,7 +293,7 @@ def _sweep(torch, tf, cu):
         for tx in (28, 60, 108, 124):
             for fu in (1, 2, 4):
                 prm, addr = tf._c_ints(b, 48, p.mp, p.h, p.w, p.pad, ff, 3, 1,
-                                       tx, fu)
+                                       tx, fu, 0, 0)
                 ms = _device_ms(torch, lambda: lib.nq_unpack_frames(
                     z.data_ptr(), out.data_ptr(), addr, 0.0, stream))
                 rows.append(dict(kernel="unpack_frames",

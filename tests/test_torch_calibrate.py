@@ -437,6 +437,11 @@ class TestCLI:
             assert calibrate_network.parse_args(
                 ["--config", "c.yaml", "--arch", "hnerv"] + flag).dump_vis
             return
-        with pytest.raises(NotImplementedError, match=item):
-            calibrate_network.parse_args(["--config", "c.yaml", "--arch",
-                                          "hnerv", "--device", "cpu"] + flag)
+        # item 16, ported: the flag parses (tests/test_torch_bf16_cli.py
+        # runs the CLI with it) and float32 stays the default
+        assert calibrate_network.parse_args(
+            ["--config", "c.yaml", "--arch", "hnerv", "--device", "cpu"]
+            + flag).compute_dtype == "bfloat16"
+        assert calibrate_network.parse_args(
+            ["--config", "c.yaml", "--arch", "hnerv"]).compute_dtype \
+            == "float32"

@@ -96,7 +96,8 @@ class TestParity:
             emb = model.encode(x)
             first = model.decode(emb)
             kept = dict(model._packed)
-            assert set(kept) == {("prefix", 5, 10), ("tail", 20, 40)}
+            assert set(kept) == {("prefix", 5, 10, torch.float32),
+                                 ("tail", 20, 40, torch.float32)}
             model.decode(emb)
             assert all(model._packed[k][1] is kept[k][1] for k in kept)
 

@@ -13,7 +13,22 @@ output's largest value (gradients through a whole tail 1e-4 relative to
 the largest gradient); the layout kernels copy, so they are exact;
 out_img 1e-6; the fake-quant kernel 1e-6 of the output's largest value with
 no flipped rounding decision (its butterfly repeats the plain chain's
-operations in their order)."""
+operations in their order).
+
+The bf16 instantiations (the ``_bf16`` cases): a conv's bf16 output within
+one bf16 unit (2^-8 relative, the spacing at the element) of the plain
+version's, which rounds the same fp32 sum once to nearest even: the two
+sums differ only in their order, so an element whose sum lies that close
+to a rounding boundary rounds the other way; beyond the unit, the fp32
+tolerance above (1e-4 of the largest value) for elements near zero, whose
+spacing is smaller than that order difference. dW and db within 1e-5 of
+the largest: bf16 x bf16 products are exact in fp32, only the order of the
+fp32 sums differs. The layout kernels copy or round once to nearest even
+as the plain versions' casts do: exact; unpack_frames' bf16 frames within
+one unit (its expf/tanhf against torch's). Gradients through a whole bf16
+tail against the same Function on the CPU (the plain versions) within
+2^-5 of each leaf's largest: every layer rounds its output and its dx to
+bf16, and values that part by a unit move their successors' sums."""
 
 import numpy as np
 import pytest
@@ -78,6 +93,11 @@ def _cf(plan, cin, dev, seed):
 
 def _tuple(t):
     return t if isinstance(t, tuple) else (t,)
+
+
+def _counts(**launched):
+    """The launch counts with every kernel not named at 0."""
+    return {k: launched.get(k, 0) for k in tf.KERNEL_LAUNCHES}
 
 
 def _assert_close(got, want, rel=1e-4):
@@ -251,10 +271,8 @@ def test_training_step_runs_on_the_kernels(dev, monkeypatch):
     loss_p = loss_fn(plain(img), img, "l2")
     loss_p.backward()
     n = len(tail_plan_for("hnerv", TINY_HNERV)[0].layers) + 1
-    assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
-                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 1,
-                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
-                      "fq_ada_bwd": 0}
+    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_dw_cf=n,
+                             pack_cf=2, unpack_cf=2, unpack_frames=1)
     assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
     grads_p = dict(plain.named_parameters())
     for name, prm in kern.named_parameters():
@@ -403,10 +421,8 @@ def test_nerv_training_step_runs_on_the_kernels(dev, monkeypatch):
     loss_p = loss_fn(plain(idx), img, "l2")
     loss_p.backward()
     n = len(tail_plan_for("nerv", TINY_NERV)[0].layers) + 1
-    assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
-                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 1,
-                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
-                      "fq_ada_bwd": 0}
+    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_dw_cf=n,
+                             pack_cf=2, unpack_cf=2, unpack_frames=1)
     assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
     grads_p = dict(plain.named_parameters())
     for name, prm in kern.named_parameters():
@@ -512,10 +528,8 @@ def test_decode_goes_through_the_kernels(dev):
         assert all(wts.w_ops is not None for _, wts in kern._packed.values())
         assert torch.equal(kern.decode(emb), got)        # packed weights kept
     n_layers = len(kern.blocks) - kern.pack_start + 1
-    assert counts == {"tail_conv_cf": n_layers + 1, "tail_conv_dw_cf": 0,
-                      "pack_cf": 2, "unpack_cf": 0, "unpack_frames": 1,
-                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
-                      "fq_ada_bwd": 0}
+    assert counts == _counts(tail_conv_cf=n_layers + 1, pack_cf=2,
+                             unpack_frames=1)
     assert float((got - want).abs().max()) <= 1e-4
 
 
@@ -766,10 +780,8 @@ def test_calibration_step_runs_on_the_kernels(dev, monkeypatch):
         counts = dict(tf.KERNEL_LAUNCHES)
     loss_p, grads_p = step(plain, None)
     n = len(plan.layers) + 1                 # the tail and the prefix block
-    assert counts == {"tail_conv_cf": 2 * n, "tail_conv_dw_cf": n,
-                      "pack_cf": 2, "unpack_cf": 2, "unpack_frames": 0,
-                      "fq_uaq": 0, "fq_ada": 0, "fq_uaq_bwd": 0,
-                      "fq_ada_bwd": 0}
+    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_dw_cf=n,
+                             pack_cf=2, unpack_cf=2)
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     top = max(float(g.abs().max()) for g in grads_p)
     for a, b in zip(grads_k, grads_p):
@@ -1022,3 +1034,260 @@ def test_quantize_params_on_the_kernel(dev, mode, soft, mixed):
         tol = 1e-5 if leaf == "w_delta" else 1e-6
         assert float((ggot[ln] - g).abs().max()) <= tol * max(
             1e-30, float(g.abs().max())), ln
+
+
+# ---- bf16 instantiations ---------------------------------------------------
+BF16 = torch.bfloat16
+
+
+def _units(t):
+    """The bf16 spacing at each element of t (2^-7 of the power of two at
+    or below |t|)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _bf16_close(got, want, rel=1e-4):
+    """Every element within one bf16 unit, beyond `rel` of the largest."""
+    for a, b in zip(_tuple(got), _tuple(want)):
+        assert a.dtype == b.dtype == BF16 and a.shape == b.shape
+        a, b = a.float(), b.float()
+        tol = (torch.maximum(_units(a), _units(b))
+               + rel * max(1.0, float(b.abs().max())))
+        assert bool(((a - b).abs() <= tol).all()), \
+            float(((a - b).abs() - tol).max())
+
+
+def _small_bf16(small):
+    plan, kks, bms, _, _ = small
+    return plan, [k.to(BF16) for k in kks], [b.to(BF16) for b in bms]
+
+
+@pytest.mark.parametrize("li", [0, 1, 2], ids=["f1", "f2", "head_f4"])
+@pytest.mark.parametrize("emit,act_in", [("z", False), ("y", False),
+                                         ("z", True), ("y", True),
+                                         ("zy", False), ("zy", True)])
+def test_tail_conv_cf_bf16(dev, small, li, emit, act_in):
+    plan, kks, bms = _small_bf16(small)
+    layer = plan.layers[li]
+    x = _cf(plan, layer.cin, dev, li).to(BF16)
+    tf.reset_launch_counts()
+    got = tf.conv_cf(x, kks[li], bms[li], plan, layer, emit, act_in)
+    want = tf.conv_cf_ref(x, kks[li], bms[li], plan, layer, emit, act_in)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf_bf16"] == 1
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 0
+    _bf16_close(got, want)
+    w_op = tf.conv_w_operand(kks[li], plan, layer)
+    assert w_op.dtype == BF16
+    again = tf.conv_cf(x, kks[li], bms[li], plan, layer, emit, act_in, w_op)
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(again), _tuple(got)))
+    if emit == "zy":                   # both from the one accumulator
+        assert torch.equal(got[0], tf.conv_cf(x, kks[li], bms[li], plan,
+                                              layer, "z", act_in))
+        assert torch.equal(got[1], tf.conv_cf(x, kks[li], bms[li], plan,
+                                              layer, "y", act_in))
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_tail_conv_kernels_launch_shapes_bf16(dev, shape):
+    """The launch shapes of test_tail_conv_kernels_launch_shapes on the
+    bf16 instantiations: forward ('zy'), the dx pass (split K at
+    'split_k') and dW twice, the same bits."""
+    h, w, blocks, head, li = SHAPES[shape]
+    plan, _ = tf.plan_geometry(h, w, blocks, head, tm=128)
+    layer = plan.layers[li]
+    gen = torch.Generator(device=dev).manual_seed(len(shape))
+    kk = (torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                      generator=gen, device=dev) * 0.2).to(BF16)
+    bias = torch.randn((layer.cout, 1), generator=gen, device=dev).to(BF16)
+    x = torch.randn((2, layer.cin, plan.mp), generator=gen,
+                    device=dev).to(BF16)
+    g = _cf(plan, layer.cout, dev, 7).to(BF16)
+    kblocks = tf._k_blocks(plan, layer)
+    _bf16_close(tf.conv_cf(x, kk, bias, plan, layer, "zy"),
+                tf.conv_cf_ref(x, kk, bias, plan, layer, "zy",
+                               blocks=kblocks))
+    lt = layer.transposed()
+    kt = tf._kk_transpose(kk).contiguous()
+    _bf16_close(tf.conv_cf(g, kt, None, plan, lt, out_mul=x),
+                tf.conv_cf_ref(g, kt, None, plan, lt,
+                               blocks=tf._k_blocks(plan, lt), out_mul=x))
+    got = tf.conv_cf_dw(x, g, plan, layer)
+    want = tf.conv_cf_dw_ref(x, g, plan, layer, False, kblocks)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    again = tf.conv_cf_dw(x, g, plan, layer)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("li", [0, 1, 2], ids=["f1", "f2", "head_f4"])
+@pytest.mark.parametrize("act_in", [False, True])
+def test_tail_conv_dw_cf_bf16(dev, small, li, act_in):
+    plan = small[0]
+    layer = plan.layers[li]
+    x = _cf(plan, layer.cin, dev, 30 + li).to(BF16)
+    g = _cf(plan, layer.cout, dev, 40 + li).to(BF16)
+    tf.reset_launch_counts()
+    dkk, db = tf.conv_cf_dw(x, g, plan, layer, act_in)
+    want_kk, want_b = tf.conv_cf_dw_ref(x, g, plan, layer, act_in,
+                                        tf._k_blocks(plan, layer))
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["tail_conv_dw_cf_bf16"] == 1
+    for got, want in ((dkk, want_kk), (db, want_b)):
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("src", ["fp32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("case", PACK_CASES, ids=case_id)
+def test_pack_cf_bf16(dev, case, offset, src):
+    """pack_cf to bf16 from fp32 (the entry cast in the same pass) and from
+    bf16, the input aligned or 3 elements past a 16-byte boundary: the
+    plain version's cast, bit for bit."""
+    name, c, nb = case
+    plan, _ = layout_plan(name)
+    x = _rand(dev, (nb, plan.h, plan.w, c), c + nb, offset)
+    if src == "bf16":
+        x = x.to(BF16)
+    tf.reset_launch_counts()
+    got = tf.pack_cf(x, plan, BF16)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["pack_cf_bf16"] == 1
+    assert got.dtype == BF16
+    assert torch.equal(got, tf.pack_cf_ref(x, plan, BF16))
+
+
+@pytest.mark.parametrize("out", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", PACK_CASES, ids=case_id)
+def test_unpack_cf_bf16(dev, case, out):
+    """unpack_cf of a bf16 cotangent to fp32 (pack_cf's input was fp32) and
+    to bf16, NaN in the border ring and pads: exact."""
+    name, c, nb = case
+    plan, _ = layout_plan(name)
+    g = _rand(dev, (nb, tf._r8(c), plan.mp), c + nb, 0).to(BF16)
+    live = tf.border_mask(plan, device=dev).reshape(-1) > 0
+    g[:, :, ~live] = float("nan")
+    g[:, c:] = float("nan")
+    dt = torch.float32 if out == "fp32" else BF16
+    tf.reset_launch_counts()
+    got = tf.unpack_cf(g, plan, c, dt)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["unpack_cf_bf16"] == 1
+    assert got.dtype == dt and not bool(got.isnan().any())
+    assert torch.equal(got, tf.unpack_cf_ref(g, plan, c, dt))
+
+
+@pytest.mark.parametrize("out", ["fp32", "bf16"])
+@pytest.mark.parametrize("out_bias", ["sigmoid", "tanh", "0.5"])
+@pytest.mark.parametrize("case", UNPACK_CASES, ids=case_id)
+def test_unpack_frames_bf16(dev, case, out_bias, out):
+    """A bf16 head output to fp32 frames (regress's bf16 precision) and to
+    bf16 frames (a bf16 decode): out_img 1e-6 in fp32, one unit in bf16."""
+    name, c, nb = case
+    plan, f = layout_plan(name)
+    ch = c * f * f
+    cp = max(plan.layers[-1].cout, tf._r8(ch))
+    z = _rand(dev, (nb, cp, plan.mp), f + c, 0).to(BF16)
+    dt = torch.float32 if out == "fp32" else BF16
+    tf.reset_launch_counts()
+    got = tf.unpack_frames(z, plan, f, ch, out_bias, dt)
+    want = tf.unpack_frames_ref(z, plan, f, ch, out_bias, dt)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["unpack_frames_bf16"] == 1
+    assert got.shape == want.shape == (nb, plan.h * f, plan.w * f, c)
+    if dt is BF16:
+        _bf16_close(got, want, rel=0.0)
+    else:
+        assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_bf16_wrappers_refuse_mixed_dtypes(dev, small):
+    plan, kks, bms = _small_bf16(small)
+    layer = plan.layers[0]
+    x = _cf(plan, layer.cin, dev, 0)
+    with pytest.raises(TypeError):                  # fp32 x, bf16 kernel
+        tf.conv_cf(x, kks[0], bms[0], plan, layer)
+    with pytest.raises(TypeError):
+        tf.conv_cf_dw(x.to(BF16), _cf(plan, layer.cout, dev, 1), plan, layer)
+    with pytest.raises(TypeError):                  # no bf16 -> fp32 pack
+        tf.pack_cf(torch.zeros((2, plan.h, plan.w, 5), device=dev,
+                               dtype=BF16), plan, torch.float32)
+
+
+def test_bf16_tail_gradients(dev, small):
+    """The tail Function in bf16 on the kernels against the same Function
+    on CPU copies (the plain versions): the backward's cotangent and every
+    gradient come back bf16 (the weights' dtype), the launches are the bf16
+    instantiations', the gradients within 2^-5 of each leaf's largest."""
+    plan, kks, bms = _small_bf16(small)
+    x0 = _cf(plan, plan.layers[0].cin, dev, 50).to(BF16)
+    wt = _cf(plan, plan.layers[-1].cout, dev, 51)
+    seen = []
+
+    def grads(device):
+        x = x0.detach().to(device).requires_grad_()
+        ks = [k.detach().to(device).requires_grad_() for k in kks]
+        bs = [b.detach().to(device).requires_grad_() for b in bms]
+        out = tf.tail_apply(plan, x, ks, bs)
+        assert out.dtype == BF16
+        out.register_hook(lambda g: seen.append(g.dtype))
+        (out.float() * wt.to(device)).sum().backward()
+        return [t.grad for t in (x, *ks, *bs)]
+
+    tf.reset_launch_counts()
+    got = grads(dev)
+    torch.cuda.synchronize()
+    n = len(plan.layers)
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf_bf16"] == 2 * n
+    assert tf.KERNEL_LAUNCHES["tail_conv_dw_cf_bf16"] == n
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 0
+    assert seen == [BF16]
+    want = grads("cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == BF16
+        top = float(w.float().abs().max())
+        assert float((g.float().cpu() - w.float()).abs().max()) <= \
+            2.0 ** -5 * top
+
+
+def test_bf16_precision_decode_and_step(dev):
+    """Under the bf16 matmul precision a decode and a stage-1 step of the
+    tiny HNeRV launch only the bf16 instantiations on the tail and the
+    fused prefix; the frames come back fp32, finite, near the fp32 decode's
+    (bf16 operands through five layers: 2e-2 on frames in [0, 1])."""
+    from neuroquant_tpu_torch.metrics import loss_fn
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.ops import precision
+
+    model = build_model("hnerv", TINY_HNERV, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.rand((2, 80, 160, 3), generator=g, device=dev)
+    with torch.no_grad():
+        ref = model(frames)
+        with precision.matmul_precision("bfloat16"):
+            tf.reset_launch_counts()
+            got = model(frames)
+            torch.cuda.synchronize()
+            counts = dict(tf.KERNEL_LAUNCHES)
+    n_layers = len(model.blocks) - model.pack_start + 1
+    assert counts == _counts(tail_conv_cf_bf16=n_layers + 1, pack_cf_bf16=2,
+                             unpack_frames_bf16=1)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 2e-2
+    with precision.matmul_precision("bfloat16"):
+        tf.reset_launch_counts()
+        loss = loss_fn(model(frames), frames, "l2")
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = dict(tf.KERNEL_LAUNCHES)
+    n = n_layers + 1
+    assert counts == _counts(tail_conv_cf_bf16=2 * n, tail_conv_dw_cf_bf16=n,
+                             pack_cf_bf16=2, unpack_cf_bf16=2,
+                             unpack_frames_bf16=1)
+    assert all(p.grad is None or (p.grad.dtype == torch.float32
+                                  and bool(torch.isfinite(p.grad).all()))
+               for p in model.parameters())

@@ -386,15 +386,15 @@ def test_launch_parameter_blocks():
     p, f = plan("bunny")
     shape, arr, addr = tf._pack_cf_launch(2, p.h, p.w, p.pad, p.tm, 53)
     assert shape == (2, 56, p.mp)
-    assert list(arr) == [2, 160, 320, 53, 56, 2, p.mp, 128]
+    assert list(arr) == [2, 160, 320, 53, 56, 2, p.mp, 128, 0, 0]
     assert tf._pack_cf_launch(2, p.h, p.w, p.pad, p.tm, 53)[2] == addr
     shape, arr, _ = tf._unpack_cf_launch(2, p.h, p.w, 53, 56, p.pad, p.mp)
     assert shape == (2, 160, 320, 53)
-    assert list(arr) == [2, 160, 320, 53, 56, 2, p.mp, 128]
+    assert list(arr) == [2, 160, 320, 53, 56, 2, p.mp, 128, 0, 0]
     mp, shape, arr, _, offset = tf._unpack_frames_launch(
         1, 48, p.h, p.w, p.pad, p.tm, f, 48, "tanh")
     assert (mp, shape, offset) == (p.mp, (1, 640, 1280, 3), 0.0)
-    assert list(arr) == [1, 48, p.mp, 160, 320, 2, 4, 3, 1, 108, 4]
+    assert list(arr) == [1, 48, p.mp, 160, 320, 2, 4, 3, 1, 108, 4, 0, 0]
     assert tf._unpack_frames_launch(1, 48, p.h, p.w, p.pad, p.tm, f, 48,
                                     "0.25")[4] == 0.25
     with pytest.raises(ValueError, match="do not unpack"):

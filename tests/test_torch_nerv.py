@@ -162,8 +162,8 @@ class TestDecode:
                 outs.append(tm(idx).numpy())
             if not extra:
                 assert tm.pack_start == 2
-                assert set(tm._packed) == {("prefix", 5, 10),
-                                           ("tail", 20, 40)}
+                assert set(tm._packed) == {("prefix", 5, 10, torch.float32),
+                                           ("tail", 20, 40, torch.float32)}
         for other in outs[1:]:
             np.testing.assert_allclose(outs[0], other, atol=3e-5, rtol=0)
 

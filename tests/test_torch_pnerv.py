@@ -150,7 +150,7 @@ class TestDecode:
         with torch.no_grad():
             got = tm(torch.from_numpy(s["frames"])).numpy()
             if path == "kernel":
-                assert set(tm._packed) == {("tail", 40, 80)}
+                assert set(tm._packed) == {("tail", 40, 80, torch.float32)}
         assert got.shape == want.shape == s["frames"].shape
         np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 

@@ -519,9 +519,14 @@ class TestCLI:
                 ["--config", "c.yaml", "--arch", "hnerv", "--device",
                  "cpu"] + flag).mesh_devices == 2
             return
-        with pytest.raises(NotImplementedError, match=item):
-            regress.main(["--config", "c.yaml", "--arch", "hnerv",
-                          "--device", "cpu"] + flag)
+        # item 16, ported: the flag parses (tests/test_torch_bf16_cli.py
+        # runs the CLI with it) and 'default' stays the default
+        assert regress.parse_args(
+            ["--config", "c.yaml", "--arch", "hnerv", "--device", "cpu"]
+            + flag).matmul_precision == "bfloat16"
+        assert regress.parse_args(
+            ["--config", "c.yaml", "--arch", "hnerv"]).matmul_precision \
+            == "default"
 
 
 def test_summarize_trace_groups_device_time(tmp_path):

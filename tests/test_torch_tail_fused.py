@@ -234,7 +234,8 @@ class TestWrappers:
         assert set(ttf.KERNEL_LAUNCHES) == {
             "tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
             "unpack_frames", "fq_uaq", "fq_ada", "fq_uaq_bwd",
-            "fq_ada_bwd"}
+            "fq_ada_bwd", "tail_conv_cf_bf16", "tail_conv_dw_cf_bf16",
+            "pack_cf_bf16", "unpack_cf_bf16", "unpack_frames_bf16"}
         assert not any(ttf.KERNEL_LAUNCHES.values())
 
     def test_other_devices_raise(self, small_case):
