@@ -3292,6 +3292,10 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
                    plain_ms=plain_ms, library_ms=lib_ms,
                    library_device_ms=_device_ms(lib), bound_ms=bound_ms,
                    bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        if flops:
+            # the conv kernels' useful rate against cuDNN's bf16 call's
+            rec.update(tflops=flops / ms / 1e9,
+                       library_tflops=flops / lib_ms / 1e9)
         records[kname].setdefault(key, []).append(rec)
 
         def f4(v):
@@ -3300,7 +3304,8 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
               f"{f4(rec['device_ms'])} on the device (plain {plain_ms:.4f}; "
               f"library {lib_ms:.4f}, {f4(rec['library_device_ms'])} on the "
               f"device; bound {bound_ms:.4f} by {by}"
-              + (f"; {flops / ms / 1e9:.1f} TFLOP/s" if flops else "") + ")")
+              + (f"; {rec['tflops']:.1f} TFLOP/s, cuDNN's bf16 "
+                 f"{rec['library_tflops']:.1f}" if flops else "") + ")")
 
     def cf(p, c, b):
         return _cf_input(torch, tf, p, c, gen, b).to(bf)
@@ -4112,6 +4117,13 @@ def main() -> int:
             **{k: v for k, v in brec[name].items()
                if k not in ("per_launch", "max_abs_err", "checks")},
             "per_launch": per})
+        if name == "tail_conv_cf":
+            # the forward and dx launches of one calibration step (batch 2)
+            cal = brec[name]["calibration_per_launch"]
+            kernels[-1].update(
+                per_step_ms=sum(p["ms"] for p in cal),
+                per_step_library_ms=sum(p["library_ms"] for p in cal),
+                per_step_bound_ms=sum(p["bound_ms"] for p in cal))
     for k in kernels:
         assert k["launches"] > 0, k["name"]
     for k in ("tail_conv_cf", "pack_cf", "unpack_frames"):

@@ -1,6 +1,6 @@
-// Tensor-core products and asynchronous copies, shared by tail_conv_cf.cu
-// and tail_conv_dw_cf.cu: the fp32 kernels' product at fp32 accuracy
-// (3xTF32), and the bf16 kernels' product (bf16 operands, fp32 sums).
+// Tensor-core products and asynchronous copies of the fp32 conv kernels,
+// shared by tail_conv_cf.cu and tail_conv_dw_cf.cu: the product at fp32
+// accuracy (3xTF32) on mma.sync, and cp.async.
 //
 // A TF32 operand keeps 10 mantissa bits, so one TF32 product alone is ~1e-3
 // accurate. Each fp32 operand v is split into big = v with its low 13
@@ -29,17 +29,20 @@
 //   B (8x8, col):  b0 (k=t, n=g)  b1 (k=t+4, n=g)
 //   C (16x8):      c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
 //
-// The bf16 kernels multiply with mma.m16n8k16.bf16 (fp32 accumulator): one
-// product per product, bf16 operands rounded to nearest even by whoever
-// made them (tensor.to(torch.bfloat16) or the kernels' own epilogues).
-// The products of a stage are chained in the tensor core from a zeroed
-// fragment and each stage's fragment is added to the running sum by the
-// fp32 adders, as above. Fragments (registers of two bf16, the lower k in
-// the low half):
-//   A (16x16, row): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
-//                   a3 (g+8, 2t+8..)
-//   B (16x8, col):  b0 (k=2t..2t+1, n=g)  b1 (k=2t+8..2t+9, n=g)
-//   C (16x8):       as m16n8k8's
+// The bf16 kernels multiply with wgmma from shared memory (nq_tma.cuh),
+// bf16 operands rounded to nearest even by whoever made them
+// (tensor.to(torch.bfloat16) or the kernels' own epilogues), fp32 sums.
+// The dW kernel promotes as above: each stage's four k16 products chain in
+// the tensor core from zero (scale-d 0) and the stage's fragment is added
+// to the running sum by the fp32 adders (one FADD per sum a stage: a
+// stage of 64 positions, ~10^3 stages a dW, gated at 1e-5 of the largest
+// value), at the cost of a second set of sum registers and of waiting for
+// each stage's products before the next stage's start. The forward and dx
+// keep the whole K axis in the tensor core's accumulator: their outputs
+// round to bf16 (2^-8), which the truncation over at most 334 k16
+// products of one split (HNeRV Bunny-3M's L1 dx) leaves far behind
+// (phase 19 of chip_smoke.py holds every output within one bf16 unit of
+// the plain version's).
 #pragma once
 
 #include <cstdint>
@@ -101,40 +104,6 @@ __device__ __forceinline__ void nq_mma_3xtf32(float (&acc)[4],
 #pragma unroll
   for (int i = 0; i < 4; ++i) acc[i] += step[i];
 #endif
-}
-
-// d = a * b, bf16 operands (the accumulator operand is zero)
-__device__ __forceinline__ void nq_mma_bf16_zero(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-// d += a * b, bf16 operands
-__device__ __forceinline__ void nq_mma_bf16(float (&d)[4],
-                                            const uint32_t (&a)[4],
-                                            const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[q]
-// is matrix q's fragment, the thread holding (row 2t, col g) and (row
-// 2t+1, col g) of it.
-__device__ __forceinline__ void nq_ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                     uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t nq_smem_addr(const void* p) {

@@ -65,7 +65,8 @@ union-sparse K axis of a layer packed with f >= 2 (``_union_blocks``): it
 skips the kernel's structurally zero blocks, 4x fewer MACs at the HNeRV
 Bunny head, in the forward, dx and dW alike. The kernels read the K axis as a list of
 steps of 4 rows, each one box of x: consecutive channels at one flat shift
-(``_k_steps``).
+(``_k_steps``); the bf16 instantiations copy runs of steps as one TMA box
+(column 3 of their lists, ``_box_plan``).
 
 One deliberate difference from ``_tail_fwd_impl``: under a gradient a layer
 followed by a GELU emits the pair (z, gelu(z)) and the next layer, and its
@@ -633,13 +634,68 @@ def _conv_steps_on(blocks, cin: int, taps: int, device: str):
 
 
 @lru_cache(maxsize=64)
-def _dw_steps_on(blocks, cin: int, taps: int, device: str):
+def _dw_steps(blocks, cin: int, taps: int):
     """The dW kernel's list: the K steps plus one step whose first row reads
     ones (channel -2), so that its dW row is db; and the K rows' weight
     rows."""
     steps, wrow = _k_steps(blocks, cin, taps)
     steps = np.concatenate([steps, np.asarray([[0, -2, 1, 0]], np.int32)])
-    return (torch.as_tensor(steps, device=device),
+    return steps, wrow
+
+
+@lru_cache(maxsize=64)
+def _dw_steps_on(blocks, cin: int, taps: int, device: str):
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _dw_steps(blocks, cin, taps))
+
+
+BOX_STEPS = 8               # a bf16 kernel's TMA box stays in a window of
+                            # 8 steps: a forward stage, a quarter dW tile
+BOX_ROWS = (4, 8, 16, 32)   # the box heights they hold a tensor map for
+
+
+def _box_plan(steps):
+    """The step list with column 3 set to the bf16 kernels' copies: the
+    rows of the TMA box that starts at each step (4, 8, 16 or 32), 0 where
+    an earlier step's box covers it. A box covers a run of steps at one
+    flat shift over consecutive channels (each full but the last) inside
+    one window of BOX_STEPS steps, in boxes of 8, 4, 2 and 1 steps; its
+    rows past the last step's valid ones read the next channels (or zero
+    past cin), as a lone step's do. The db step (channel -2) has none."""
+    out = np.array(steps, np.int32)
+    out[:, 3] = 0
+    n, j = len(out), 0
+    while j < n:
+        if out[j, 1] < 0:
+            j += 1
+            continue
+        end = min(n, (j // BOX_STEPS + 1) * BOX_STEPS)
+        k = j + 1
+        while (k < end and out[k, 1] >= 0 and out[k, 0] == out[j, 0]
+               and out[k, 1] == out[k - 1, 1] + K_STEP
+               and out[k - 1, 2] == K_STEP):
+            k += 1
+        while j < k:
+            h = 1 << ((k - j).bit_length() - 1)
+            out[j, 3] = K_STEP * h
+            j += h
+    return out
+
+
+@lru_cache(maxsize=64)
+def _conv_steps_bf16_on(blocks, cin: int, taps: int, device: str):
+    """The bf16 conv kernel's list: :func:`_conv_steps` with its box
+    plan."""
+    return torch.as_tensor(_box_plan(_conv_steps(blocks, cin, taps)[0]),
+                           device=device)
+
+
+@lru_cache(maxsize=64)
+def _dw_steps_bf16_on(blocks, cin: int, taps: int, device: str):
+    """The bf16 dW kernel's list, :func:`_dw_steps` with its box plan, and
+    the K rows' weight rows."""
+    steps, wrow = _dw_steps(blocks, cin, taps)
+    return (torch.as_tensor(_box_plan(steps), device=device),
             torch.as_tensor(wrow, device=device))
 
 
@@ -781,13 +837,15 @@ def _conv_tile_m(cout: int, ktiles: int) -> int:
     return 64 if ktiles <= 8 else _tile_m(cout)
 
 
-def _fill_split(tiles: int, work: int, overhead: int, most: int) -> int:
+def _fill_split(tiles: int, work: int, overhead: int, most: int,
+                slots: int = _SM_SLOTS) -> int:
     """Into how many parts to cut each tile's `work` (in stages) so that
-    `tiles * parts` blocks fill the card: the count that minimises waves x
-    (stages per part + overhead), the smallest on a tie."""
+    `tiles * parts` blocks fill the card's `slots` (blocks in flight): the
+    count that minimises waves x (stages per part + overhead), the smallest
+    on a tie."""
     best, best_cost = 1, None
     for s in range(1, max(1, most) + 1):
-        cost = -(-tiles * s // _SM_SLOTS) * (-(-work // s) + overhead)
+        cost = -(-tiles * s // slots) * (-(-work // s) + overhead)
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
@@ -803,6 +861,106 @@ def _conv_split(cout: int, mp: int, batch: int, ksteps: int) -> int:
     if tiles >= _SM_SLOTS:
         return 1
     return _fill_split(tiles, ktiles, 4, min(16, ktiles // 8))
+
+
+# --------------------------------------------------------------------------
+# Launch geometry of the bf16 conv kernels (TMA ring, wgmma). Their
+# launchers apply the same tile rules (nq_tail_conv_cf_bf16_tile and
+# nq_tail_conv_dw_cf_bf16_tile report them); the wrappers pass the splits.
+# tests/test_torch_bf16_tiles.py holds them at every main-path shape.
+# --------------------------------------------------------------------------
+H100_SMS = 132
+BF16_ROW = 64               # bf16 values in one 128-byte swizzled line
+BF16_SEG = 144              # the forward's staged x positions per 128
+BF16_DW_TILE_K = 128        # dW K rows per block: two warpgroups of 64
+BF16_DW_STEP = 64           # dW positions per stage: one swizzled line
+BF16_DW_SEG = 80            # its staged x positions per 64
+BF16_DW_RING = 184320       # bytes the dW kernel gives its ring
+SMEM_PER_BLOCK = 232448     # dynamic shared memory a block may use
+SMEM_PER_SM = 233472        # shared memory of an SM (1 KB per block kept)
+
+
+def conv_bf16_tile(cout: int) -> Tuple[int, int]:
+    """(output channels, positions) per block of the bf16 conv kernel:
+    128 x 256 (one block on each SM), unless 64 x 256 (two blocks on each
+    SM) pads cout to fewer channels (176 -> 192, not 256; cout <= 64).
+    Each of its two warpgroups multiplies 128 positions of every
+    64-channel slab."""
+    if _cdiv(cout, 128) * 128 <= _cdiv(cout, 64) * 64:
+        return 128, 256
+    return 64, 256
+
+
+@lru_cache(maxsize=256)
+def conv_bf16_geometry(cout: int, mp: int, batch: int, nsteps: int) -> dict:
+    """The bf16 conv kernel's launch. A ring of `stages` stages of K_STAGE
+    rows: per 128 positions the x rows staged by TMA as BF16_SEG
+    positions from the shift rounded down to 8 (a box's start must lie on
+    16 bytes), and the weight slab of each 64 channels (4 KB, swizzled);
+    per warpgroup two buffers of its realigned x rows; the epilogue's fp32
+    staging reuses the ring; 1 KB for alignment, the barriers. The K
+    splits: 1 unless the launch has fewer tiles than the card holds blocks
+    (the prefix's dx pass), as :func:`_conv_split` counts."""
+    bm, bn = conv_bf16_tile(cout)
+    mt, pw = bm // BF16_ROW, bn // 2
+    blocks = 1 if mt == 2 else 2
+    stage = (bn // 128) * K_STAGE * BF16_SEG * 2 + mt * K_STAGE * 128
+    stages = 6 if mt == 2 else 3
+    ops = 2 * 2 * K_STAGE * 128 * (pw // BF16_ROW)
+    epi = 2 * BF16_ROW * mt * (pw + 8) * 4
+    ktiles = nsteps * K_STEP // K_STAGE
+    tiles = _cdiv(mp, bn) * _cdiv(cout, bm) * batch
+    slots = blocks * H100_SMS
+    splits = 1 if tiles >= slots else \
+        _fill_split(tiles, ktiles, 4, min(16, ktiles // 8), slots=slots)
+    return dict(bm=bm, bn=bn, stages=stages, stage_bytes=stage,
+                smem=1024 + max(stages * stage + ops, epi) + 16 * stages,
+                blocks_per_sm=blocks, ktiles=ktiles, splits=splits,
+                grid=(_cdiv(mp, bn), _cdiv(cout, bm), batch * splits))
+
+
+def dw_bf16_tile(cout: int) -> int:
+    """Output channels per block of the bf16 dW kernel: of 128, 96 and 64
+    the one that pads cout least, the widest on a tie."""
+    best = 128
+    for bn in (96, 64):
+        if _cdiv(cout, bn) * bn < _cdiv(cout, best) * best:
+            best = bn
+    return best
+
+
+@lru_cache(maxsize=256)
+def dw_bf16_geometry(nsteps: int, cout: int, batch: int, mp: int) -> dict:
+    """The bf16 dW kernel's launch for a list of `nsteps` steps (the db
+    step included): blocks of 128 K rows x :func:`dw_bf16_tile` channels,
+    one on each SM; stages of 64 positions (the x rows staged as
+    BF16_DW_SEG positions from the shift rounded down to 8, and 128
+    bytes a channel of g, swizzled), as many as fit BF16_DW_RING (at most
+    8), beside two buffers of realigned x rows per warpgroup; the
+    positions cut into `splits` chunks of `chunk` (a multiple of 64) so
+    that the grid fills the card, as :func:`_dw_split` does."""
+    bn = dw_bf16_tile(cout)
+    stage = BF16_DW_TILE_K * BF16_DW_SEG * 2 + bn * 128
+    stages = min(8, BF16_DW_RING // stage)
+    ops = 2 * 2 * BF16_ROW * 128
+    positions = batch * mp
+    ktiles = _cdiv(nsteps * K_STEP, BF16_DW_TILE_K)
+    tiles = ktiles * _cdiv(cout, bn)
+    splits = _fill_split(tiles, _cdiv(positions, BF16_DW_STEP), 8,
+                         positions // 1024, slots=H100_SMS)
+    chunk = _cdiv(_cdiv(positions, splits), BF16_DW_STEP) * BF16_DW_STEP
+    splits = _cdiv(positions, chunk)
+    return dict(bn=bn, stages=stages, stage_bytes=stage,
+                smem=1024 + stages * stage + ops + 16 * stages,
+                blocks_per_sm=1, ktiles=ktiles, splits=splits, chunk=chunk,
+                grid=(ktiles, _cdiv(cout, bn), splits))
+
+
+def _aligned16(t, name: str) -> None:
+    """Raise unless t's data starts on a 16-byte boundary (TMA's rule for
+    the bf16 kernels' tensor maps, and their 16-byte stores)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
 
 def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
@@ -835,12 +993,23 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
         raise ValueError(f"tail_conv_cf: Mp={plan.mp} is not a multiple "
                          f"of {CONV_TILE_N}")
     dev = str(x.device)
-    steps, _ = _conv_steps_on(blocks, layer.cin, layer.taps, dev)
-    nsteps = int(steps.shape[0])
     if w_op is None:
         w_op = conv_w_operand(kk, plan, layer)
+    if dt is torch.float32:
+        steps, _ = _conv_steps_on(blocks, layer.cin, layer.taps, dev)
+        nsteps = int(steps.shape[0])
+        splits = _conv_split(layer.cout, plan.mp, b, nsteps)
+    else:
+        steps = _conv_steps_bf16_on(blocks, layer.cin, layer.taps, dev)
+        nsteps = int(steps.shape[0])
+        splits = conv_bf16_geometry(layer.cout, plan.mp, b, nsteps)["splits"]
+        if layer.cout % 8:
+            raise ValueError(f"tail_conv_cf: bf16 cout={layer.cout} is not "
+                             "a multiple of 8")
+        for t, name in ((x, "x"), (w_op, "w_op"), (out_mul, "out_mul")):
+            if t is not None:
+                _aligned16(t, f"tail_conv_cf {name}")
     _check(w_op, "tail_conv_cf w_op", (nsteps * K_STEP, layer.cout), dt)
-    splits = _conv_split(layer.cout, plan.mp, b, nsteps)
     shape = (b, layer.cout, plan.mp)
     out_z = torch.empty(shape, dtype=dt, device=x.device) \
         if "z" in emit else None
@@ -924,10 +1093,23 @@ def conv_cf_dw(x, g, plan: TailPlan, layer: TailLayer,
     if plan.mp % DW_STEP:
         raise ValueError(f"tail_conv_dw_cf: Mp={plan.mp} is not a multiple "
                          f"of {DW_STEP}")
-    steps, wrow = _dw_steps_on(blocks, layer.cin, layer.taps, str(x.device))
-    nsteps = int(steps.shape[0])
+    dev = str(x.device)
+    if dt is torch.float32:
+        steps, wrow = _dw_steps_on(blocks, layer.cin, layer.taps, dev)
+        nsteps = int(steps.shape[0])
+        splits, chunk = _dw_split(nsteps * K_STEP, layer.cout, b * plan.mp)
+    else:
+        steps, wrow = _dw_steps_bf16_on(blocks, layer.cin, layer.taps, dev)
+        nsteps = int(steps.shape[0])
+        if plan.mp % BF16_DW_STEP or layer.cout % 8:
+            raise ValueError(f"tail_conv_dw_cf: bf16 needs Mp={plan.mp} a "
+                             f"multiple of {BF16_DW_STEP} and cout="
+                             f"{layer.cout} of 8")
+        _aligned16(x, "tail_conv_dw_cf x")
+        _aligned16(g, "tail_conv_dw_cf g")
+        geo = dw_bf16_geometry(nsteps, layer.cout, b, plan.mp)
+        splits, chunk = geo["splits"], geo["chunk"]
     nk = nsteps * K_STEP
-    splits, chunk = _dw_split(nk, layer.cout, b * plan.mp)
     # per-split partial sums, added in a fixed order by the second pass:
     # the result is the same from run to run
     part = torch.empty((splits, nk, layer.cout), dtype=torch.float32,

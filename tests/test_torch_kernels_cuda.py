@@ -388,6 +388,60 @@ def test_pnerv_bunny_conv_passes(dev, li, batch):
             tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (4, 1)
 
 
+def _bunny_passes_bf16(dev, plan, layer, seed, emits):
+    """A Bunny-3M conv's forward (each of `emits`), dx pass (GELU' epilogue
+    where its input went through GELU) and dW pass at batch 1 and 2 on the
+    bf16 instantiations against their plain versions; the launches."""
+    for batch in (1, 2):
+        gen = torch.Generator(device=dev).manual_seed(seed + batch)
+        mask = tf.border_mask(plan, device=dev)
+        x = (torch.randn((batch, layer.cin, plan.mp), generator=gen,
+                         device=dev) * mask).to(BF16)
+        g = (torch.randn((batch, layer.cout, plan.mp), generator=gen,
+                         device=dev) * mask).to(BF16)
+        kk = (torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                          generator=gen, device=dev) * 0.05).to(BF16)
+        bias = (torch.randn((layer.cout, 1), generator=gen, device=dev)
+                * 0.1).to(BF16)
+        blocks = tf._k_blocks(plan, layer)
+        tf.reset_launch_counts()
+        for emit in emits:
+            _bf16_close(tf.conv_cf(x, kk, bias, plan, layer, emit),
+                        tf.conv_cf_ref(x, kk, bias, plan, layer, emit,
+                                       blocks=blocks))
+        lt = layer.transposed()
+        kt = tf._kk_transpose(kk).contiguous()
+        om = x if layer.gelu_in else None
+        _bf16_close(tf.conv_cf(g, kt, None, plan, lt, out_mul=om),
+                    tf.conv_cf_ref(g, kt, None, plan, lt,
+                                   blocks=tf._k_blocks(plan, lt),
+                                   out_mul=om))
+        for a, b in zip(tf.conv_cf_dw(x, g, plan, layer),
+                        tf.conv_cf_dw_ref(x, g, plan, layer, False, blocks)):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        torch.cuda.synchronize()
+        assert (tf.KERNEL_LAUNCHES["tail_conv_cf_bf16"],
+                tf.KERNEL_LAUNCHES["tail_conv_dw_cf_bf16"],
+                tf.KERNEL_LAUNCHES["tail_conv_cf"]) == (len(emits) + 1, 1, 0)
+
+
+@pytest.mark.parametrize("li", [0, 1, 2, 3],
+                         ids=["prefix", "L3", "L4", "head"])
+def test_nerv_bunny_conv_passes_bf16(dev, li):
+    """test_nerv_bunny_conv_passes on the bf16 instantiations (each batch
+    1 and 2)."""
+    plan, layer = _nerv_bunny_layers()[li]
+    _bunny_passes_bf16(dev, plan, layer, 170 + li, ("z", "zy"))
+
+
+@pytest.mark.parametrize("li", [0, 1], ids=["block", "head"])
+def test_pnerv_bunny_conv_passes_bf16(dev, li):
+    """test_pnerv_bunny_conv_passes on the bf16 instantiations: the block
+    104 -> 400 at 320x640 and the head 400 -> 16 (batch 1 and 2)."""
+    plan, layer = _pnerv_bunny_layers()[li]
+    _bunny_passes_bf16(dev, plan, layer, 290 + li, ("z", "y", "zy"))
+
+
 def test_nerv_training_step_runs_on_the_kernels(dev, monkeypatch):
     """One stage-1 step of the tiny NeRV at batch 1 on the card: the
     position encoding's table, layer 0's (1, 2) shuffle, the fused prefix
@@ -1089,15 +1143,11 @@ def test_tail_conv_cf_bf16(dev, small, li, emit, act_in):
                                               layer, "y", act_in))
 
 
-@pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_tail_conv_kernels_launch_shapes_bf16(dev, shape):
-    """The launch shapes of test_tail_conv_kernels_launch_shapes on the
-    bf16 instantiations: forward ('zy'), the dx pass (split K at
-    'split_k') and dW twice, the same bits."""
-    h, w, blocks, head, li = SHAPES[shape]
-    plan, _ = tf.plan_geometry(h, w, blocks, head, tm=128)
-    layer = plan.layers[li]
-    gen = torch.Generator(device=dev).manual_seed(len(shape))
+def _bf16_launch_shape(dev, plan, layer, seed):
+    """Forward ('zy'), the dx pass with its GELU' epilogue and dW twice (the
+    same bits) at batch 2 on the bf16 instantiations, x without a zero
+    border (a read across the batch boundary would show)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     kk = (torch.randn((layer.side, layer.side, layer.cin, layer.cout),
                       generator=gen, device=dev) * 0.2).to(BF16)
     bias = torch.randn((layer.cout, 1), generator=gen, device=dev).to(BF16)
@@ -1120,6 +1170,111 @@ def test_tail_conv_kernels_launch_shapes_bf16(dev, shape):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
     again = tf.conv_cf_dw(x, g, plan, layer)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_tail_conv_kernels_launch_shapes_bf16(dev, shape):
+    """The launch shapes of test_tail_conv_kernels_launch_shapes on the
+    bf16 instantiations: forward ('zy'), the dx pass (split K at
+    'split_k') and dW twice, the same bits."""
+    h, w, blocks, head, li = SHAPES[shape]
+    plan, _ = tf.plan_geometry(h, w, blocks, head, tm=128)
+    _bf16_launch_shape(dev, plan, plan.layers[li], len(shape))
+
+
+# (h, w, blocks, head, layer): the bf16 kernels' edges. Their tiles are
+# 128 channels x 128 positions or 64 x 256 (tf.conv_bf16_tile), their dW
+# tiles 64, 96 or 128 channels x 128 K rows (tf.dw_bf16_tile); x rows come
+# by TMA boxes of 4-32 rows (a run of steps, tf._box_plan) from the shift
+# rounded down to 8 positions and are realigned on the chip.
+BF16_EDGES = {
+    # cout 200: two 128-channel tiles, the second 72 channels short; its
+    # dx (cout 16) a 64 x 256 tile past Mp; dW 200 in 4 x 64 (56 short)
+    "cout200": (16, 24, [(3, 16, 200, 2)], (3, 50, 3), 0),
+    # cout 136: three 64-channel tiles (64 x 256), the last 8 channels;
+    # dW 136 in 2 x 96
+    "cout136_wide": (16, 24, [(3, 32, 136, 2)], (3, 34, 3), 0),
+    # Mp = (h + 2P)(w + 2P) exactly: no flat padding, so the shifted boxes
+    # start before 0 and end past Mp at the batch boundary
+    "mp_exact": (14, 30, [(3, 6, 20, 2), (3, 5, 12, 2)], (3, 3, 3), 1),
+    "mp_exact_f4": (14, 30, [(3, 6, 20, 2), (3, 5, 12, 2)], (3, 3, 3), 2),
+    "mp_exact_wide": (14, 30, [(3, 32, 136, 2)], (3, 34, 3), 0),
+    # a head packed with f=4 over 37-channel groups: runs of 37 (a box of
+    # 8 steps, then 1, the last step one valid row); its dx runs of 3
+    "runs37_f4": (16, 24, [(3, 8, 16, 2), (3, 4, 148, 2)], (3, 37, 3), 2),
+    # K = 2304 at 4 position tiles: the forward and dx split K (9 or more
+    # splits), the dW splits positions
+    "split_k": (6, 10, [(3, 256, 64, 2)], (3, 16, 3), 0),
+    # long runs: 64 channels at each of 25 shifts, boxes of 32 rows
+    "runs64_k5": (12, 20, [(5, 64, 96, 1)], (3, 96, 3), 0),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BF16_EDGES))
+def test_bf16_conv_edges(dev, shape):
+    h, w, blocks, head, li = BF16_EDGES[shape]
+    plan, _ = tf.plan_geometry(h, w, blocks, head, tm=128)
+    layer = plan.layers[li]
+    if shape.startswith("mp_exact"):
+        assert plan.mp == plan.hp * plan.wp
+    if shape == "split_k":
+        steps = tf._conv_steps(tf._k_blocks(plan, layer), layer.cin,
+                               layer.taps)[0]
+        assert tf.conv_bf16_geometry(layer.cout, plan.mp, 2,
+                                     len(steps))["splits"] > 1
+    tf.reset_launch_counts()
+    _bf16_launch_shape(dev, plan, layer, 100 + len(shape))
+    torch.cuda.synchronize()
+    assert (tf.KERNEL_LAUNCHES["tail_conv_cf_bf16"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf_bf16"]) == (2, 2)
+
+
+def test_bf16_conv_launch_geometry_is_python_s(dev):
+    """The launchers' tiles, stages and shared memory are the ones
+    tf.conv_bf16_geometry and tf.dw_bf16_geometry compute."""
+    import ctypes
+
+    from neuroquant_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib()
+    for cout in (8, 16, 48, 56, 64, 72, 136, 176, 200, 384, 400, 592, 848,
+                 1152, 1408):
+        out = (ctypes.c_int * 4)()
+        assert lib.nq_tail_conv_cf_bf16_tile(cout, ctypes.addressof(out)) == 0
+        geo = tf.conv_bf16_geometry(cout, 4096, 1, 64)
+        assert list(out) == [geo["bm"], geo["bn"], geo["stages"],
+                             geo["smem"]], cout
+        out3 = (ctypes.c_int * 3)()
+        assert lib.nq_tail_conv_dw_cf_bf16_tile(
+            cout, ctypes.addressof(out3)) == 0
+        dgeo = tf.dw_bf16_geometry(64, cout, 1, 4096)
+        assert list(out3) == [dgeo["bn"], dgeo["stages"], dgeo["smem"]], cout
+
+
+def test_bf16_conv_refuses_what_tma_does_not_take(dev, small):
+    """A bf16 tensor whose data does not start on 16 bytes, or a layer of
+    a cout that is not a multiple of 8, raises before any launch."""
+    plan, kks, bms = _small_bf16(small)
+    layer = plan.layers[0]
+    x = _cf(plan, layer.cin, dev, 3).to(BF16)
+    buf = torch.empty(x.numel() + 1, dtype=BF16, device=dev)
+    off = buf[1:].view(x.shape)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    tf.reset_launch_counts()
+    with pytest.raises(ValueError):
+        tf.conv_cf(off, kks[0], bms[0], plan, layer)
+    g = _cf(plan, layer.cout, dev, 4).to(BF16)
+    with pytest.raises(ValueError):
+        tf.conv_cf_dw(off, g, plan, layer)
+    odd = tf.TailLayer(cin=layer.cin, cout=20, side=layer.side,
+                       off=layer.off, gelu_in=False)
+    kk = torch.zeros((odd.side, odd.side, odd.cin, 20), dtype=BF16,
+                     device=dev)
+    with pytest.raises(ValueError):
+        tf.conv_cf(x, kk, None, plan, odd)
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf_bf16"] == 0
+    assert tf.KERNEL_LAUNCHES["tail_conv_dw_cf_bf16"] == 0
 
 
 @pytest.mark.parametrize("li", [0, 1, 2], ids=["f1", "f2", "head_f4"])
