@@ -158,7 +158,10 @@ Phases (any failure exits non-zero):
      and db 1e-5 of the
      largest), pack_cf from fp32 and from bf16, unpack_cf to bf16 and to
      fp32, unpack_frames to fp32 and bf16 frames and on the width-tiled
-     plan (bit for bit, one unit); each timed beside its plain version,
+     plan (bit for bit, one unit; pack_cf and unpack_frames also from
+     inputs 1, 3 and 7 elements off 16 bytes and at PNeRV's c = 100 entry
+     and sigmoid head; the layout kernels timed on the card by the event
+     method, hot and cold); each timed beside its plain version,
      its bound (bf16 FLOPs at 989 TFLOP/s or bf16 bytes) and cuDNN's or
      PyTorch's bf16 call; ``calibrate_network --compute_dtype bfloat16``
      with phase 9's settings (every step's launches phase 9's on the bf16
@@ -3231,15 +3234,21 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
     from fp32 (the bf16 matmul precision's entry) at batch 1 and from bf16
     (a bf16 calibration's) at batch 2, unpack_cf back to bf16 and to fp32
     at batch 2, unpack_frames to fp32 and to bf16 frames and on the
-    width-tiled plan. A conv's bf16 output within one bf16 unit of each
-    element beyond CONV_TOL of the largest (the fp32 sums' other order),
-    the share of elements that differ printed; dW and db within 1e-5 of
-    the largest (exact products, fp32 sums in another order); the layout
-    kernels bit for bit, unpack_frames' bf16 frames within one unit and
-    its fp32 frames 1e-6. Each timed (CUDA events and the profiler's
-    device time) beside its plain version, its bound (bf16 FLOPs at 989
+    width-tiled plan; pack_cf and unpack_frames also from inputs 1, 3 and
+    7 elements past a 16-byte boundary, and at PNeRV Bunny-3M's c = 100
+    entry and 16-row sigmoid head (outside the sums). A conv's bf16
+    output within one bf16 unit of each element beyond CONV_TOL of the
+    largest (the fp32 sums' other order), the share of elements that
+    differ printed; dW and db within 1e-5 of the largest (exact products,
+    fp32 sums in another order); the layout kernels bit for bit,
+    unpack_frames' bf16 frames within one unit and its fp32 frames 1e-6.
+    Each timed beside its plain version, its bound (bf16 FLOPs at 989
     TFLOP/s or bf16 bytes at 3.35 TB/s) and the cuDNN / PyTorch call of
-    the same function in bf16."""
+    the same function in bf16: CUDA events back to back and, for the
+    convs, the profiler's device time; for the layout kernels the card's
+    own time by the event method, hot and cold (``hot_cold`` of
+    ``neuroquant_tpu_torch.utils.profiling``; None where the host set the
+    pace, and then the kernels line's sum of that reading is None too)."""
     import torch.nn.functional as F
 
     bf = torch.bfloat16
@@ -3283,6 +3292,9 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
         records[kname]["max_abs_err"] = max(records[kname]["max_abs_err"],
                                             err)
 
+    def f4(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
     def record(kname, shape, fn, plain, lib, nbytes, flops, key="per_launch"):
         ms = _time_ms(fn, iters=10)
         plain_ms = _time_ms(plain, iters=3, warmup=1)
@@ -3297,9 +3309,6 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
             rec.update(tflops=flops / ms / 1e9,
                        library_tflops=flops / lib_ms / 1e9)
         records[kname].setdefault(key, []).append(rec)
-
-        def f4(v):
-            return "not measured" if v is None else f"{v:.4f}"
         print(f"  {kname} bf16 {shape}: {ms:.4f} ms back to back, "
               f"{f4(rec['device_ms'])} on the device (plain {plain_ms:.4f}; "
               f"library {lib_ms:.4f}, {f4(rec['library_device_ms'])} on the "
@@ -3309,6 +3318,58 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
 
     def cf(p, c, b):
         return _cf_input(torch, tf, p, c, gen, b).to(bf)
+
+    def seeded(shape, dtype):
+        """make(i): random values of `shape` and `dtype` from seed i"""
+        def make(i):
+            g = torch.Generator(device=dev).manual_seed(SEED + 1900 + i)
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        return make
+
+    def off_by(t, off):
+        """a copy of t that starts `off` elements past a 16-byte boundary"""
+        buf = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+        view = buf[off:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def layout(kname, shape, make, run, plain, lib_make, lib, library,
+               nbytes, lib_nbytes, key):
+        """A layout kernel's row: back-to-back ms (host-paced), the card's
+        own time hot and cold by the event method (None where the host set
+        the pace), for the wrapper and for the library call (named, with
+        its bytes); the plain version's ms; the bound by bytes."""
+        from neuroquant_tpu_torch.utils.profiling import hot_cold
+
+        x, xl = make(0), lib_make(0)
+        hot, cold = hot_cold(make, run, nbytes)
+        lhot, lcold = hot_cold(lib_make, lib, lib_nbytes)
+        bound_ms, by = _bf16_bound(nbytes, 0)
+        rec = dict(shape=shape, ms=_time_ms(lambda: run(x), iters=10),
+                   hot_ms=hot, cold_ms=cold,
+                   plain_ms=_time_ms(lambda: plain(x), iters=3, warmup=1),
+                   library=library,
+                   library_ms=_time_ms(lambda: lib(xl), iters=10),
+                   library_hot_ms=lhot, library_cold_ms=lcold,
+                   bound_ms=bound_ms, bound_by=by,
+                   mbytes=nbytes / 1e6, library_mbytes=lib_nbytes / 1e6)
+        records[kname].setdefault(key, []).append(rec)
+        print(f"  {kname} bf16 {shape}: {rec['ms']:.4f} ms back to back, "
+              f"on the card {f4(hot)} hot / {f4(cold)} cold (plain "
+              f"{rec['plain_ms']:.4f}; library {rec['library_ms']:.4f}, "
+              f"{f4(lhot)} / {f4(lcold)}, {library}, "
+              f"{lib_nbytes / 1e6:.2f} MB; bound {bound_ms:.4f} by {by}, "
+              f"{nbytes / 1e6:.2f} MB)")
+
+    # PNeRV Bunny-3M's post-fusion tail: its c = 100 entry, its 16-row
+    # sigmoid head at f = 2
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.models import tail_plan_for
+
+    pcfg = validate_config(get_config(os.path.join(REPO, PNERV_CONFIG)),
+                           "pnerv")
+    nplan, nf, nch = tail_plan_for("pnerv", pcfg)
+    nc = int(pcfg["kfc_h_w_c"][2])
 
     with torch.no_grad():
         # the decode's convs at batch 1, and a calibration step's at batch 2
@@ -3393,72 +3454,110 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
 
         # the entries: from fp32 at batch 1 (a decode under the bf16
         # precision), from bf16 at batch 2 (a bf16 calibration step), and
-        # unpack_cf's cotangents at batch 2 back to bf16 and to fp32
+        # unpack_cf's cotangents at batch 2 back to bf16 and to fp32; each
+        # also from inputs 1, 3 and 7 elements past a 16-byte boundary;
+        # PNeRV's c = 100 entry beside them, outside the sums
         for batch, src, key in ((1, torch.float32, "per_launch"),
                                 (CALIB_BATCH, bf, "calibration_per_launch")):
-            for name, p, c in entries:
-                x = torch.randn((batch, p.h, p.w, c), generator=gen,
-                                device=dev).to(src)
+            for name, p, c in entries + (("PNeRV entry", nplan, nc),):
+                shape = (batch, p.h, p.w, c)
+                make = seeded(shape, src)
+                x = make(0)
                 out = tf.pack_cf(x, p, bf)
                 assert out.dtype == bf
                 assert torch.equal(out, tf.pack_cf_ref(x, p, bf)), name
-                what = (f"{name} {tuple(x.shape)} {str(src)[6:]} -> "
+                for off in (1, 3, 7):
+                    xo = off_by(x, off)
+                    assert torch.equal(tf.pack_cf(xo, p, bf),
+                                       tf.pack_cf_ref(xo, p, bf)), (name, off)
+                what = (f"{name} {shape} {str(src)[6:]} -> "
                         f"{tuple(out.shape)} bfloat16")
-                print(f"  pack_cf bf16 {what}: bit for bit")
-                record("pack_cf", what, lambda: tf.pack_cf(x, p, bf),
-                       lambda: tf.pack_cf_ref(x, p, bf),
-                       lambda: x.permute(0, 3, 1, 2).to(
+                print(f"  pack_cf bf16 {what}: bit for bit, also 1, 3 and 7 "
+                      f"elements off 16 bytes")
+                layout("pack_cf", what, make, lambda x, p=p: tf.pack_cf(
+                           x, p, bf),
+                       lambda x, p=p: tf.pack_cf_ref(x, p, bf),
+                       seeded(shape, src),
+                       (lambda x: x.permute(0, 3, 1, 2).contiguous())
+                       if src is bf else
+                       lambda x: x.permute(0, 3, 1, 2).to(
                            bf, memory_format=torch.contiguous_format),
-                       x.numel() * x.element_size() + 2 * out.numel(), 0,
-                       key=key)
+                       "permute + cast, contiguous: no ring, no pad",
+                       x.numel() * x.element_size() + 2 * out.numel(),
+                       x.numel() * (x.element_size() + 2),
+                       "pnerv_per_launch" if name.startswith("PNeRV")
+                       else key)
         for dst in (bf, torch.float32):
             for name, p, c in entries:
-                g = torch.randn((CALIB_BATCH, tf._r8(c), p.mp), generator=gen,
-                                device=dev).to(bf)
+                make = seeded((CALIB_BATCH, tf._r8(c), p.mp), bf)
+                g = make(0)
                 out = tf.unpack_cf(g, p, c, dst)
                 assert out.dtype == dst
                 assert torch.equal(out, tf.unpack_cf_ref(g, p, c, dst)), name
-                zl = torch.randn((CALIB_BATCH, c, p.h, p.w), generator=gen,
-                                 device=dev).to(bf)
+                lshape = (CALIB_BATCH, c, p.h, p.w)
                 what = (f"{name} {tuple(g.shape)} bfloat16 -> "
                         f"{tuple(out.shape)} {str(dst)[6:]}")
                 print(f"  unpack_cf bf16 {what}: bit for bit")
-                record("unpack_cf", what, lambda: tf.unpack_cf(g, p, c, dst),
-                       lambda: tf.unpack_cf_ref(g, p, c, dst),
-                       (lambda: zl.permute(0, 2, 3, 1).contiguous())
+                layout("unpack_cf", what, make,
+                       lambda g, p=p, c=c, dst=dst: tf.unpack_cf(g, p, c, dst),
+                       lambda g, p=p, c=c, dst=dst: tf.unpack_cf_ref(
+                           g, p, c, dst),
+                       seeded(lshape, bf),
+                       (lambda x: x.permute(0, 2, 3, 1).contiguous())
                        if dst is bf else
-                       lambda: zl.permute(0, 2, 3, 1).to(
-                           dst, memory_format=torch.contiguous_format),
-                       2 * out.numel() + out.numel() * out.element_size(), 0,
-                       key="per_launch" if dst is bf
-                       else "fp32_out_per_launch")
+                       lambda x: x.permute(0, 2, 3, 1).to(
+                           torch.float32,
+                           memory_format=torch.contiguous_format),
+                       "permute (+ cast), contiguous: a dense input",
+                       2 * out.numel() + out.numel() * out.element_size(),
+                       2 * out.numel() + out.numel() * out.element_size(),
+                       "per_launch" if dst is bf else "fp32_out_per_launch")
 
         ob = _out_bias(cfg)
         wplan, wf = tf.plan_geometry(4, 480, [(3, 17, 224, 4)], (3, 14, 3))
-        for key, p, ff, cc, b, dst in (
-                ("per_launch", plan, f, ch, 1, torch.float32),
-                ("bf16_out_per_launch", plan, f, ch, 1, bf),
-                ("width_tiled", wplan, wf, 48, 2, torch.float32)):
-            z = torch.randn((b, p.layers[-1].cout, p.mp), generator=gen,
-                            device=dev).to(bf)
-            out = tf.unpack_frames(z, p, ff, cc, ob, dst)
-            ref = tf.unpack_frames_ref(z, p, ff, cc, ob, dst)
+        for key, p, ff, cc, b, dst, obias in (
+                ("per_launch", plan, f, ch, 1, torch.float32, ob),
+                ("bf16_out_per_launch", plan, f, ch, 1, bf, ob),
+                ("width_tiled", wplan, wf, 48, 2, torch.float32, "tanh"),
+                ("pnerv_per_launch", nplan, nf, nch, 1, torch.float32,
+                 "sigmoid"),
+                ("pnerv_per_launch", nplan, nf, nch, 1, bf, "sigmoid")):
+            make = seeded((b, p.layers[-1].cout, p.mp), bf)
+            z = make(0)
+            out = tf.unpack_frames(z, p, ff, cc, obias, dst)
+            ref = tf.unpack_frames_ref(z, p, ff, cc, obias, dst)
             assert out.dtype == ref.dtype == dst
             what = (f"{tuple(z.shape)} bfloat16 -> {tuple(out.shape)} "
-                    f"{str(dst)[6:]} out_bias={ob}")
+                    f"{str(dst)[6:]} out_bias={obias}")
             if dst is bf:
                 check_conv("unpack_frames", what, out, ref)
             else:
                 check_close("unpack_frames", what, out, ref,
                             1e-6 / max(float(ref.abs().max()), 1e-30))
-            zl = torch.randn((b, cc, p.h, p.w), generator=gen,
-                             device=dev).to(bf)
-            record("unpack_frames", what,
-                   lambda: tf.unpack_frames(z, p, ff, cc, ob, dst),
-                   lambda: tf.unpack_frames_ref(z, p, ff, cc, ob, dst),
-                   lambda: F.pixel_shuffle(zl, ff),
-                   2 * cc * p.h * p.w + out.numel() * out.element_size(), 0,
-                   key=key)
+            if key in ("per_launch", "bf16_out_per_launch"):
+                for off in (1, 3, 7):
+                    zo = off_by(z, off)
+                    got = tf.unpack_frames(zo, p, ff, cc, obias, dst)
+                    want = tf.unpack_frames_ref(zo, p, ff, cc, obias, dst)
+                    if dst is bf:
+                        check_conv("unpack_frames", f"{what} z {off} "
+                                   f"elements off 16 bytes", got, want)
+                    else:
+                        check_close("unpack_frames", f"{what} z {off} "
+                                    f"elements off 16 bytes", got, want,
+                                    1e-6 / max(float(want.abs().max()),
+                                               1e-30))
+            layout("unpack_frames", what, make,
+                   lambda z, p=p, ff=ff, cc=cc, obias=obias, dst=dst:
+                       tf.unpack_frames(z, p, ff, cc, obias, dst),
+                   lambda z, p=p, ff=ff, cc=cc, obias=obias, dst=dst:
+                       tf.unpack_frames_ref(z, p, ff, cc, obias, dst),
+                   seeded((b, cc, p.h, p.w), bf),
+                   lambda x, ff=ff: F.pixel_shuffle(x, ff),
+                   "pixel_shuffle of a dense bf16 NCHW input: no border "
+                   "slice, no out_img, bf16 NCHW out",
+                   2 * cc * b * p.h * p.w + out.numel() * out.element_size(),
+                   4 * cc * b * p.h * p.w, key)
     return records
 
 
@@ -4106,13 +4205,20 @@ def main() -> int:
             "regress_launches": bf_runs[1][name + "_bf16"],
             "max_abs_err": brec[name]["max_abs_err"],
             "ms": sum(p["ms"] for p in per),
-            "device_ms": sum(p["device_ms"] or 0.0 for p in per),
             "plain_ms": sum(p["plain_ms"] for p in per),
             "bound_ms": sum(p["bound_ms"] for p in per),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": sum(p["library_ms"] for p in per),
-            "library_device_ms": sum(p["library_device_ms"] or 0.0
-                                     for p in per),
+            # the convs: the profiler's device time; the layout kernels: the
+            # card's own time by the event method, hot and cold, None if a
+            # launch's window was paced by the host
+            **({k: sum(p[k] or 0.0 for p in per)
+                for k in ("device_ms", "library_device_ms")}
+               if name.startswith("tail_conv") else
+               {k: None if any(p[k] is None for p in per)
+                else sum(p[k] for p in per)
+                for k in ("hot_ms", "cold_ms", "library_hot_ms",
+                          "library_cold_ms")}),
             "summed": summed, "checks": brec[name]["checks"],
             **{k: v for k, v in brec[name].items()
                if k not in ("per_launch", "max_abs_err", "checks")},

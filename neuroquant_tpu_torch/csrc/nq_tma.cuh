@@ -114,6 +114,18 @@ __device__ __forceinline__ void nq_tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// TMA's 1-D bulk copy of `bytes` contiguous bytes from global `src` to
+// shared `dst`, completing on `bar`: src, dst and bytes multiples of 16
+// (the layout kernels' rings, pack_cf.cu and unpack_frames.cu)
+__device__ __forceinline__ void nq_bulk_load(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // a 128-byte-swizzle descriptor at shared address `addr`

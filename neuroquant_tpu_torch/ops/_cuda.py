@@ -90,7 +90,7 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library with its C signatures declared."""
     so = ctypes.CDLL(build())
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
         # x, w, bias|NULL, out_mul|NULL, mask, ksteps, out_z|NULL,
         # out_y|NULL, part|NULL, B, cin, cout, mp, nsteps, splits, act_in,
@@ -111,14 +111,14 @@ def lib() -> ctypes.CDLL:
         "nq_tail_conv_cf_bf16_tile": [i, p],
         "nq_tail_conv_dw_cf_bf16_tile": [i, p],
         # x, out, parameter block (B, h, w, c, c8, pad, mp, tm, in type,
-        # out type), stream
+        # out type, shared bytes), stream
         "nq_pack_cf": [p, p, p, p],
         # g, out, parameter block (B, h, w, c, c8, pad, mp, tq, in type,
         # out type), stream
         "nq_unpack_cf": [p, p, p, p],
         # z, out, parameter block (B, cp, mp, h, w, pad, f, c, mode, tx,
-        # fu, in type, out type), offset, stream
-        "nq_unpack_frames": [p, p, p, f, p],
+        # fu, in type, out type, the offset's bits, shared bytes), stream
+        "nq_unpack_frames": [p, p, p, p],
         # the group's descriptor (ops/fused_fakequant._Group), stream
         "nq_fq_group_forward": [p, p],
         "nq_fq_group_backward": [p, p],

@@ -302,14 +302,6 @@ def _kernel_dtype(t, name: str):
     return t.dtype
 
 
-def _layout_types(name: str, src, dst, pairs):
-    """The launcher's (input, output) type codes of a layout kernel's
-    instantiation from `src` to `dst`; a pair it has none for raises."""
-    if (src, dst) not in pairs:
-        raise TypeError(f"{name}: no instantiation from {src} to {dst}")
-    return _TYPE_CODES[src], _TYPE_CODES[dst]
-
-
 def _counted(name: str, dtype) -> str:
     """The launch count's name of `name`'s instantiation for `dtype`."""
     return name if dtype is torch.float32 else name + "_bf16"
@@ -340,7 +332,8 @@ def _c_ints(*values):
 # --------------------------------------------------------------------------
 LAYOUT_THREADS = 256        # threads per block of the three kernels
 LAYOUT_SMEM = 48 * 1024     # shared memory a block may take (no opt-in)
-PACK_TILE_MAX = 128         # flat positions per pack_cf block, at most
+PACK_TILE_MAX = 128         # flat positions per fp32 pack_cf block, at most
+UNPACK_TILE_BF16 = 320      # packed columns per tile of the bf16 unpack
 # packed columns per unpack_frames block, at most: 124 and the cover's 3
 # extra floats are 32 float4, one load per lane of a warp
 UNPACK_TILE_MAX = 124
@@ -355,30 +348,65 @@ class PackGeometry(NamedTuple):
     smem: int       # shared-memory bytes per block
 
 
-def _pack_cf_smem(tm: int, c: int, isz: int = 4) -> int:
-    """The tile's offset table (tm ints) and its staged input run (tm*c
-    elements of `isz` bytes and room for the 16-byte cover)."""
-    return 4 * tm + isz * (tm * c + 32 // isz)
+def _pack_cf_smem(tm: int, c: int) -> int:
+    """The tile's offset table (tm ints) and its staged fp32 input run
+    (tm*c floats and room for the 16-byte cover)."""
+    return 4 * tm + 4 * (tm * c + 8)
 
 
 @lru_cache(maxsize=256)
-def pack_cf_geometry(mp: int, c: int, batch: int,
-                     isz: int = 4) -> PackGeometry:
-    """Tile of :func:`pack_cf`'s kernel (input elements of `isz` bytes):
-    128 positions, halved while the staged run would not fit a block's
-    shared memory, or while the launch has fewer blocks than the card holds
-    (_SM_SLOTS) and the tile is above 16 positions: small entries are bound
-    by latency, not bytes."""
+def pack_cf_geometry(mp: int, c: int, batch: int) -> PackGeometry:
+    """Tile of :func:`pack_cf`'s fp32 kernel: 128 positions, halved while
+    the staged run would not fit a block's shared memory, or while the
+    launch has fewer blocks than the card holds (_SM_SLOTS) and the tile is
+    above 16 positions: small entries are bound by latency, not bytes."""
     tm = PACK_TILE_MAX
-    while tm > 8 and (_pack_cf_smem(tm, c, isz) > LAYOUT_SMEM or (
+    while tm > 8 and (_pack_cf_smem(tm, c) > LAYOUT_SMEM or (
             tm > 16 and mp // tm * batch < _SM_SLOTS)):
         tm //= 2
-    if _pack_cf_smem(tm, c, isz) > LAYOUT_SMEM:
+    if _pack_cf_smem(tm, c) > LAYOUT_SMEM:
         raise ValueError(f"pack_cf: {c} channels do not fit a tile of "
                          f"{tm} positions in {LAYOUT_SMEM} bytes")
     if mp % tm:
         raise ValueError(f"pack_cf: Mp={mp} is not a multiple of {tm}")
-    return PackGeometry(tm, mp // tm, _pack_cf_smem(tm, c, isz))
+    return PackGeometry(tm, mp // tm, _pack_cf_smem(tm, c))
+
+
+def _pack_cf_bf16_smem(tm: int, c: int, isz: int) -> int:
+    """Shared bytes of the bf16 pack_cf kernel (csrc's ``bf16_smem``): the
+    mbarrier (128 bytes), the offset table (tm ints, to 128 bytes), then
+    the staged run (tm*c elements of `isz` bytes and 32 for the cover), to
+    128 bytes."""
+    return (128 + _cdiv(4 * tm, 128) * 128
+            + _cdiv(tm * c * isz + 32, 128) * 128)
+
+
+@lru_cache(maxsize=256)
+def pack_cf_bf16_geometry(mp: int, c: int, batch: int,
+                          isz: int) -> PackGeometry:
+    """Tile of :func:`pack_cf`'s kernel to bf16 (input elements of `isz`
+    bytes, 4 or 2), one a block: of the tiles of 256 positions (a
+    512-byte segment of each channel row) down to 16 positions that divide
+    Mp and leave room for 4 blocks on an SM, the largest that gives each
+    image 4 tiles per SM, else the largest that gives the launch one per
+    SM (small entries are bound by latency). On an NVIDIA H100 80GB HBM3 at
+    700 W, at the Bunny-3M tail entry, 64 positions took 0.0096 ms cold
+    from fp32 at batch 1 and 0.0114 from bf16 at batch 2, 256 positions
+    0.0108 and 0.0129 (scripts/torch_layout_bench.py --dtype bf16
+    --sweep)."""
+    fit = [t for t in (256, 128, 64, 32, 16)
+           if not mp % t
+           and _pack_cf_bf16_smem(t, c, isz) + 1024 <= SMEM_PER_SM // 4]
+    tm = next((t for t in fit if mp // t >= 4 * H100_SMS), None) \
+        or next((t for t in fit if mp // t * batch >= H100_SMS),
+                fit[-1] if fit else 16)
+    smem = _pack_cf_bf16_smem(tm, c, isz)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"pack_cf: {c} channels do not fit a tile of "
+                         f"{tm} positions in {SMEM_PER_BLOCK} bytes")
+    if mp % tm:
+        raise ValueError(f"pack_cf: Mp={mp} is not a multiple of {tm}")
+    return PackGeometry(tm, mp // tm, smem)
 
 
 def _unpack_cf_table(tq: int, w: int, pad: int, vec: int = 4) -> int:
@@ -429,21 +457,19 @@ class UnpackGeometry(NamedTuple):
 
 
 @lru_cache(maxsize=256)
-def unpack_frames_geometry(h: int, w: int, f: int, c: int, batch: int,
-                           vec: int = 4) -> UnpackGeometry:
-    """Block shape of :func:`unpack_frames`'s kernel: all f output rows and
-    the widest span up to 124 columns whose staged channel rows (tx + 4
-    floats each, for the 16-byte cover) fit a block's shared memory, cut
-    into equal spans across the width; one output row per block where that
-    launch would have fewer blocks than the card holds (_SM_SLOTS). On an
-    H100 one row a block took 0.63x the time of four at the width-tiled
-    plan, and narrower spans took longer at every plan measured
-    (scripts/torch_layout_bench.py --sweep). `vec`: input elements of a
-    16-byte load (4 fp32, 8 bf16): a staged row holds the span rounded up
-    to whole loads and one load more for its cover."""
-    def widest(fu):             # a multiple of vec: staged rows round to it
+def unpack_frames_geometry(h: int, w: int, f: int, c: int,
+                           batch: int) -> UnpackGeometry:
+    """Block shape of :func:`unpack_frames`'s fp32 kernel: all f output
+    rows and the widest span up to 124 columns whose staged channel rows
+    (tx + 4 floats each, for the 16-byte cover) fit a block's shared
+    memory, cut into equal spans across the width; one output row per
+    block where that launch would have fewer blocks than the card holds
+    (_SM_SLOTS). On an H100 one row a block took 0.63x the time of four at
+    the width-tiled plan, and narrower spans took longer at every plan
+    measured (scripts/torch_layout_bench.py --sweep)."""
+    def widest(fu):             # a multiple of 4: staged rows round to it
         return min(UNPACK_TILE_MAX,
-                   (LAYOUT_SMEM // (4 * fu * f * c) - vec) // vec * vec)
+                   (LAYOUT_SMEM // (4 * fu * f * c) - 4) // 4 * 4)
 
     def span(fu):               # equal spans, each a multiple of 4
         return _cdiv(_cdiv(w, _cdiv(w, widest(fu))), 4) * 4
@@ -458,7 +484,49 @@ def unpack_frames_geometry(h: int, w: int, f: int, c: int, batch: int,
     tx = span(fu)
     g = f * c
     return UnpackGeometry(tx, _cdiv(w, tx), fu,
-                          4 * fu * g * (_cdiv(tx, vec) * vec + vec),
+                          4 * fu * g * (_cdiv(tx, 4) * 4 + 4),
+                          g if g in UNPACK_G_TEMPLATES else 0)
+
+
+def _unpack_frames_bf16_smem(rows: int, tx: int) -> int:
+    """Shared bytes of the bf16 unpack_frames kernel (csrc's ``staged_row``
+    and ``bf16_smem``): the mbarrier (128 bytes), then `rows` staged rows,
+    each the span rounded up to 8 bf16 and 8 more for the cover, rounded up
+    to 128 bytes."""
+    return 128 + _cdiv(rows * (_cdiv(tx, 8) * 8 + 8) * 2, 128) * 128
+
+
+@lru_cache(maxsize=256)
+def unpack_frames_bf16_geometry(h: int, w: int, f: int, c: int,
+                                batch: int) -> UnpackGeometry:
+    """Tile of :func:`unpack_frames`'s kernel from bf16, one a block: one
+    output row and a span of up to UNPACK_TILE_BF16 columns, cut into
+    equal spans across the width (each a multiple of 8), halved while the
+    launch has fewer tiles than half the card's SMs or the staged rows
+    would not fit a block. On an NVIDIA H100 80GB HBM3 at 700 W the
+    Bunny-3M decode to fp32 frames was fastest at one row and the whole
+    width a tile (640 blocks: 0.0065 ms hot, 0.0093 cold), slower at two
+    rows (0.0069-0.0084 hot) or narrower spans (0.0072-0.0101); the
+    width-tiled plan took 0.0031-0.0033 hot at spans of 64-160 columns
+    (scripts/torch_layout_bench.py --dtype bf16 --sweep). The kernel takes
+    one output row a block (fu = 1)."""
+    g = f * c
+
+    def span(most):             # equal spans, each a multiple of 8
+        return _cdiv(_cdiv(w, _cdiv(w, most)), 8) * 8
+
+    most = UNPACK_TILE_BF16
+    while most > 8 and (
+            _unpack_frames_bf16_smem(g, span(most)) > SMEM_PER_BLOCK
+            or (most > 32 and batch * f * h * _cdiv(w, span(most))
+                < H100_SMS // 2)):
+        most //= 2
+    tx = span(most)
+    smem = _unpack_frames_bf16_smem(g, tx)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"unpack_frames: {g} channel rows do not fit a "
+                         f"block's {SMEM_PER_BLOCK} bytes")
+    return UnpackGeometry(tx, _cdiv(w, tx), 1, smem,
                           g if g in UNPACK_G_TEMPLATES else 0)
 
 
@@ -473,14 +541,19 @@ def pack_cf_ref(x, plan: TailPlan, dtype=None):
 
 @lru_cache(maxsize=256)
 def _pack_cf_launch(b: int, h: int, w: int, pad: int, tm: int, c: int,
-                    tin: int = 0, tout: int = 0):
-    """(output shape, parameter block and its address) of one pack_cf
-    launch, per plan geometry, input shape and element types (type codes:
-    0 fp32, 1 bf16)."""
+                    src=_F32, dst=_F32):
+    """(output shape, parameter block and its address, launch count name)
+    of one pack_cf launch, per plan geometry, input shape and element
+    types; a pair of types with no instantiation raises."""
+    if (src, dst) not in _PACK_TYPES:
+        raise TypeError(f"pack_cf: no instantiation from {src} to {dst}")
     mp = _cdiv((h + 2 * pad) * (w + 2 * pad), tm) * tm
-    geo = pack_cf_geometry(mp, c, b, 2 if tin else 4)
+    geo = (pack_cf_geometry(mp, c, b) if dst is _F32
+           else pack_cf_bf16_geometry(mp, c, b, src.itemsize))
     return ((b, _r8(c), mp),
-            *_c_ints(b, h, w, c, _r8(c), pad, mp, geo.tm, tin, tout))
+            *_c_ints(b, h, w, c, _r8(c), pad, mp, geo.tm, _TYPE_CODES[src],
+                     _TYPE_CODES[dst], geo.smem),
+            "pack_cf" if dst is _F32 else "pack_cf_bf16")
 
 
 def _pack_cf_kernel(x, plan: TailPlan, dtype=None):
@@ -488,14 +561,12 @@ def _pack_cf_kernel(x, plan: TailPlan, dtype=None):
     if not _route(x, "pack_cf"):
         return pack_cf_ref(x, plan, dtype)
     b, _, _, c = x.shape
-    tin, tout = _layout_types("pack_cf", x.dtype, dtype, _PACK_TYPES)
     # `block` keeps the parameter block alive while the launcher reads it
-    shape, block, prm = _pack_cf_launch(b, plan.h, plan.w, plan.pad, plan.tm,
-                                        c, tin, tout)
+    shape, block, prm, name = _pack_cf_launch(b, plan.h, plan.w, plan.pad,
+                                              plan.tm, c, x.dtype, dtype)
     _check(x, "pack_cf x", (b, plan.h, plan.w, c), x.dtype)
     out = x.new_empty(shape, dtype=dtype)
-    _launch(_counted("pack_cf", dtype), _cuda.lib().nq_pack_cf,
-            x.data_ptr(), out.data_ptr(), prm)
+    _launch(name, _cuda.lib().nq_pack_cf, x.data_ptr(), out.data_ptr(), prm)
     return out
 
 
@@ -507,13 +578,17 @@ def unpack_cf_ref(g, plan: TailPlan, c: int, dtype=None):
 
 @lru_cache(maxsize=256)
 def _unpack_cf_launch(b: int, h: int, w: int, c: int, c8: int, pad: int,
-                      mp: int, tin: int = 0, tout: int = 0):
-    """(output shape, parameter block and its address) of one unpack_cf
-    launch."""
-    geo = unpack_cf_geometry(h, w, pad, c, b, 2 if tin else 4,
-                             2 if tout else 4)
-    return ((b, h, w, c), *_c_ints(b, h, w, c, c8, pad, mp, geo.tm, tin,
-                                   tout))
+                      mp: int, src=_F32, dst=_F32):
+    """(output shape, parameter block and its address, launch count name)
+    of one unpack_cf launch; a pair of types with no instantiation
+    raises."""
+    if (src, dst) not in _UNPACK_TYPES:
+        raise TypeError(f"unpack_cf: no instantiation from {src} to {dst}")
+    geo = unpack_cf_geometry(h, w, pad, c, b, src.itemsize, dst.itemsize)
+    return ((b, h, w, c),
+            *_c_ints(b, h, w, c, c8, pad, mp, geo.tm, _TYPE_CODES[src],
+                     _TYPE_CODES[dst]),
+            "unpack_cf" if src is _F32 else "unpack_cf_bf16")
 
 
 def unpack_cf(g, plan: TailPlan, c: int, dtype=None):
@@ -526,14 +601,14 @@ def unpack_cf(g, plan: TailPlan, c: int, dtype=None):
     b, c8, _ = g.shape
     if c > c8:
         raise ValueError(f"unpack_cf: {c} channels from {c8} rows")
-    tin, tout = _layout_types("unpack_cf", g.dtype, dtype, _UNPACK_TYPES)
-    _check(g, "unpack_cf g", (b, c8, plan.mp), g.dtype)
     # `block` keeps the parameter block alive while the launcher reads it
-    shape, block, prm = _unpack_cf_launch(b, plan.h, plan.w, c, c8, plan.pad,
-                                          plan.mp, tin, tout)
+    shape, block, prm, name = _unpack_cf_launch(b, plan.h, plan.w, c, c8,
+                                                plan.pad, plan.mp, g.dtype,
+                                                dtype)
+    _check(g, "unpack_cf g", (b, c8, plan.mp), g.dtype)
     out = g.new_empty(shape, dtype=dtype)
-    _launch(_counted("unpack_cf", g.dtype), _cuda.lib().nq_unpack_cf,
-            g.data_ptr(), out.data_ptr(), prm)
+    _launch(name, _cuda.lib().nq_unpack_cf, g.data_ptr(), out.data_ptr(),
+            prm)
     return out
 
 
@@ -1553,24 +1628,34 @@ def unpack_frames_ref(z, plan: TailPlan, f: int, ch: int, out_bias: str,
     return depth_to_space(y.to(dtype or z.dtype), f)
 
 
+def _float_bits(x: float) -> int:
+    """The bits of fp32 `x` as a C int (a parameter block's slot)."""
+    return int(np.array(x, np.float32).view(np.int32))
+
+
 @lru_cache(maxsize=256)
 def _unpack_frames_launch(b: int, cp: int, h: int, w: int, pad: int, tm: int,
-                          f: int, ch: int, out_bias: str, tin: int = 0,
-                          tout: int = 0):
-    """(z's Mp, output shape, parameter block and its address, offset) of
-    one unpack_frames launch, per plan geometry, shape, out_bias and
-    element types."""
+                          f: int, ch: int, out_bias: str, src=_F32,
+                          dst=_F32):
+    """(z's Mp, output shape, parameter block and its address, launch count
+    name) of one unpack_frames launch, per plan geometry, shape, out_bias
+    and element types; a pair of types with no instantiation raises."""
+    if (src, dst) not in _UNPACK_TYPES:
+        raise TypeError(f"unpack_frames: no instantiation from {src} to "
+                        f"{dst}")
     c = ch // (f * f)
     if c * f * f != ch or ch > cp:
         raise ValueError(f"unpack_frames: {ch} channels do not unpack by "
                          f"f={f} from {cp} packed rows")
     mp = _cdiv((h + 2 * pad) * (w + 2 * pad), tm) * tm
     mode = _OUT_MODES.get(out_bias, 2)
-    geo = unpack_frames_geometry(h, w, f, c, b, 8 if tin else 4)
+    geo = (unpack_frames_geometry(h, w, f, c, b) if src is _F32
+           else unpack_frames_bf16_geometry(h, w, f, c, b))
+    bits = _float_bits(0.0 if mode < 2 else float(out_bias))
     return (mp, (b, h * f, w * f, c),
-            *_c_ints(b, cp, mp, h, w, pad, f, c, mode, geo.tx, geo.fu, tin,
-                     tout),
-            0.0 if mode < 2 else float(out_bias))
+            *_c_ints(b, cp, mp, h, w, pad, f, c, mode, geo.tx, geo.fu,
+                     _TYPE_CODES[src], _TYPE_CODES[dst], bits, geo.smem),
+            "unpack_frames" if src is _F32 else "unpack_frames_bf16")
 
 
 def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str,
@@ -1579,15 +1664,14 @@ def _unpack_frames_kernel(z, plan: TailPlan, f: int, ch: int, out_bias: str,
     if not _route(z, "unpack_frames"):
         return unpack_frames_ref(z, plan, f, ch, out_bias, dtype)
     b, cp, _ = z.shape
-    tin, tout = _layout_types("unpack_frames", z.dtype, dtype,
-                              _UNPACK_TYPES)
     # `block` keeps the parameter block alive while the launcher reads it
-    mp, shape, block, prm, offset = _unpack_frames_launch(
-        b, cp, plan.h, plan.w, plan.pad, plan.tm, f, ch, out_bias, tin, tout)
+    mp, shape, block, prm, name = _unpack_frames_launch(
+        b, cp, plan.h, plan.w, plan.pad, plan.tm, f, ch, out_bias, z.dtype,
+        dtype)
     _check(z, "unpack_frames z", (b, cp, mp), z.dtype)
     out = z.new_empty(shape, dtype=dtype)
-    _launch(_counted("unpack_frames", z.dtype), _cuda.lib().nq_unpack_frames,
-            z.data_ptr(), out.data_ptr(), prm, offset)
+    _launch(name, _cuda.lib().nq_unpack_frames, z.data_ptr(), out.data_ptr(),
+            prm)
     return out
 
 

@@ -5,7 +5,9 @@ operators, and the card's kernels where there is one) and writes it as a
 Chrome trace under a directory; ``summarize_trace`` groups the newest
 trace's device time by kernel name; ``device_rows`` does the same for a
 profile's ``key_averages()``. ``Timer`` logs a wall-clock counter as the
-reference's timers do.
+reference's timers do. ``queued_ms`` and ``hot_cold`` time calls on the
+card by CUDA events without the host setting the pace (the event method of
+``scripts/torch_layout_bench.py`` and ``chip_smoke.py``).
 
 Device time counts the card's kernels and copies only: a user-annotated
 range (``Optimizer.step#Adam.step``, a ``record_function`` region) also
@@ -19,11 +21,14 @@ import contextlib
 import glob
 import json
 import logging
+import math
 import os
 import time
 
 # trace event categories of work on the card
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# a cold rotation's inputs and outputs, at least: 2.5x the H100's 50 MB L2
+COLD_BYTES = 128e6
 
 
 class Timer:
@@ -99,3 +104,58 @@ def device_rows(events) -> list:
         if us > 0 and e.count > 0:
             rows.append((us, e.count, e.key))
     return rows
+
+
+def queued_ms(calls, n: int = 50, tries: int = 3):
+    """The card's own ms per call: `n` calls, rotating over `calls`, queued
+    behind ``torch.cuda._sleep`` long enough for the host to enqueue them
+    all before the card starts, CUDA events around them divided by `n`.
+    A window in which the card reached the first timed call before the host
+    had enqueued the last is paced by the host: it is taken again behind a
+    sleep four times as long, up to `tries` windows; None when none was
+    queued whole."""
+    import torch
+
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls[i % len(calls)]()
+    sleep_s = max(2e-3, 3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))           # ~2 GHz cycles
+        start.record()
+        for i in range(n):
+            calls[i % len(calls)]()
+        end.record()
+        queued = not start.query()    # the card had not reached them yet
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+        sleep_s *= 4
+    return None
+
+
+def hot_cold(make, run, nbytes: float, n: int = 50):
+    """(hot, cold) ms per call of `run` by :func:`queued_ms`: hot on one
+    input from `make(0)` every call (in L2, as the main path finds the
+    tensor the kernel before has just written); cold over inputs make(0),
+    make(1), ... with each output kept until its input comes round again,
+    more than COLD_BYTES in all with `nbytes` a call, so that every call
+    reads device memory. Either is None where the host set the pace."""
+    x = make(0)
+    hot = queued_ms([lambda: run(x)], n=n)
+    k = max(2, math.ceil(COLD_BYTES / nbytes))
+    xs = [make(i) for i in range(k)]
+    outs = [None] * k
+
+    def call(j):
+        def fn():
+            outs[j] = run(xs[j])
+        return fn
+    cold = queued_ms([call(j) for j in range(k)], n=k * math.ceil(n / k))
+    return hot, cold

@@ -1296,23 +1296,43 @@ def test_tail_conv_dw_cf_bf16(dev, small, li, act_in):
             1e-5 * float(want.abs().max())
 
 
+def _rand_as(dev, shape, seed, offset, dtype):
+    """_rand in `dtype`: a contiguous view that starts `offset` elements of
+    `dtype` past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    buf = _rand(dev, (n + offset,), seed).to(dtype)
+    return buf[offset:].view(shape)
+
+
+def _nan_freed(dev, shape, dtype):
+    """Fill a block of `shape` with NaN and free it: the next allocation of
+    that size gets it back, so an output element a kernel leaves unwritten
+    shows. Returns its address."""
+    junk = torch.full(shape, float("nan"), device=dev, dtype=dtype)
+    ptr = junk.data_ptr()
+    del junk
+    return ptr
+
+
 @pytest.mark.parametrize("src", ["fp32", "bf16"])
-@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("offset", [0, 1, 3, 7])
 @pytest.mark.parametrize("case", PACK_CASES, ids=case_id)
 def test_pack_cf_bf16(dev, case, offset, src):
     """pack_cf to bf16 from fp32 (the entry cast in the same pass) and from
-    bf16, the input aligned or 3 elements past a 16-byte boundary: the
-    plain version's cast, bit for bit."""
+    bf16, the input 0, 1, 3 or 7 elements past a 16-byte boundary, the
+    output in a NaN-filled freed block: the plain version's cast, bit for
+    bit, the border ring and the pads zero."""
     name, c, nb = case
     plan, _ = layout_plan(name)
-    x = _rand(dev, (nb, plan.h, plan.w, c), c + nb, offset)
-    if src == "bf16":
-        x = x.to(BF16)
+    x = _rand_as(dev, (nb, plan.h, plan.w, c), c + nb, offset,
+                 torch.float32 if src == "fp32" else BF16)
+    ptr = _nan_freed(dev, (nb, tf._r8(c), plan.mp), BF16)
     tf.reset_launch_counts()
     got = tf.pack_cf(x, plan, BF16)
     torch.cuda.synchronize()
     assert tf.KERNEL_LAUNCHES["pack_cf_bf16"] == 1
-    assert got.dtype == BF16
+    assert tf.KERNEL_LAUNCHES["pack_cf"] == 0
+    assert got.dtype == BF16 and got.data_ptr() == ptr
     assert torch.equal(got, tf.pack_cf_ref(x, plan, BF16))
 
 
@@ -1341,23 +1361,81 @@ def test_unpack_cf_bf16(dev, case, out):
 @pytest.mark.parametrize("case", UNPACK_CASES, ids=case_id)
 def test_unpack_frames_bf16(dev, case, out_bias, out):
     """A bf16 head output to fp32 frames (regress's bf16 precision) and to
-    bf16 frames (a bf16 decode): out_img 1e-6 in fp32, one unit in bf16."""
+    bf16 frames (a bf16 decode), z 0, 1, 3 or 7 elements past a 16-byte
+    boundary (by case), the frames in a NaN-filled freed block: out_img
+    1e-6 in fp32, one unit in bf16, the offset form exact."""
     name, c, nb = case
     plan, f = layout_plan(name)
     ch = c * f * f
     cp = max(plan.layers[-1].cout, tf._r8(ch))
-    z = _rand(dev, (nb, cp, plan.mp), f + c, 0).to(BF16)
+    offset = (0, 1, 3, 7)[(len(name) + c + nb) % 4]
+    z = _rand_as(dev, (nb, cp, plan.mp), f + c, offset, BF16)
     dt = torch.float32 if out == "fp32" else BF16
+    ptr = _nan_freed(dev, (nb, plan.h * f, plan.w * f, c), dt)
     tf.reset_launch_counts()
     got = tf.unpack_frames(z, plan, f, ch, out_bias, dt)
     want = tf.unpack_frames_ref(z, plan, f, ch, out_bias, dt)
     torch.cuda.synchronize()
     assert tf.KERNEL_LAUNCHES["unpack_frames_bf16"] == 1
+    assert tf.KERNEL_LAUNCHES["unpack_frames"] == 0
     assert got.shape == want.shape == (nb, plan.h * f, plan.w * f, c)
-    if dt is BF16:
+    assert got.data_ptr() == ptr and not bool(got.isnan().any())
+    if out_bias == "0.5":
+        assert torch.equal(got, want)
+    elif dt is BF16:
         _bf16_close(got, want, rel=0.0)
     else:
         assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 7])
+@pytest.mark.parametrize("name,c", [("bunny", 3), ("width_tiled", 3),
+                                    ("pnerv_bunny", 3), ("f3_w37", 5)])
+def test_unpack_frames_bf16_offsets(dev, name, c, offset):
+    """The Bunny-3M decode, the width-tiled plan, PNeRV's head and an edge
+    plan with z 0, 1, 3 and 7 elements past a 16-byte boundary, to both
+    frame types: the offset form bit for bit."""
+    plan, f = layout_plan(name)
+    ch = c * f * f
+    cp = max(plan.layers[-1].cout, tf._r8(ch))
+    z = _rand_as(dev, (2, cp, plan.mp), 40 + offset, offset, BF16)
+    for dt in (torch.float32, BF16):
+        got = tf.unpack_frames(z, plan, f, ch, "0.25", dt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tf.unpack_frames_ref(z, plan, f, ch, "0.25",
+                                                     dt)), dt
+
+
+@pytest.mark.parametrize("case", [("bunny", 53, 1), ("bunny_prefix", 64, 2),
+                                  ("pnerv_bunny", 100, 1), ("f2_w13", 5, 2)],
+                         ids=case_id)
+def test_fp32_layout_kernels_unchanged(dev, case):
+    """The fp32 instantiations beside the bf16 ones: pack_cf and
+    unpack_frames (offset form) fp32 -> fp32 bit for bit, into NaN-filled
+    freed blocks, counted under their own names."""
+    name, c, nb = case
+    plan, f = layout_plan(name)
+    x = _rand(dev, (nb, plan.h, plan.w, c), 9, 1)
+    ptr = _nan_freed(dev, (nb, tf._r8(c), plan.mp), torch.float32)
+    tf.reset_launch_counts()
+    got = tf.pack_cf(x, plan)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, tf.pack_cf_ref(x, plan))
+    if name.endswith("prefix"):
+        assert tf.KERNEL_LAUNCHES["pack_cf"] == 1
+        return
+    cp, ch = plan.layers[-1].cout, 3 * f * f
+    z = _rand(dev, (nb, cp, plan.mp), 10, 2)
+    ptr = _nan_freed(dev, (nb, plan.h * f, plan.w * f, 3), torch.float32)
+    got = tf.unpack_frames(z, plan, f, ch, "0.25")
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, tf.unpack_frames_ref(z, plan, f, ch, "0.25"))
+    assert (tf.KERNEL_LAUNCHES["pack_cf"],
+            tf.KERNEL_LAUNCHES["unpack_frames"],
+            tf.KERNEL_LAUNCHES["pack_cf_bf16"],
+            tf.KERNEL_LAUNCHES["unpack_frames_bf16"]) == (1, 1, 0, 0)
 
 
 def test_bf16_wrappers_refuse_mixed_dtypes(dev, small):

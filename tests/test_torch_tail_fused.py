@@ -175,6 +175,13 @@ class TestConvCF:
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+def _bf16_units(got, want):
+    """|got - want| over the bf16 spacing at `want` (2^-7 of the power of
+    two at or below it)."""
+    _, e = np.frexp(want)
+    return np.abs(got - want) / np.ldexp(1.0, e - 8)
+
+
 class TestLayoutKernels:
     @pytest.mark.parametrize("c", [5, 8, 13])
     def test_pack_cf_exact(self, c):
@@ -220,6 +227,64 @@ class TestLayoutKernels:
                                 "tanh").numpy()
         assert got.shape == want.shape == (B, 16, 1920, 3)
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+    # The bf16 forms of the plain versions against the JAX kernels with a
+    # bf16 dtype (Pallas in interpret mode): pack_cf from fp32 and from
+    # bf16 bit for bit (one rounding to nearest even, or none);
+    # unpack_frames from bf16 z to fp32 frames at 1e-6 and to bf16 frames
+    # within one bf16 unit (out_img in fp32, then one rounding; the two
+    # frameworks' tanh/sigmoid differ in the last ulp), at the plan of the
+    # JAX full-width kernel and at the width-tiled one.
+    @pytest.mark.parametrize("src", ["fp32", "bf16"])
+    @pytest.mark.parametrize("c", [5, 13])
+    def test_pack_cf_bf16_exact(self, c, src):
+        plan = _both_plans(**SMALL)[1][0]
+        x = np.random.RandomState(c).randn(B, H, W, c).astype(np.float32)
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+        if src == "bf16":
+            jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+        want = jtf.pack_cf(jx, plan, jnp.bfloat16)
+        assert want.dtype == jnp.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        for got in (ttf.pack_cf_ref(tx, plan, torch.bfloat16),
+                    ttf.pack_cf(tx, plan, torch.bfloat16)):
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(got.float().numpy(), want)
+
+    @staticmethod
+    def _unpack(jplan, tplan, f, ch, out_bias, out, seed):
+        z = np.random.RandomState(seed).randn(B, 48, tplan.mp).astype(
+            np.float32)
+        jz = jnp.asarray(z).astype(jnp.bfloat16)
+        tz = torch.from_numpy(z).to(torch.bfloat16)
+        jdt, tdt = ((jnp.float32, torch.float32) if out == "fp32"
+                    else (jnp.bfloat16, torch.bfloat16))
+        want = jtf.unpack_frames(jz, jplan, f, ch, out_bias, jdt)
+        assert want.dtype == jdt
+        want = np.asarray(want.astype(jnp.float32))
+        for got in (ttf.unpack_frames_ref(tz, tplan, f, ch, out_bias, tdt),
+                    ttf.unpack_frames(tz, tplan, f, ch, out_bias, tdt)):
+            assert got.dtype == tdt and got.shape == want.shape
+            got = got.float().numpy()
+            if out == "fp32":
+                np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+            else:
+                assert _bf16_units(got, want).max() <= 1.0
+
+    @pytest.mark.parametrize("out", ["fp32", "bf16"])
+    @pytest.mark.parametrize("out_bias", ["sigmoid", "tanh", "0.5"])
+    def test_unpack_frames_bf16(self, out_bias, out):
+        (jplan, _, _, f, ch), (tplan, *_) = _both_plans(**TINY_HNERV)
+        self._unpack(jplan, tplan, f, ch, out_bias, out, 3)
+
+    @pytest.mark.parametrize("out", ["fp32", "bf16"])
+    def test_unpack_frames_bf16_width_tiled(self, out):
+        geoms = ([(3, 17, 224, 4)], (3, 14, 3))
+        jplan, f = jtf.plan_geometry(4, 480, *geoms)
+        tplan, _ = ttf.plan_geometry(4, 480, *geoms)
+        assert jtf._unpack_wt(jplan, f) == 240 < jplan.w
+        self._unpack(jplan, tplan, f, 48, "tanh", out, 8)
 
 
 class TestWrappers:
