@@ -159,9 +159,10 @@ Phases (any failure exits non-zero):
      largest), pack_cf from fp32 and from bf16, unpack_cf to bf16 and to
      fp32, unpack_frames to fp32 and bf16 frames and on the width-tiled
      plan (bit for bit, one unit; pack_cf and unpack_frames also from
-     inputs 1, 3 and 7 elements off 16 bytes and at PNeRV's c = 100 entry
-     and sigmoid head; the layout kernels timed on the card by the event
-     method, hot and cold); each timed beside its plain version,
+     inputs 1, 3 and 7 elements off 16 bytes; pack_cf and unpack_cf at
+     PNeRV's c = 100 entry, unpack_frames at its sigmoid head; the layout
+     kernels timed on the card by the event method, hot and cold, beside
+     their bound and library call); each timed beside its plain version,
      its bound (bf16 FLOPs at 989 TFLOP/s or bf16 bytes) and cuDNN's or
      PyTorch's bf16 call; ``calibrate_network --compute_dtype bfloat16``
      with phase 9's settings (every step's launches phase 9's on the bf16
@@ -177,6 +178,14 @@ Phases (any failure exits non-zero):
      size 1 over NCCL (bitwise to one process); calibrate_network
      --compute_dtype bfloat16 and regress --matmul_precision bfloat16 for
      NeRV, PNeRV1 and PNeRV2 Bunny-3M as phases 7 and 12 run them
+ 20. dec_norm and activations -- HNeRV Bunny-3M with ``dec_norm: batch,
+     dec_acts: swish`` and NeRV Bunny-3M with ``dec_norm: instance,
+     dec_acts: relu`` (seeded weights, the 8 seeded frames), on the plain
+     unpacked chain: a decode at batch 2 launching none of the port's
+     kernels and matching a float64 run on the card, one stage-1 step's
+     loss and gradients and one HVP batch on both --hvp_impl routes
+     against float64, then calibrate_network, compress and eval_quantized
+     --from_bitstream
 
 The second-to-last line is one JSON object per kernel: its launches over
 the calibrate_network run (phase 7's for the tail's kernels, phase 9's for
@@ -312,7 +321,7 @@ STAGE1_EPOCHS = 3    # regress.main on the 8 frames: 8 steps an epoch
 STAGE1_PSNR_TOL = 1e-3   # dB, --eval_only against the last in-training eval
 UNIT_ITERS = 40      # calibrate_network --scope block|layer, steps a unit
 UNIT_NERV_ITERS = 20
-UNIT_TIMED_STEPS = 20    # a unit's step timed back to back, one chunk
+UNIT_TIMED_STEPS = 10    # a unit's step timed back to back, one chunk
 REPO = os.path.dirname(os.path.abspath(__file__))
 HNERV_CONFIG = os.path.join("configs", "HNeRV", "Bunny_1280x640_3M.yaml")
 NERV_CONFIG = os.path.join("configs", "NeRV", "Bunny_1280x640_3M.yaml")
@@ -489,7 +498,8 @@ def _layout_record(shape, fn, plain, lib, nbytes):
     function; the plain version's ms; the bound by bytes."""
     bound_ms, by = _bound(nbytes, 0)
     return dict(shape=shape, ms=_time_ms(fn), device_ms=_device_ms(fn),
-                plain_ms=_time_ms(plain), library_ms=_time_ms(lib),
+                plain_ms=_time_ms(plain, iters=3, warmup=1),
+                library_ms=_time_ms(lib),
                 library_device_ms=_device_ms(lib), bound_ms=bound_ms,
                 bound_by=by, mbytes=nbytes / 1e6)
 
@@ -1613,7 +1623,8 @@ def _fq_kernel_phase(torch, tf, cfg, sd, arch="hnerv", full=True):
         assert tf.KERNEL_LAUNCHES[name] == nl, dict(tf.KERNEL_LAUNCHES)
         bound_ms, by = _bound(nbytes, 0)
         rec = dict(shape=f"the {nw} {arch} Bunny-3M layers, {nl} launch(es)",
-                   ms=_time_ms(run), plain_ms=_time_ms(plain),
+                   ms=_time_ms(run),
+                   plain_ms=_time_ms(plain, iters=3, warmup=1),
                    device_ms=_device_ms(run),
                    plain_device_ms=_device_ms(plain), library_ms=None,
                    bound_ms=bound_ms, bound_by=by, mbytes=nbytes / 1e6)
@@ -3235,8 +3246,9 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
     (a bf16 calibration's) at batch 2, unpack_cf back to bf16 and to fp32
     at batch 2, unpack_frames to fp32 and to bf16 frames and on the
     width-tiled plan; pack_cf and unpack_frames also from inputs 1, 3 and
-    7 elements past a 16-byte boundary, and at PNeRV Bunny-3M's c = 100
-    entry and 16-row sigmoid head (outside the sums). A conv's bf16
+    7 elements past a 16-byte boundary; pack_cf and unpack_cf also at PNeRV
+    Bunny-3M's c = 100 entry, unpack_frames at its 16-row sigmoid head
+    (outside the sums). A conv's bf16
     output within one bf16 unit of each element beyond CONV_TOL of the
     largest (the fp32 sums' other order), the share of elements that
     differ printed; dW and db within 1e-5 of the largest (exact products,
@@ -3488,7 +3500,7 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
                        "pnerv_per_launch" if name.startswith("PNeRV")
                        else key)
         for dst in (bf, torch.float32):
-            for name, p, c in entries:
+            for name, p, c in entries + (("PNeRV entry", nplan, nc),):
                 make = seeded((CALIB_BATCH, tf._r8(c), p.mp), bf)
                 g = make(0)
                 out = tf.unpack_cf(g, p, c, dst)
@@ -3511,7 +3523,9 @@ def _bf16_kernel_phase(torch, tf, cfg, model):
                        "permute (+ cast), contiguous: a dense input",
                        2 * out.numel() + out.numel() * out.element_size(),
                        2 * out.numel() + out.numel() * out.element_size(),
-                       "per_launch" if dst is bf else "fp32_out_per_launch")
+                       "pnerv_per_launch" if name.startswith("PNeRV")
+                       else "per_launch" if dst is bf
+                       else "fp32_out_per_launch")
 
         ob = _out_bias(cfg)
         wplan, wf = tf.plan_geometry(4, 480, [(3, 17, 224, 4)], (3, 14, 3))
@@ -3851,6 +3865,199 @@ def _bf16_phase(torch, tf, cfg, sd, frames_dir, card, work, calib_fq):
                 families=families)
 
 
+def _norm_acts_phase(torch, tf, card, frames_dir, work):
+    """Phase 20: the last two flags at full width, HNeRV Bunny-3M with
+    ``dec_norm: batch, dec_acts: swish`` and NeRV Bunny-3M with ``dec_norm:
+    instance, dec_acts: relu`` (the configs' other keys, seeded weights,
+    the 8 seeded frames). Such a decoder never packs its tail, so it runs
+    the plain unpacked chain on cuDNN: a decode at batch 2 launches none of
+    the port's kernels (``KERNEL_LAUNCHES``) and matches a float64 run of
+    the same module on the card (DECODE_TOL); one stage-1 step at batch 2
+    (its loss within LOSS_TOL, every leaf's gradient against float64); one
+    stage-2 HVP batch on both routes (``fused_tail: off`` and
+    ``pallas_hvp``, each launching no kernel) against float64. Every leaf
+    is on cuDNN's fp32 convs, so it is held to CUDNN64_TOL of its largest
+    (cuDNN's fp32 against float64 at these shapes; the worst printed beside
+    GRAD_TOL and HV64_TOL), the two HVP routes to GRAD_TOL of each other.
+    Then ``calibrate_network.main`` (8 steps), ``compress`` and
+    ``eval_quantized`` from the artifact and ``--from_bitstream``, whose
+    PSNRs agree within STREAM_PSNR_TOL."""
+    import yaml
+
+    from neuroquant_tpu_torch.config import get_config, validate_config
+    from neuroquant_tpu_torch.data import VideoDataSet
+    from neuroquant_tpu_torch.methods import (
+        calibrate_network, compress, eval_quantized)
+    from neuroquant_tpu_torch.metrics import loss_fn
+    from neuroquant_tpu_torch.models import build_model
+    from neuroquant_tpu_torch.quantization import (
+        get_perturbation, init_quant_state, make_spec)
+    from neuroquant_tpu_torch.quantization import sensitivity as sens
+    from neuroquant_tpu_torch.utils.convert import state_dict_from_numpy
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    out = {}
+
+    def leaf_errs(got, want):
+        return [float((a.double() - b.double()).abs().max())
+                / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want)]
+
+    for arch, norm, act, seed in (("hnerv", "batch", "swish", SEED + 20),
+                                  ("nerv", "instance", "relu", SEED + 21)):
+        tag = f"{arch} dec_norm={norm} dec_acts={act}"
+        _section(f"phase 20: {tag}")
+        with open(os.path.join(REPO, _CONFIGS[arch])) as f:
+            raw = yaml.safe_load(f)
+        raw.update(dec_norm=norm, dec_acts=act)
+        cfg_path = os.path.join(work, f"{arch}_{norm}_{act}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(raw, f)
+        cfg = validate_config(get_config(cfg_path), arch)
+        cfg["workers"] = 0
+        if arch == "nerv":
+            cfg["n_frames"] = N_FRAMES
+        data = VideoDataSet(cfg, frames_dir, device=dev)
+
+        def model_for(ft, dtype=torch.float32):
+            m = build_model(arch, dict(cfg, fused_tail=ft), device=dev)
+            m.load_state_dict(params, strict=True)
+            return m.to(dtype)
+
+        model = build_model(arch, cfg, device=dev)
+        sd = _seeded_state_dict(model, np.random.RandomState(seed))
+        params = state_dict_from_numpy(sd, dev)
+        model.load_state_dict(params, strict=True)
+        assert model.pack_start is None and model._fused_impl() is None
+        m64 = model_for("auto", torch.float64)
+        inp = model.model_input(data.frames, data.norm_idx)[:CALIB_BATCH]
+        img = data.frames[:CALIB_BATCH]
+        rec = {}
+
+        # the decode at batch 2: no port kernel, float64's frames
+        with torch.no_grad():
+            emb = model.encode(inp)
+            torch.cuda.synchronize()
+            tf.reset_launch_counts()
+            y = model.decode(emb)
+            torch.cuda.synchronize()
+            counts = dict(tf.KERNEL_LAUNCHES)
+            rec["decode_ms"] = _time_ms(lambda: model.decode(emb), iters=10)
+            y64 = m64.decode(m64.encode(inp.double()))
+        rec["decode_err64"] = float((y.double() - y64).abs().max())
+        print(f"  decode, batch {CALIB_BATCH}: {rec['decode_ms']:.3f} ms "
+              f"back to back; max|frames - float64| "
+              f"{rec['decode_err64']:.2e} (tol {DECODE_TOL:.0e}); the "
+              f"port's kernel launches {sum(counts.values())}; card {card}")
+        assert not any(counts.values()), counts
+        assert rec["decode_err64"] <= DECODE_TOL, rec["decode_err64"]
+
+        # one stage-1 step at batch 2 against float64
+        def step(m, dtype):
+            m.zero_grad(set_to_none=True)
+            loss = loss_fn(m(inp.to(dtype)), img.to(dtype), cfg["loss"])
+            loss.backward()
+            torch.cuda.synchronize()
+            return float(loss.detach()), [p.grad for _, p in
+                                          m.named_parameters()]
+
+        tf.reset_launch_counts()
+        t0 = time.time()
+        loss32, g32 = step(model, torch.float32)
+        rec["step_s"] = time.time() - t0
+        assert not any(tf.KERNEL_LAUNCHES.values()), tf.KERNEL_LAUNCHES
+        loss64, g64 = step(m64, torch.float64)
+        names = [n for n, _ in model.named_parameters()]
+        errs = leaf_errs(g32, g64)
+        worst = int(np.argmax(errs))
+        rec.update(loss=loss32, loss64=loss64, step_grad_err64=errs[worst],
+                   step_grad_leaf=names[worst])
+        rel = abs(loss32 - loss64) / abs(loss64)
+        print(f"  one stage-1 step, batch {CALIB_BATCH}: loss {loss32:.8f} "
+              f"vs {loss64:.8f} float64 (rel {rel:.2e}, tol "
+              f"{LOSS_TOL:.0e}); worst leaf max|diff| / max|grad| "
+              f"{errs[worst]:.2e} ({names[worst]}; GRAD_TOL {GRAD_TOL:.0e}, "
+              f"held to {CUDNN64_TOL:.0e}); {rec['step_s']:.3f} s, the "
+              f"first of its shapes")
+        assert rel <= LOSS_TOL, (loss32, loss64)
+        assert errs[worst] <= CUDNN64_TOL, (names[worst], errs[worst])
+        del g32, g64
+
+        # one stage-2 HVP batch on both routes against float64
+        spec = make_spec(arch, cfg, channel_wise=True, scale_method="max"
+                         ).with_bits(_precision(arch, cfg))
+        vec = get_perturbation(params, spec, init_quant_state(params, spec))
+        batch = sens.draw_batches(N_FRAMES, CALIB_BATCH, 903)[:1]
+        hv = {}
+        for route, ft in (("xla", "off"), ("pallas", "pallas_hvp")):
+            mr = model_for(ft)
+            tf.reset_launch_counts()
+            t0 = time.time()
+            hv[route] = sens.hessian_vector_product(
+                mr, spec, vec, data.frames, data.norm_idx, batch)
+            torch.cuda.synchronize()
+            rec[f"hvp_{route}_s"] = time.time() - t0
+            assert not any(tf.KERNEL_LAUNCHES.values()), tf.KERNEL_LAUNCHES
+            del mr
+        hv64 = sens.hessian_vector_product(
+            m64, spec, [v.double() for v in vec], data.frames.double(),
+            data.norm_idx, batch)
+        e64 = {r: leaf_errs(hv[r], hv64) for r in hv}
+        eroute = leaf_errs(hv["pallas"], hv["xla"])
+        rec.update(hvp_err64=max(max(e) for e in e64.values()),
+                   hvp_route_err=max(eroute))
+        print(f"  one HVP batch: leaf max|diff| / max|Hv| against float64, "
+              f"--hvp_impl xla {' '.join(f'{e:.2e}' for e in e64['xla'])}, "
+              f"pallas {' '.join(f'{e:.2e}' for e in e64['pallas'])} "
+              f"(HV64_TOL {HV64_TOL:.0e}, held to {CUDNN64_TOL:.0e}); the "
+              f"routes apart {rec['hvp_route_err']:.2e} (tol "
+              f"{GRAD_TOL:.0e}); {rec['hvp_xla_s']:.3f} / "
+              f"{rec['hvp_pallas_s']:.3f} s")
+        assert rec["hvp_err64"] <= CUDNN64_TOL, e64
+        assert rec["hvp_route_err"] <= GRAD_TOL, eroute
+        del hv, hv64, vec, m64, model
+
+        # calibrate_network, compress, eval_quantized --from_bitstream
+        pth = os.path.join(work, f"{arch}_{norm}_seeded.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+        cwd = os.getcwd()
+        try:
+            os.chdir(work)
+            t0 = time.time()
+            art, _, _ = calibrate_network.main([
+                "--config", cfg_path, "--arch", arch, "--data_path",
+                frames_dir, "--vid", "Bunny", "--outf", f"{arch}_{norm}",
+                "--ckpt", pth, "--precision",
+                *map(str, _precision(arch, cfg)), "--hadamard",
+                "--channel_wise", "--batch_size", str(CALIB_BATCH),
+                "--iters_w", "8", "--lr", "0.003"])
+            rec["calibrate_s"] = time.time() - t0
+            art = os.path.join(work, art)
+            report = compress.main(["--artifact", art, "--data_path",
+                                    frames_dir])
+            state = eval_quantized.main(["--artifact", art, "--data_path",
+                                         frames_dir])
+            stream = eval_quantized.main([
+                "--artifact", art, "--data_path", frames_dir,
+                "--from_bitstream", report["bitstream"]])
+        finally:
+            os.chdir(cwd)
+        rec.update(psnr=float(np.mean(state[0])),
+                   stream_psnr=float(np.mean(stream[0])),
+                   bpp=report.get("bpp"))
+        print(f"  calibrate_network (8 steps) {rec['calibrate_s']:.1f} s; "
+              f"eval_quantized PSNR {rec['psnr']:.4f} dB, from the stream "
+              f"{rec['stream_psnr']:.4f} (tol {STREAM_PSNR_TOL}); card "
+              f"{card}")
+        assert np.isfinite(rec["psnr"]) and rec["psnr"] > 5.0, rec
+        assert abs(rec["psnr"] - rec["stream_psnr"]) <= STREAM_PSNR_TOL, rec
+        out[f"{arch}_{norm}_{act}"] = rec
+    _section()
+    out["seconds"] = time.time() - t_phase
+    print(f"  phase 20: {out['seconds']:.1f} s; card {card}")
+    return out
+
+
 def _write_frames(path: str, rng):
     from PIL import Image
 
@@ -4079,6 +4286,7 @@ def main() -> int:
         land = _landscape_phase(torch, tf, cfg, sd, frames_dir, card)
         print("[bench]")
         bench = _bench_phase(card)
+        norm_acts = _norm_acts_phase(torch, tf, card, frames_dir, work)
     finally:
         shutil.rmtree(frames_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -4247,8 +4455,8 @@ def main() -> int:
           f"{dec['plain_decode_ms']:.3f} plain; calibration phase 2 "
           f"{calib['phase2_its']} it/s; phases 16 / 17 / 18 "
           f"{dp['seconds']:.1f} / {land['seconds']:.1f} / "
-          f"{bench['seconds']:.1f} s; phase 19 {bf['seconds']:.1f} s; card "
-          f"{card}")
+          f"{bench['seconds']:.1f} s; phase 19 {bf['seconds']:.1f} s; "
+          f"phase 20 {norm_acts['seconds']:.1f} s; card {card}")
     print(json.dumps({"card": card, "decode": dec, "serving": serve,
                       "step": grad, "calibrate": calib,
                       "quantize_params": frecords["quantize_params"],
@@ -4262,7 +4470,8 @@ def main() -> int:
                       "unit_scope": unit, "data_parallel": dp,
                       "loss_landscape": land, "bench": bench,
                       "bf16": {k: v for k, v in bf.items()
-                               if k != "kernels"}}))
+                               if k != "kernels"},
+                      "dec_norm_and_activations": norm_acts}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

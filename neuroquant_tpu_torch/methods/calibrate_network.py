@@ -49,6 +49,7 @@ from neuroquant_tpu_torch.quantization import (
     model_reconstruction, quantize_params,
 )
 from neuroquant_tpu_torch.quantization.qmodel import _get
+from neuroquant_tpu_torch.utils.convert import is_block_norm
 from neuroquant_tpu_torch.utils.device import resolve_device, synchronize
 
 
@@ -358,7 +359,9 @@ def calibrate(args, cfg, mesh=None):
         "arch": args.arch,
         "mode": mode,
         "cfg": cfg,
-        "state_dict": {k: v.cpu().numpy() for k, v in params.items()},
+        # as the JAX package writes it: no decoder block's norm
+        "state_dict": {k: v.cpu().numpy() for k, v in params.items()
+                       if not is_block_norm(k)},
         "quant_spec": {
             "layer_names": spec.layer_names, "layer_paths": spec.layer_paths,
             "n_bits": spec.n_bits, "channel_wise": spec.channel_wise,

@@ -34,7 +34,8 @@ from neuroquant_tpu_torch.quantization.qmodel import (
     _get, _set, quantize_params)
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.convert import (
-    layer_prefix, quant_state_from_numpy, state_dict_from_numpy)
+    is_block_norm, layer_prefix, quant_state_from_numpy,
+    state_dict_from_numpy)
 from neuroquant_tpu_torch.utils.device import resolve_device
 
 
@@ -131,8 +132,14 @@ def main(argv):
     common.split_dataset(args, dataset)
 
     model = build_model(arch, cfg, device=device)
-    model.load_state_dict(state_dict_from_numpy(artifact["state_dict"],
-                                                device), strict=True)
+    # every key but a decoder block's norm, which the artifact does not
+    # carry (the JAX package's layout): it stays at its init, as in JAX
+    missing, unexpected = model.load_state_dict(
+        state_dict_from_numpy(artifact["state_dict"], device), strict=False)
+    if unexpected or not all(is_block_norm(k) for k in missing):
+        raise RuntimeError(f"{args.artifact}: state_dict keys differ from "
+                           f"the model's: missing {missing}, unexpected "
+                           f"{unexpected}")
     spec = spec_from_artifact(artifact)
     if args.from_bitstream:
         from neuroquant_tpu_torch.coding import decompress_artifact

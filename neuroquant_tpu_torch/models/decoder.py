@@ -17,7 +17,6 @@ decoder (``models/pnerv.py``) shares the forward-mode tail
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 import torch.nn as nn
@@ -69,16 +68,6 @@ def _conv_jvp(conv: Conv2d, x, dx, dw):
 
     return conv(x), _add(None if dx is None else raw(dx, conv.weight),
                          None if dw is None else raw(x, dw))
-
-
-def _gelu_jvp(x, dx):
-    """The exact-erf GELU of the unpacked blocks and its tangent,
-    (Phi(x) + x phi(x)) dx."""
-    if dx is None:
-        return F.gelu(x), None
-    cdf = 0.5 * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
-    pdf = torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
-    return F.gelu(x), (cdf + x * pdf) * dx
 
 
 def _out_img_jvp(x, dx, out_bias: str):
@@ -295,19 +284,20 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         kernels, the tangent entering through ``pack_cf`` (linear) and the
         kernels' tangents packed by the same gather as the kernels; the
         head's output is unpacked by plain tensor ops, as the JAX package's
-        HVP execution does. Otherwise the plain unpacked chain carries the
-        tangent on cuDNN convs. Every op of either graph is first-order
+        HVP execution does. Otherwise (``fused_tail: off``, any
+        ``dec_acts`` other than gelu, any ``dec_norm`` other than none) the
+        plain unpacked chain carries the tangent on cuDNN convs, through
+        each block's norm and activation (``layers.norm_tangent``,
+        ``activation_tangent``). Every op of either graph is first-order
         autograd, so a gradient of the tangent (a Hessian-vector product)
         differentiates each kernel once.
 
         The decode runs in segments: decoder[0], each prefix block, the
         fused prefix block, then the tail's entry pack, each tail layer and
         its unpack (or the plain head). With `remat` each segment is
-        checkpointed (:func:`segment_runner`)."""
+        checkpointed (:func:`segment_runner`), and the activations'
+        tangents run piece by piece."""
         c = self.cfg
-        if c.dec_acts != "gelu":
-            raise NotImplementedError(
-                f"decode_jvp: dec_acts={c.dec_acts!r} (only gelu)")
         blocks = self.blocks
         if dws is None:
             dws = (None,) * (len(blocks) + 2)
@@ -325,8 +315,7 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
 
         def block(j, x, dx):
             x, dx = _conv_jvp(blocks[j].conv[0], x, dx, dws[j + 1])
-            r = blocks[j].stride
-            return _gelu_jvp(_shuffle(x, r), _shuffle(dx, r))
+            return blocks[j].after_conv(x, dx, piece)
 
         def head(x, dx):
             x, dx = _conv_jvp(self.head_layer, x, dx, dws[-1])
@@ -345,7 +334,7 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
             x = prefix_cf_to_nhwc(z, plan, r, blk.out_channel)
             dx = (None if dz is None
                   else prefix_cf_to_nhwc(dz, plan, r, blk.out_channel))
-            return _gelu_jvp(x, dx)
+            return blk.act_tangent(x, dx)
 
         x, dx = run(layer0, img_embed)
         fused = fuses_prefix_block(blocks, t, impl, c.fused_prefix,

@@ -14,6 +14,7 @@ products follow ``ops/precision.py`` (bf16 operands under ``regress
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from functools import lru_cache
 from typing import Sequence
@@ -21,11 +22,12 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from neuroquant_tpu_torch.ops import precision
 from neuroquant_tpu_torch.ops.pixelshuffle import pixel_shuffle
 from neuroquant_tpu_torch.ops.tail_fused import (  # noqa: F401 (out_img)
-    out_img, prefix_cf_to_nhwc, prepare_prefix_block,
+    _by_pieces, out_img, prefix_cf_to_nhwc, prepare_prefix_block,
     run_fused_prefix_block)
 
 
@@ -84,8 +86,8 @@ def activation(act_type: str):
     """Activation by name; 'gelu' is the exact-erf GELU."""
     table = {
         "relu": F.relu,
-        "leaky": lambda x: F.leaky_relu(x, 0.01),
-        "leaky01": lambda x: F.leaky_relu(x, 0.1),
+        "leaky": functools.partial(F.leaky_relu, negative_slope=0.01),
+        "leaky01": functools.partial(F.leaky_relu, negative_slope=0.1),
         "relu6": F.relu6,
         "gelu": F.gelu,
         "sin": torch.sin,
@@ -96,6 +98,111 @@ def activation(act_type: str):
     if act_type not in table:
         raise KeyError(f"Unknown activation function {act_type}.")
     return table[act_type]
+
+
+def _gelu_tangent(x, dx):
+    """The exact-erf GELU and its tangent, (Phi(x) + x phi(x)) dx."""
+    cdf = 0.5 * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
+    pdf = torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
+    return F.gelu(x), (cdf + x * pdf) * dx
+
+
+def _leaky_tangent(slope):
+    def rule(x, dx):
+        # jnp.where(x >= 0, x, slope * x): slope 1 at 0, as jax.jvp takes
+        return (torch.where(x >= 0, x, slope * x),
+                torch.where(x >= 0, dx, slope * dx))
+    return rule
+
+
+def _relu_tangent(x, dx):
+    return F.relu(x), dx * (x > 0).to(dx.dtype)
+
+
+def _relu6_tangent(x, dx):
+    return F.relu6(x), dx * ((x > 0) & (x < 6)).to(dx.dtype)
+
+
+def _swish_tangent(x, dx):
+    s = torch.sigmoid(x)
+    return x * s, dx * s + x * (dx * (s * (1.0 - s)))
+
+
+def _softplus_tangent(x, dx):
+    # F.softplus is x above 20, where jax's logaddexp(x, 0) rounds to x in
+    # fp32 too and its tangent exp(x - softplus(x)) to 1, as sigmoid does
+    return F.softplus(x), dx * torch.sigmoid(x)
+
+
+def _hardswish_tangent(x, dx):
+    # jax.nn.hard_swish, x * (relu6(x + 3) / 6), by the product rule: 0 at
+    # -3 and 1 at 3, where relu6' is 0
+    hs = F.relu6(x + 3.0) / 6.0
+    m = ((x + 3.0 > 0) & (x + 3.0 < 6)).to(dx.dtype)
+    return x * hs, dx * hs + x * (m * dx / 6.0)
+
+
+_TANGENTS = {
+    "relu": _relu_tangent,
+    "leaky": _leaky_tangent(0.01),
+    "leaky01": _leaky_tangent(0.1),
+    "relu6": _relu6_tangent,
+    "gelu": _gelu_tangent,
+    "sin": lambda x, dx: (torch.sin(x), torch.cos(x) * dx),
+    "swish": _swish_tangent,
+    "softplus": _softplus_tangent,
+    "hardswish": _hardswish_tangent,
+}
+
+
+class _TangentPieces(torch.autograd.Function):
+    """(x, dx) -> an activation and its tangent, computed piece by piece
+    (``tail_fused._by_pieces``), keeping only x and dx for the backward,
+    which recomputes each piece's rule under autograd: the same values and
+    gradients with each temporary a piece in size (``--remat``)."""
+
+    @staticmethod
+    def forward(ctx, x, dx, rule, piece):
+        ctx.save_for_backward(x, dx)
+        ctx.rule, ctx.piece = rule, piece
+        return _by_pieces(piece, rule, x, dx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gd):
+        x, dx = ctx.saved_tensors
+
+        def vjp(xp, dxp, gyp, gdp):
+            with torch.enable_grad():
+                xp = xp.detach().requires_grad_(True)
+                dxp = dxp.detach().requires_grad_(True)
+                return torch.autograd.grad(ctx.rule(xp, dxp), (xp, dxp),
+                                           (gyp, gdp))
+        return (*_by_pieces(ctx.piece, vjp, x, dx, gy.contiguous(),
+                            gd.contiguous()), None, None)
+
+
+def _tangent(act_type: str, x, dx, piece=None):
+    if dx is None:
+        return activation(act_type)(x), None
+    if piece is None:
+        return _TANGENTS[act_type](x, dx)
+    return _TangentPieces.apply(x, dx, _TANGENTS[act_type], piece)
+
+
+def activation_tangent(act_type: str):
+    """``rule(x, dx, piece=None) -> (act(x), act'(x) * dx)``: the
+    activation with its tangent (dx None: no tangent, None back), in
+    first-order autograd ops, so that a gradient of the tangent is a
+    Hessian-vector product (``decode_jvp``). The derivative at a kink is
+    the one ``jax.jvp`` takes: relu 0 at 0, leaky and leaky01 1 at 0,
+    relu6 0 at 0 and 6, hardswish 0 at -3 and 1 at 3. With a `piece` size
+    (``tail_fused.PIECE`` under ``--remat``) it runs piece by piece
+    (:class:`_TangentPieces`). A partial of a module function, so that a
+    model holding it pickles (a data-parallel rank returns its model)."""
+    if act_type not in _TANGENTS:
+        raise KeyError(f"Unknown activation function {act_type}.")
+    return functools.partial(_tangent, act_type)
 
 
 class LayerNorm(nn.Module):
@@ -167,9 +274,58 @@ class BatchNorm2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class InstanceNorm2d(nn.Module):
+    """torch ``InstanceNorm2d`` default on NHWC tensors: each image's and
+    channel's statistics over H and W (biased variance), no affine, no
+    parameters."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        mean = x.mean(dim=(1, 2), keepdim=True)
+        var = x.var(dim=(1, 2), keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+def norm_layer(norm_type: str, ch_width: int) -> nn.Module:
+    """A NeRVBlock's norm by name (the JAX ``norm_layer``): 'none' (no
+    parameters), 'batch' (:class:`BatchNorm2d`) or 'instance'."""
+    if norm_type == "none":
+        return nn.Identity()
+    if norm_type == "batch":
+        return BatchNorm2d(ch_width)
+    if norm_type == "instance":
+        return InstanceNorm2d()
+    raise NotImplementedError(norm_type)
+
+
+def norm_tangent(norm: nn.Module, x, dx):
+    """A NeRVBlock's norm and its tangent (dx None: None back), in
+    first-order autograd ops. With x^ = (x - mean) r, r = 1/sqrt(var +
+    eps), over the statistics' axes (the batch and the image for
+    :class:`BatchNorm2d`, the image for :class:`InstanceNorm2d`): dx^ = r
+    (dxc - x^ mean(x^ dxc)), dxc = dx - mean(dx), times the batch norm's
+    weight. The statistics are this process's batch (stage 2 runs in one
+    process)."""
+    y = norm(x)
+    if dx is None or isinstance(norm, nn.Identity):
+        return y, dx
+    dims = (0, 1, 2) if isinstance(norm, BatchNorm2d) else (1, 2)
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, correction=0)
+    r = torch.rsqrt(var + norm.eps)
+    xh = (x - mean) * r
+    dxc = dx - dx.mean(dim=dims, keepdim=True)
+    dy = r * (dxc - xh * (xh * dxc).mean(dim=dims, keepdim=True))
+    return y, (dy * norm.weight if isinstance(norm, BatchNorm2d) else dy)
+
+
 def norms_over_batch(model) -> bool:
-    """Whether `model` holds a :class:`BatchNorm2d` (PNeRV's shortcuts), so
-    that a frame's output depends on its batch."""
+    """Whether `model` holds a :class:`BatchNorm2d` (PNeRV's shortcuts, a
+    decoder's ``dec_norm: batch``), so that a frame's output depends on its
+    batch."""
     return any(isinstance(m, BatchNorm2d) for m in model.modules())
 
 
@@ -210,26 +366,35 @@ class KFcBias(nn.Module):
 
 
 class NeRVBlock(nn.Module):
-    """Conv(cin, cout*s*s, k, pad=(k-1)//2) -> PixelShuffle(s) -> act. Only
-    ``norm='none'``, the setting of every shipped config, is ported."""
+    """Conv(cin, cout*s*s, k, pad=(k-1)//2) -> PixelShuffle(s) -> norm ->
+    act, the norm by ``dec_norm`` (:func:`norm_layer`) under the name
+    torch's reference block gives it (``norm``: keys ``{block}.norm.weight``
+    and ``.bias`` for a batch norm)."""
 
     def __init__(self, cin: int, out_channel: int, kernel_size: int,
                  stride: int, norm: str = "none", act: str = "gelu"):
         super().__init__()
-        if norm != "none":
-            raise NotImplementedError(
-                f"dec_norm={norm!r}: only 'none' is ported")
         self.out_channel, self.kernel_size, self.stride = (
             out_channel, kernel_size, stride)
         self.conv = UpsampleConv(cin, out_channel, kernel_size, stride)
+        self.norm = norm_layer(norm, out_channel)
         self.act_fn = activation(act)
+        self.act_tangent = activation_tangent(act)
 
     def conv_params(self):
         """(HWIO kernel, bias) of the block's conv."""
         return self.conv[0].hwio(), self.conv[0].bias
 
+    def after_conv(self, x, dx=None, piece=None):
+        """Shuffle, norm and activation of the conv's output x and its
+        tangent dx (None: none)."""
+        x = pixel_shuffle(x, self.stride)
+        dx = None if dx is None else pixel_shuffle(dx, self.stride)
+        x, dx = norm_tangent(self.norm, x, dx)
+        return self.act_tangent(x, dx, piece)
+
     def forward(self, x):
-        return self.act_fn(self.conv(x))
+        return self.act_fn(self.norm(self.conv(x)))
 
 
 @lru_cache(maxsize=16)

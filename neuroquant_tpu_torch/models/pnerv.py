@@ -30,8 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from neuroquant_tpu_torch.models.decoder import (
-    KeptKernelWeights, _add, _conv_jvp, _gelu_jvp, _out_img_jvp, _run,
-    _shuffle, fused_tail_jvp, segment_runner)
+    KeptKernelWeights, _add, _conv_jvp, _out_img_jvp, _run, fused_tail_jvp,
+    segment_runner)
 from neuroquant_tpu_torch.models.layers import (
     BatchNorm2d, Conv2d, ConvNeXtBlock, KFcBias, LayerNorm, NeRVBlock,
     activation, collect_tail_params, out_img)
@@ -127,12 +127,6 @@ def _conv3(conv: Conv2d, x, dx=None, dw=None):
     y = raw(x, w) + conv.bias.to(x.dtype)
     return y, _add(None if dx is None else raw(dx, w),
                    None if dw is None else raw(x, dw.to(x.dtype)))
-
-
-def _act_jvp(act_fn, x, dx):
-    """act_fn(x), and for a tangent dx GELU's JVP (``decode_jvp`` takes
-    GELU only)."""
-    return (act_fn(x), None) if dx is None else _gelu_jvp(x, dx)
 
 
 def _mul(a, da, b, db):
@@ -239,26 +233,25 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
             h, w, *collect_tail_params(self.dec_layers, self.dec_head_layers,
                                        self.n_fused), dtype=dt))
 
-    def _fusion(self, content, tangents=None, run=_run):
+    def _fusion(self, content, tangents=None, run=_run, piece=None):
         """The excitation block and the fusion stages: the tail-entry NHWC
         activation and, with `tangents` ({weight key: OIHW tangent}), its
         tangent. ``run(fn, *args)`` runs each segment: the excitation
-        block, then each stage (its block and its gate) as one
-        (:func:`decoder.segment_runner`)."""
+        block, then each stage (its block and its gate) as one, `piece`
+        the blocks' activation tangents' (:func:`decoder.segment_runner`)."""
         dw = (tangents or {}).get
         exc = self.dec_exc_layers
 
         def excite(e):
             x, dx = _conv_jvp(exc.conv[0], e, None,
                               dw("dec_exc_layers.conv.0.weight"))
-            return _act_jvp(exc.act_fn, _shuffle(x, 10), _shuffle(dx, 10))
+            return exc.after_conv(x, dx, piece)
 
         def stage(i, x, dx):
             blk = self.dec_layers[i]
             x, dx = _conv_jvp(blk.conv[0], x, dx,
                               dw(f"dec_layers.{i}.conv.0.weight"))
-            x, dx = _act_jvp(blk.act_fn, _shuffle(x, blk.stride),
-                             _shuffle(dx, blk.stride))
+            x, dx = blk.after_conv(x, dx, piece)
             return self._fuse(content, x, dx, i, dw)
 
         x, dx = run(excite, content)
@@ -266,12 +259,11 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
             x, dx = run(functools.partial(stage, i), x, dx)
         return x, dx
 
-    def _tail_plain(self, x, dx=None, dw={}.get):
+    def _tail_plain(self, x, dx=None, dw={}.get, piece=None):
         blk = self.dec_layers[-1]
         x, dx = _conv_jvp(blk.conv[0], x, dx,
                           dw(f"dec_layers.{self.n_fused}.conv.0.weight"))
-        x, dx = _act_jvp(blk.act_fn, _shuffle(x, blk.stride),
-                         _shuffle(dx, blk.stride))
+        x, dx = blk.after_conv(x, dx, piece)
         x, dx = _conv_jvp(self.dec_head_layers, x, dx,
                           dw("dec_head_layers.weight"))
         return _out_img_jvp(x, dx, "sigmoid")
@@ -294,15 +286,15 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
         back None). The shortcut branch act(BN(KFc(content))) carries no
         tangent (neither is quantized, and the content is fixed). The
         tail runs :func:`decoder.fused_tail_jvp` on the kernels from pack
-        start 0 (``fused_tail`` other than off), else the plain chain;
-        every op first-order, so a gradient of the tangent differentiates
-        each kernel once. Segments: the excitation block, each fusion
-        stage, the tail's entry pack, each tail layer and its unpack (or
-        the plain tail as one); with `remat` each is checkpointed
-        (:func:`decoder.segment_runner`)."""
-        if self.cfg.dec_acts != "gelu":
-            raise NotImplementedError(
-                f"decode_jvp: dec_acts={self.cfg.dec_acts!r} (only gelu)")
+        start 0 (``fused_tail`` other than off), else (also for any
+        ``dec_acts`` other than gelu and any ``dec_norm`` other than none)
+        the plain chain; each block's norm and activation carry the tangent
+        (``NeRVBlock.after_conv``); every op first-order, so a gradient of
+        the tangent differentiates each kernel once. Segments: the
+        excitation block, each fusion stage, the tail's entry pack, each
+        tail layer and its unpack (or the plain tail as one); with `remat`
+        each is checkpointed and the activations' tangents run piece by
+        piece (:func:`decoder.segment_runner`)."""
         keys = self.jvp_keys()
         if dws is None:
             dws = (None,) * len(keys)
@@ -311,10 +303,10 @@ class _PNeRVBase(KeptKernelWeights, nn.Module):
                              f"{len(keys)} convs")
         tangents = dict(zip(keys, dws))
         run, piece = segment_runner(remat)
-        x, dx = self._fusion(content, tangents, run)
+        x, dx = self._fusion(content, tangents, run, piece)
         if self._fused_impl() is None:
-            return run(lambda x, dx: self._tail_plain(x, dx, tangents.get),
-                       x, dx)
+            return run(lambda x, dx: self._tail_plain(x, dx, tangents.get,
+                                                      piece), x, dx)
         n = self.n_fused
         dw_tail = [tangents[f"dec_layers.{n}.conv.0.weight"],
                    tangents["dec_head_layers.weight"]]

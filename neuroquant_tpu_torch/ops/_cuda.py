@@ -114,7 +114,7 @@ def lib() -> ctypes.CDLL:
         # out type, shared bytes), stream
         "nq_pack_cf": [p, p, p, p],
         # g, out, parameter block (B, h, w, c, c8, pad, mp, tq, in type,
-        # out type), stream
+        # out type; from bf16, shared bytes), stream
         "nq_unpack_cf": [p, p, p, p],
         # z, out, parameter block (B, cp, mp, h, w, pad, f, c, mode, tx,
         # fu, in type, out type, the offset's bits, shared bytes), stream

@@ -409,27 +409,24 @@ def pack_cf_bf16_geometry(mp: int, c: int, batch: int,
     return PackGeometry(tm, mp // tm, smem)
 
 
-def _unpack_cf_table(tq: int, w: int, pad: int, vec: int = 4) -> int:
-    """Ints of unpack_cf's cover table (``table_ints`` in the source): the
-    tq positions' stretch of a padded row, with the 2*pad border columns of
-    every row crossing, the cover's offset (< 2*vec, vec the input
-    elements of a 16-byte load) and rounding; a multiple of 4."""
-    return (tq + 2 * pad * ((tq - 1) // w + 1) + 3 * vec + 3) // 4 * 4
+def _unpack_cf_table(tq: int, w: int, pad: int) -> int:
+    """Ints of the fp32 unpack_cf kernel's cover table (``table_ints`` in
+    the source): the tq positions' stretch of a padded row, with the 2*pad
+    border columns of every row crossing, the cover's offset (< 8 floats)
+    and rounding; a multiple of 4."""
+    return (tq + 2 * pad * ((tq - 1) // w + 1) + 15) // 4 * 4
 
 
-def _unpack_cf_smem(tq: int, w: int, pad: int, c: int, isz: int = 4,
-                    osz: int = 4) -> int:
-    """The cover table and the staged output run (tq*c elements of `osz`
-    bytes and room for its offset in 16 bytes); input elements of `isz`
-    bytes."""
-    return (4 * _unpack_cf_table(tq, w, pad, 16 // isz)
-            + osz * (tq * c + 16 // osz))
+def _unpack_cf_smem(tq: int, w: int, pad: int, c: int) -> int:
+    """The cover table and the staged fp32 output run (tq*c floats and
+    room for its offset in 16 bytes)."""
+    return 4 * _unpack_cf_table(tq, w, pad) + 4 * (tq * c + 4)
 
 
 @lru_cache(maxsize=256)
-def unpack_cf_geometry(h: int, w: int, pad: int, c: int, batch: int,
-                       isz: int = 4, osz: int = 4) -> PackGeometry:
-    """Tile of :func:`unpack_cf`'s kernel: positions of one image per
+def unpack_cf_geometry(h: int, w: int, pad: int, c: int,
+                       batch: int) -> PackGeometry:
+    """Tile of :func:`unpack_cf`'s fp32 kernel: positions of one image per
     block, 128 halved while the staged run would not fit a block's shared
     memory, or while the launch has fewer blocks than the card holds
     (_SM_SLOTS) and the tile is above 32 positions. Returns (tq, blocks per
@@ -438,14 +435,65 @@ def unpack_cf_geometry(h: int, w: int, pad: int, c: int, batch: int,
     at 16 and 128, 0.0063 at 8; the tail entry 0.0180 at 128, 0.0199 at 64
     (scripts/torch_layout_bench.py --sweep)."""
     tq = PACK_TILE_MAX
-    while tq > 8 and (_unpack_cf_smem(tq, w, pad, c, isz, osz) > LAYOUT_SMEM
+    while tq > 8 and (_unpack_cf_smem(tq, w, pad, c) > LAYOUT_SMEM
                       or (tq > 32 and _cdiv(h * w, tq) * batch < _SM_SLOTS)):
         tq //= 2
-    if _unpack_cf_smem(tq, w, pad, c, isz, osz) > LAYOUT_SMEM:
+    if _unpack_cf_smem(tq, w, pad, c) > LAYOUT_SMEM:
         raise ValueError(f"unpack_cf: {c} channels do not fit a tile of "
                          f"{tq} positions in {LAYOUT_SMEM} bytes")
-    return PackGeometry(tq, _cdiv(h * w, tq),
-                        _unpack_cf_smem(tq, w, pad, c, isz, osz))
+    return PackGeometry(tq, _cdiv(h * w, tq), _unpack_cf_smem(tq, w, pad, c))
+
+
+def _unpack_cf_bf16_pitch(tq: int, w: int, pad: int) -> int:
+    """Bytes of a staged channel row of the bf16 unpack_cf kernel (csrc's
+    ``bf16_pitch``): the tq positions' stretch of a padded row with the
+    2*pad border columns of every row crossing, the cover's offset (< 8
+    elements), rounded to 16 bytes."""
+    return 2 * ((tq + 2 * pad * ((tq - 1) // w + 1) + 14) // 8 * 8)
+
+
+def _unpack_cf_bf16_row(r: int, pitch: int) -> int:
+    """Byte offset of staged channel row r (csrc's ``bf16_row``): 16 bytes
+    more for each 8 rows before it, against bank conflicts."""
+    return r * pitch + 16 * (r >> 3)
+
+
+def _unpack_cf_bf16_smem(tq: int, w: int, pad: int, c: int) -> int:
+    """Shared bytes of the bf16 unpack_cf kernel (csrc's ``bf16_smem``):
+    the mbarrier (16 bytes), the position table (tq + 1 ints), then from a
+    128-byte boundary c staged rows with their skew."""
+    return (_cdiv(16 + 4 * (tq + 1), 128) * 128
+            + _unpack_cf_bf16_row(c, _unpack_cf_bf16_pitch(tq, w, pad)))
+
+
+@lru_cache(maxsize=256)
+def unpack_cf_bf16_geometry(h: int, w: int, pad: int, c: int,
+                            batch: int) -> PackGeometry:
+    """Tile of :func:`unpack_cf`'s kernel from bf16 (to fp32 or bf16), one
+    a block, a multiple of 8 positions: the launch's positions cut into 4
+    equal tiles per SM (every SM holds 4 blocks at once and ends with the
+    others); where those tiles would be below 32 positions, one tile per SM
+    (a small entry is bound by latency); where above 256, tiles of 128 in
+    several waves; halved while 4 blocks would not fit an SM's shared
+    memory. Returns (tq, blocks per image, smem). On an NVIDIA H100 80GB
+    HBM3 at 700 W, the Bunny-3M tail entry at batch 2 (to bf16) took 0.0080
+    ms hot and 0.0124 cold at 200 positions, 0.0086 / 0.0133 at 256,
+    0.0094 / 0.0141 at 128, 0.0109 / 0.0156 at 64; its prefix entry
+    0.0038 / 0.0046 at 56; PNeRV's c = 100 entry 0.0648 at 128, 0.0681 at
+    256 (scripts/torch_layout_bench.py --dtype bf16 --sweep)."""
+    total = h * w * batch
+    tq = _cdiv(_cdiv(total, 4 * H100_SMS), 8) * 8
+    if tq < 32:
+        tq = _cdiv(_cdiv(total, H100_SMS), 8) * 8
+    tq = 128 if tq > 256 else max(tq, 8)
+    while tq > 8 and (_unpack_cf_bf16_smem(tq, w, pad, c) + 1024
+                      > SMEM_PER_SM // 4):
+        tq = _cdiv(tq // 2, 8) * 8
+    smem = _unpack_cf_bf16_smem(tq, w, pad, c)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"unpack_cf: {c} channels do not fit a tile of "
+                         f"{tq} positions in {SMEM_PER_BLOCK} bytes")
+    return PackGeometry(tq, _cdiv(h * w, tq), smem)
 
 
 class UnpackGeometry(NamedTuple):
@@ -584,10 +632,14 @@ def _unpack_cf_launch(b: int, h: int, w: int, c: int, c8: int, pad: int,
     raises."""
     if (src, dst) not in _UNPACK_TYPES:
         raise TypeError(f"unpack_cf: no instantiation from {src} to {dst}")
-    geo = unpack_cf_geometry(h, w, pad, c, b, src.itemsize, dst.itemsize)
-    return ((b, h, w, c),
-            *_c_ints(b, h, w, c, c8, pad, mp, geo.tm, _TYPE_CODES[src],
-                     _TYPE_CODES[dst]),
+    if src is _F32:
+        geo = unpack_cf_geometry(h, w, pad, c, b)
+        prm = _c_ints(b, h, w, c, c8, pad, mp, geo.tm, 0, 0)
+    else:
+        geo = unpack_cf_bf16_geometry(h, w, pad, c, b)
+        prm = _c_ints(b, h, w, c, c8, pad, mp, geo.tm, 1, _TYPE_CODES[dst],
+                      geo.smem)
+    return ((b, h, w, c), *prm,
             "unpack_cf" if src is _F32 else "unpack_cf_bf16")
 
 

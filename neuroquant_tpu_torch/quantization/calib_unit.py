@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from neuroquant_tpu_torch.metrics import lp_loss
-from neuroquant_tpu_torch.models.layers import activation
+from neuroquant_tpu_torch.models.layers import activation, norms_over_batch
 from neuroquant_tpu_torch.ops import quant as Q
 from neuroquant_tpu_torch.ops.fused_fakequant import (
     fake_quant_group, fake_quant_ref)
@@ -212,9 +212,13 @@ def harvest_unit_grads(model, params, spec: QuantSpec, state: Dict,
     UAQ-quantized (``quantize_params(..., upto=unit_idx)``), the suffix FP
     on the plain chain (:func:`_decode_from`), against the FP decode `fp`
     on the model's kernel path; the loss is each sample's mean MSE. The
-    decoders' samples do not interact (``dec_norm: none``), so one backward
-    of the batch's summed per-sample means gives every sample's gradient
-    (the JAX package vmaps a batch-1 gradient)."""
+    JAX package vmaps a batch-1 gradient. Where a decoder's samples do not
+    interact, one backward of the batch's summed per-sample means gives
+    every sample's gradient; a decoder with a batch norm (``dec_norm:
+    batch``) takes its statistics over the batch, so it decodes each
+    sample alone, as JAX's batch of one does."""
+    if norms_over_batch(model):
+        batch_size = 1
     grads = []
     for g in _unit_grads(model, params, spec, state, unit_idx, cali_data,
                          include_act, batch_size):

@@ -8,6 +8,7 @@ store the reference's torch state-dict layout:
   -----------------------------------     -------------------------------
   decoder.0.{weight,bias}                  decoder0/{kernel,bias}
   decoder.{i}.conv.0.{weight,bias}         blocks_{i-1}/conv/{kernel,bias}
+  decoder.{i}.norm.{weight,bias}           blocks_{i-1}/norm_fn/{scale,bias}
   head_layer.{weight,bias}                 head_layer/{kernel,bias}
   encoder.downsample_layers.0.0 (conv)     encoder/down_conv_0
   encoder.downsample_layers.0.1 (LN)       encoder/down_norm_0
@@ -22,7 +23,9 @@ PNeRV (``_pnerv_pairs``; the names the reference's PNeRV modules give):
   enc_layers.{3k+2}.* (ConvNeXt block)     encoder/block_k/...
   enc_layers.{3n} (conv)                   encoder/proj
   dec_exc_layers.conv.0                    dec_exc/conv
+  dec_exc_layers.norm                      dec_exc/norm_fn
   dec_layers.{i}.conv.0                    dec_layers_{i}/conv
+  dec_layers.{i}.norm                      dec_layers_{i}/norm_fn
   dec_shortcuts.{3i} (KFc, verbatim)       shortcuts_{i}/{w_L,w_R,b_h,b_w,b_c}
   dec_shortcuts.{3i+1} (BatchNorm)         shortcut_norms_{i}
   dec_bsm_{z,r,h}.{i}                      bsm_{z,r,h}_{i}
@@ -30,10 +33,19 @@ PNeRV (``_pnerv_pairs``; the names the reference's PNeRV modules give):
 
 Conv weights are OIHW in torch and HWIO in flax; Linear weights (out, in)
 and (in, out); LayerNorm and BatchNorm ``weight`` is flax's ``scale``.
+
+A decoder block's batch norm (``dec_norm: batch``; an instance norm has no
+parameters) is carried here and in the port's ``.pth``, which writes and
+reads it. The JAX package's mapping (``torch_compat``) carries none, and
+its loader leaves a missing key at its init: a JAX ``.pth`` loads into the
+port with the norm at its init, and the port's loads into JAX with the
+norm at identity. The quantized artifact carries none in either package
+(:func:`is_block_norm`), as the JAX package writes it.
 """
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -61,13 +73,30 @@ def _convnext_pairs(n_stages: int, stage_blocks: int):
     return out
 
 
-def _decoder_pairs(n_blocks: int):
+def _decoder_pairs(p: dict):
+    """(torch_key, flax_path, kind) triples of a NeRV/HNeRV decoder: a
+    block's batch norm (``dec_norm: batch``) where the tree holds one."""
     out = [("decoder.0", ("decoder0",), "conv")]
-    for i in range(n_blocks):
+    for i in range(sum(1 for k in p if k.startswith("blocks_"))):
         out.append((f"decoder.{i + 1}.conv.0", (f"blocks_{i}", "conv"),
                     "conv"))
+        if "norm_fn" in p[f"blocks_{i}"]:
+            out.append((f"decoder.{i + 1}.norm", (f"blocks_{i}", "norm_fn"),
+                        "norm"))
     out.append(("head_layer", ("head_layer",), "conv"))
     return out
+
+
+# a NeRVBlock's norm in the reference key layout: decoder.{i}.norm (HNeRV,
+# NeRV), dec_exc_layers.norm and dec_layers.{i}.norm (PNeRV)
+_BLOCK_NORM = re.compile(r"^(decoder\.\d+|dec_exc_layers|dec_layers\.\d+)"
+                         r"\.norm\.")
+
+
+def is_block_norm(key: str) -> bool:
+    """Whether a state-dict key is a decoder block's norm parameter, which
+    the JAX package's checkpoints and artifacts do not carry."""
+    return _BLOCK_NORM.match(key) is not None
 
 
 def _pnerv_pairs(p: dict):
@@ -90,9 +119,14 @@ def _pnerv_pairs(p: dict):
         out.append((f"{base}.gamma", ("encoder", blk), "gamma"))
     out.append((f"enc_layers.{3 * n_stages}", ("encoder", "proj"), "conv"))
     out.append(("dec_exc_layers.conv.0", ("dec_exc", "conv"), "conv"))
+    if "norm_fn" in p["dec_exc"]:
+        out.append(("dec_exc_layers.norm", ("dec_exc", "norm_fn"), "norm"))
     for i in range(sum(1 for k in p if k.startswith("dec_layers_"))):
         out.append((f"dec_layers.{i}.conv.0", (f"dec_layers_{i}", "conv"),
                     "conv"))
+        if "norm_fn" in p[f"dec_layers_{i}"]:
+            out.append((f"dec_layers.{i}.norm", (f"dec_layers_{i}",
+                                                 "norm_fn"), "norm"))
     for i in range(sum(1 for k in p if k.startswith("shortcuts_"))):
         out.append((f"dec_shortcuts.{3 * i}", (f"shortcuts_{i}",), "raw"))
         out.append((f"dec_shortcuts.{3 * i + 1}", (f"shortcut_norms_{i}",),
@@ -141,7 +175,7 @@ def state_dict_from_jax(arch: str, params_np) -> "OrderedDict":
             pairs += _convnext_pairs(
                 sum(1 for k in enc if k.startswith("down_conv_")),
                 sum(1 for k in enc if k.startswith("stage_0_block_")))
-        pairs += _decoder_pairs(sum(1 for k in p if k.startswith("blocks_")))
+        pairs += _decoder_pairs(p)
     else:
         raise NotImplementedError(f"state-dict conversion for arch {arch!r}")
 

@@ -10,8 +10,10 @@ at PNeRV Bunny-3M's entry (c = 100) and sigmoid head, on one NVIDIA GPU.
 
 --dtype picks the instantiations: fp32 (rows 3-6 of PERF.md's kernel
 table) or bf16 (rows 3b-6b: pack_cf from fp32 at batch 1 and from bf16 at
-batch 2, unpack_cf back to bf16 and to fp32, unpack_frames from bf16 to
-fp32 and to bf16 frames), at the shapes chip_smoke.py's phases launch them.
+batch 2, unpack_cf back to bf16 and to fp32 at batch 2, PNeRV's c = 100
+entry too, unpack_frames from bf16 to fp32 and to bf16 frames), at the
+shapes chip_smoke.py's phases launch them. The closing summary gives each
+shape's byte bound beside its times.
 
 Each --root is a checkout of this repository (default: the one this script
 lies in); with several, they are timed in turns inside the one process
@@ -257,7 +259,8 @@ def _cases(torch, tf, dtype):
         pack(label, p, c, 2, bf, bf)
     for dst in (bf, f32):
         for label, p, c in (("prefix entry", pplan, 64),
-                            ("tail entry", plan, 53)):
+                            ("tail entry", plan, 53),
+                            ("PNeRV entry", nplan, 100)):
             unpack(label, p, c, 2, bf, dst)
     for dst in (f32, bf):
         frames("decode", plan, f, 1, "tanh", bf, dst)
@@ -479,8 +482,9 @@ def _sweep(torch, tf, dtype):
 def _sweep_bf16(torch, tf):
     """Hot and cold device ms of the bf16 launchers at other tiles than the
     wrappers choose: pack_cf (positions per tile) at the tail, prefix and
-    PNeRV entries from fp32 at batch 1 and from bf16 at batch 2,
-    unpack_frames (columns per tile of one output row; at the widest also
+    PNeRV entries from fp32 at batch 1 and from bf16 at batch 2, unpack_cf
+    (positions per tile) at the same entries from bf16 at batch 2 to bf16
+    and to fp32, unpack_frames (columns per tile of one output row; at the widest also
     out_img's offset form) at the decode to fp32 and bf16 frames and on
     the width-tiled plan."""
     f32, bf = torch.float32, torch.bfloat16
@@ -522,6 +526,32 @@ def _sweep_bf16(torch, tf):
                              cold_ms=cold))
             print(f"  sweep pack_cf {label} {_name(src)} -> bf16 batch {b} "
                   f"tm={tm}: hot {_fmt(hot)} cold {_fmt(cold)}")
+    for label, p, c in (("tail entry", plan, 53),
+                        ("prefix entry", pplan, 64),
+                        ("PNeRV entry", nplan, 100)):
+        c8 = tf._r8(c)
+        for dst in (bf, f32):
+            nbytes = (2 + dst.itemsize) * 2 * c * p.h * p.w
+
+            def make(i, p=p, c=c, c8=c8, dst=dst):
+                gen = torch.Generator(device=dev).manual_seed(i)
+                return (torch.randn((2, c8, p.mp), generator=gen,
+                                    device=dev).to(bf),
+                        torch.empty((2, p.h, p.w, c), device=dev,
+                                    dtype=dst))
+            for tq in (32, 56, 64, 104, 128, 200, 256):
+                smem = tf._unpack_cf_bf16_smem(tq, p.w, p.pad, c)
+                if smem > tf.SMEM_PER_BLOCK:
+                    continue
+                prm, addr = tf._c_ints(2, p.h, p.w, c, c8, p.pad, p.mp, tq,
+                                       1, tf._TYPE_CODES[dst], smem)
+                hot, cold = timed(make, lambda g, o, a=addr: lib.nq_unpack_cf(
+                    g.data_ptr(), o.data_ptr(), a, stream), nbytes)
+                rows.append(dict(kernel="unpack_cf_bf16", shape=label,
+                                 batch=2, dst=_name(dst), tile=tq,
+                                 hot_ms=hot, cold_ms=cold))
+                print(f"  sweep unpack_cf {label} bf16 -> {_name(dst)} batch "
+                      f"2 tq={tq}: hot {_fmt(hot)} cold {_fmt(cold)}")
     for label, p, ff, b in (("decode", plan, f, 1),
                             ("width-tiled plan", wplan, wf, 2)):
         g = 3 * ff
@@ -637,8 +667,8 @@ def main() -> int:
                 print(f"  {r['kernel']} {r['shape']}: ms {r['ms']:.4f} hot "
                       f"{_fmt(r['hot_ms'])} cold {_fmt(r['cold_ms'])} "
                       f"(library {_fmt(r['library_hot_ms'])} / "
-                      f"{_fmt(r['library_cold_ms'])}) host_us "
-                      f"{r['host_us']:.2f}")
+                      f"{_fmt(r['library_cold_ms'])}) bound "
+                      f"{r['bound_ms']:.4f} host_us {r['host_us']:.2f}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(dict(card=card, dtype=args.dtype, rows=rows, host_split={

@@ -1356,6 +1356,64 @@ def test_unpack_cf_bf16(dev, case, out):
     assert torch.equal(got, tf.unpack_cf_ref(g, plan, c, dt))
 
 
+def _nan_pads(g, plan, c):
+    """NaN in the border ring, the channel pad and the tail pad of a
+    (B, c8, Mp) input: a pad element that reached the output would show."""
+    live = tf.border_mask(plan, device=g.device).reshape(-1) > 0
+    g[:, :, ~live] = float("nan")
+    g[:, c:] = float("nan")
+    return g
+
+
+@pytest.mark.parametrize("out", ["fp32", "bf16"])
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("case", [*((f"f2_w{w}", c, 2) for w in (13, 131)
+                                    for c in (1, 3, 7, 9)),
+                                  ("bunny", 53, 2), ("bunny_prefix", 64, 2),
+                                  ("pnerv_bunny", 100, 2)], ids=case_id)
+def test_unpack_cf_bf16_edges(dev, case, offset, out):
+    """The bf16 unpack_cf kernel at c = 1, 3, 7, 9 on images 13 and 131
+    wide, and at the Bunny-3M step's two entries and PNeRV's c = 100 entry,
+    the input 1, 3 or 7 elements past a 16-byte boundary: its bulk copies
+    start on the boundary before it; exact, to fp32 and to bf16."""
+    name, c, nb = case
+    plan, _ = layout_plan(name)
+    g = _nan_pads(_rand_as(dev, (nb, tf._r8(c), plan.mp), c + offset,
+                           offset, BF16), plan, c)
+    dt = torch.float32 if out == "fp32" else BF16
+    tf.reset_launch_counts()
+    got = tf.unpack_cf(g, plan, c, dt)
+    torch.cuda.synchronize()
+    assert tf.KERNEL_LAUNCHES["unpack_cf_bf16"] == 1
+    assert got.dtype == dt and not bool(got.isnan().any())
+    assert torch.equal(got, tf.unpack_cf_ref(g, plan, c, dt))
+
+
+@pytest.mark.parametrize("tq", [8, 16, 56, 64, 128, 200, 256])
+@pytest.mark.parametrize("name,c", [("f2_w13", 9), ("small", 7),
+                                    ("f2_w131", 3), ("tiny", 17),
+                                    ("bunny", 53), ("pnerv_bunny", 100)])
+def test_unpack_cf_bf16_other_tiles(dev, name, c, tq):
+    """The launcher at every tile it takes, whatever the geometry picks:
+    tiles wider than the image (they cross many rows and their border
+    columns) and narrower; exact, to bf16 and to fp32."""
+    plan, _ = layout_plan(name)
+    lib = tf._cuda.lib()
+    c8 = tf._r8(c)
+    g = _nan_pads(_rand_as(dev, (2, c8, plan.mp), tq + c, 0, BF16), plan, c)
+    smem = tf._unpack_cf_bf16_smem(tq, plan.w, plan.pad, c)
+    for dt in (BF16, torch.float32):
+        out = torch.full((2, plan.h, plan.w, c), float("nan"), device=dev,
+                         dtype=dt)
+        prm, addr = tf._c_ints(2, plan.h, plan.w, c, c8, plan.pad, plan.mp,
+                               tq, 1, tf._TYPE_CODES[dt], smem)
+        err = lib.nq_unpack_cf(g.data_ptr(), out.data_ptr(), addr,
+                               torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0, tf._cuda.error_string(err)
+        assert torch.equal(out, tf.unpack_cf_ref(g, plan, c, dt)), dt
+
+
 @pytest.mark.parametrize("out", ["fp32", "bf16"])
 @pytest.mark.parametrize("out_bias", ["sigmoid", "tanh", "0.5"])
 @pytest.mark.parametrize("case", UNPACK_CASES, ids=case_id)
