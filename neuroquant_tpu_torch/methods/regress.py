@@ -46,7 +46,8 @@ from neuroquant_tpu_torch.parallel.mesh import (
 from neuroquant_tpu_torch.schedules import make_lr_schedule
 from neuroquant_tpu_torch.utils.convert import save_pth
 from neuroquant_tpu_torch.utils.device import resolve_device, synchronize
-from neuroquant_tpu_torch.utils.profiling import profile_trace, summarize_trace
+from neuroquant_tpu_torch.utils.profiling import (
+    profile_trace, span, summarize_trace)
 
 
 def parse_args(argv):
@@ -192,14 +193,17 @@ def make_train_epoch(model, loss_type, opt, schedule, frames,
             if qat_fn is not None:      # the same draws on every rank
                 qat_fn(params, generator=qat_generator, training=True)
             return
-        img = frames[idx]
-        pred = predict(inputs[idx])
-        loss = loss_fn(pred, img, loss_type)
-        share = None if mesh is None else len(idx) / batch_size
-        if share is not None:
-            loss = loss * share
-        loss.backward()
-        with torch.no_grad():
+        with span("forward"):
+            pred = predict(inputs[idx])
+        with span("loss"):
+            img = frames[idx]
+            loss = loss_fn(pred, img, loss_type)
+            share = None if mesh is None else len(idx) / batch_size
+            if share is not None:
+                loss = loss * share
+        with span("backward"):
+            loss.backward()
+        with span("loss"), torch.no_grad():
             losses[s] = loss
             psnr = psnr_fn_single(pred, img).mean()
             psnrs[s] = psnr if share is None else psnr * share
@@ -214,11 +218,14 @@ def make_train_epoch(model, loss_type, opt, schedule, frames,
         losses = frames.new_zeros(steps_per_epoch)
         psnrs = frames.new_zeros(steps_per_epoch)
         for s in range(steps_per_epoch):
-            for group in opt.param_groups:
-                group["lr"] = schedule(step0 + s)
-            opt.zero_grad(set_to_none=True)
-            step(shard_batch(batches[s], mesh), s, losses, psnrs)
-            opt.step()
+            with span("step"):
+                with span("optim"):
+                    for group in opt.param_groups:
+                        group["lr"] = schedule(step0 + s)
+                    opt.zero_grad(set_to_none=True)
+                step(shard_batch(batches[s], mesh), s, losses, psnrs)
+                with span("optim"):
+                    opt.step()
         if mesh is not None:
             both = all_reduce_sum(torch.stack([losses, psnrs]), mesh)
             losses, psnrs = both[0], both[1]

@@ -34,6 +34,7 @@ from neuroquant_tpu_torch.ops.tail_fused import (
     cf_to_nhwc, pack_cf, pack_prefix_block, plan_and_pack, prefix_cf_to_nhwc,
     PIECE, _run, prepare_tail, resolve_impl, run_fused_tail_cf,
     run_fused_tail_frames, tail_apply_fo)
+from neuroquant_tpu_torch.utils.profiling import span
 
 
 class DecoderShape:
@@ -362,25 +363,33 @@ class NeRVDecoder(KeptKernelWeights, nn.Module):
         output after its (fc_h, fc_w) shuffle, each block's output]. The
         unit-scope calibration reads its units' inputs and outputs there
         (``quantization/calib_unit.py``). HNeRV's shuffle is (1, 1), so its
-        embeds[1] is decoder[0]'s conv output, as in JAX."""
+        embeds[1] is decoder[0]'s conv output, as in JAX.
+
+        Spans (``utils.profiling.span``): ``decode`` round the call, and on
+        the kernel path ``prefix`` and ``tail`` (the tail's weights, plan,
+        checks and launches)."""
         c = self.cfg
-        if return_embeds:
+        with span("decode"):
+            if return_embeds:
+                x = self._layer0(img_embed)
+                embeds = [img_embed, x]
+                for blk in self.blocks:
+                    x = blk(x)
+                    embeds.append(x)
+                return out_img(self.head_layer(x), c.out_bias), embeds
+            impl = self._fused_impl()
+            if impl == "pallas_hvp":
+                return self.decode_jvp(img_embed)[0]
+            if impl is not None:
+                with span("prefix"):
+                    x = self._prefix(img_embed, impl)
+                with span("tail"):
+                    return run_fused_tail_frames(x, self._tail_weights(x),
+                                                 c.out_bias)
             x = self._layer0(img_embed)
-            embeds = [img_embed, x]
             for blk in self.blocks:
                 x = blk(x)
-                embeds.append(x)
-            return out_img(self.head_layer(x), c.out_bias), embeds
-        impl = self._fused_impl()
-        if impl == "pallas_hvp":
-            return self.decode_jvp(img_embed)[0]
-        if impl is not None:
-            x = self._prefix(img_embed, impl)
-            return run_fused_tail_frames(x, self._tail_weights(x), c.out_bias)
-        x = self._layer0(img_embed)
-        for blk in self.blocks:
-            x = blk(x)
-        return out_img(self.head_layer(x), c.out_bias)
+            return out_img(self.head_layer(x), c.out_bias)
 
     def forward(self, x):
         return self.decode(self.encode(x))

@@ -46,7 +46,8 @@ backward is the JAX ``_tail_apply_bwd``: dW/db from ``tail_conv_dw_cf``,
 dx from ``tail_conv_cf`` on the tap-reversed, channel-swapped kernel with
 the GELU' epilogue; ``pack_cf``'s backward is ``unpack_cf``;
 ``unpack_frames``'s is the VJP of its plain version, as in JAX. All three
-backwards are first-order: a second derivative through them raises.
+backwards are first-order: a second derivative through them raises, and
+each runs in a ``tail`` span (``utils.profiling.span``).
 Hessian-vector products take the forward-mode tail instead,
 :func:`tail_apply_fo` (the JAX ``tail_apply_fo``): the tangent carried
 layer by layer through first-order conv Functions (``conv_p``), so the
@@ -91,6 +92,7 @@ from neuroquant_tpu_torch.ops.packed_decode import (
     compose_shuffle_perm, depth_to_space, identity_perm, pack_conv_kernel,
     packed_kernel_geometry, packed_sparse_taps, space_to_depth,
 )
+from neuroquant_tpu_torch.utils.profiling import span
 
 # kernel launches per wrapper, since the last reset_launch_counts()
 # (fq_uaq, fq_ada and their _bwd: ops/fused_fakequant.py's grouped forward
@@ -678,8 +680,9 @@ class _PackCF(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return unpack_cf(g.contiguous(), ctx.plan, ctx.c, ctx.dtype), None, \
-            None
+        with span("tail"):
+            return unpack_cf(g.contiguous(), ctx.plan, ctx.c, ctx.dtype), \
+                None, None
 
 
 def _needs_grad(*tensors) -> bool:
@@ -1318,6 +1321,11 @@ class _TailApply(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_out):
+        with span("tail"):
+            return _TailApply._backward(ctx, g_out)
+
+    @staticmethod
+    def _backward(ctx, g_out):
         plan, n = ctx.plan, ctx.n
         saved = ctx.saved_tensors
         inputs, kks, pre = saved[:n], saved[n:2 * n], list(saved[2 * n:])
@@ -1743,7 +1751,7 @@ class _UnpackFrames(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (z,) = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("tail"), torch.enable_grad():
             zz = z.detach().requires_grad_()
             (dz,) = torch.autograd.grad(unpack_frames_ref(zz, *ctx.args),
                                         zz, g)

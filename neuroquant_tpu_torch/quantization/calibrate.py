@@ -55,6 +55,7 @@ from neuroquant_tpu_torch.quantization.qmodel import (
 )
 from neuroquant_tpu_torch.quantization.spec import QuantSpec
 from neuroquant_tpu_torch.utils.device import synchronize
+from neuroquant_tpu_torch.utils.profiling import span
 
 LOG_EVERY = 500     # steps between the loss log lines
 
@@ -135,28 +136,31 @@ def make_loss(model, params, spec: QuantSpec, mode: str, p: float = 2.0,
         for k, v in params.items() if k not in keys}
 
     def loss(state, img, inputs, count, share=None, extra=True):
-        qp = quantize_params(params, spec, state, mode=mode, soft=True)
-        swap = {f"model.{k}": qp[k] for k in keys}
-        if compute_dtype is not None:
-            swap = {**fixed, **{k: v.to(compute_dtype)
-                                for k, v in swap.items()}}
-            inputs = inputs.to(compute_dtype)
-        pred = functional_call(dec, swap, (inputs,)).float()
-        if cf_pack is not None:
-            diff = (pred - img) * cf_mask
-            d = diff * diff if p == 2.0 else torch.abs(diff) ** p
-            # == lp_loss on the unpacked NHWC image: sum over channels,
-            # mean over B*H*W
-            rec = d.sum() / (img.shape[0] * cf_denom)
-        else:
-            rec = lp_loss(pred, img, p=p)
-        if share is not None:
-            rec = rec * share
-        rnd, b = (loss_extra(state, count) if loss_extra is not None
-                  else (0.0, 0.0))
-        if not extra:
-            rnd = 0.0
-        return rec + rnd, (rec, rnd, b)
+        with span("fakequant"):
+            qp = quantize_params(params, spec, state, mode=mode, soft=True)
+            swap = {f"model.{k}": qp[k] for k in keys}
+            if compute_dtype is not None:
+                swap = {**fixed, **{k: v.to(compute_dtype)
+                                    for k, v in swap.items()}}
+                inputs = inputs.to(compute_dtype)
+        with span("forward"):
+            pred = functional_call(dec, swap, (inputs,)).float()
+        with span("loss"):
+            if cf_pack is not None:
+                diff = (pred - img) * cf_mask
+                d = diff * diff if p == 2.0 else torch.abs(diff) ** p
+                # == lp_loss on the unpacked NHWC image: sum over channels,
+                # mean over B*H*W
+                rec = d.sum() / (img.shape[0] * cf_denom)
+            else:
+                rec = lp_loss(pred, img, p=p)
+            if share is not None:
+                rec = rec * share
+            rnd, b = (loss_extra(state, count) if loss_extra is not None
+                      else (0.0, 0.0))
+            if not extra:
+                rnd = 0.0
+            return rec + rnd, (rec, rnd, b)
 
     return loss
 
@@ -202,7 +206,8 @@ def _run_phase(*, loss, state, cali_data, gt, trainable_keys, lr, epochs,
         else:
             zero = gt.new_zeros(())
             return zero, zero, zero, 0.0
-        total.backward()
+        with span("backward"):
+            total.backward()
         return total, rec, rnd, b
 
     step = data_parallel_step(local_step, mesh, leaves)
@@ -213,9 +218,13 @@ def _run_phase(*, loss, state, cali_data, gt, trainable_keys, lr, epochs,
             steps_per_epoch, batch_size)                # drop_last=True
         for s in range(steps_per_epoch):
             count += 1
-            opt.zero_grad(set_to_none=True)
-            total, rec, rnd, b = step(shard_batch(batches[s], mesh), count)
-            opt.step()
+            with span("step"):
+                with span("optim"):
+                    opt.zero_grad(set_to_none=True)
+                total, rec, rnd, b = step(shard_batch(batches[s], mesh),
+                                          count)
+                with span("optim"):
+                    opt.step()
             if count % LOG_EVERY == 0:
                 logged = all_reduce_sum(torch.stack([
                     torch.as_tensor(v, dtype=gt.dtype, device=gt.device)

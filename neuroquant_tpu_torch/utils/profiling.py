@@ -2,12 +2,19 @@
 
 ``profile_trace`` wraps a region in a ``torch.profiler`` trace (the host's
 operators, and the card's kernels where there is one) and writes it as a
-Chrome trace under a directory; ``summarize_trace`` groups the newest
-trace's device time by kernel name; ``device_rows`` does the same for a
-profile's ``key_averages()``. ``Timer`` logs a wall-clock counter as the
-reference's timers do. ``queued_ms`` and ``hot_cold`` time calls on the
-card by CUDA events without the host setting the pace (the event method of
+Chrome trace under a directory, the program's spans beside them;
+``summarize_trace`` groups the newest trace's device time by kernel name;
+``device_rows`` does the same for a profile's ``key_averages()``.
+``queued_ms`` and ``hot_cold`` time calls on the card by CUDA events
+without the host setting the pace (the event method of
 ``scripts/torch_layout_bench.py`` and ``chip_smoke.py``).
+
+``span(name)`` marks a layer of the program (a decode call or a training
+step, and within it the fake-quant, the forward, the loss, the backward,
+the optimizer, the decoder's prefix and tail) on the clock of the
+profiler's events; ``spans()`` returns what was recorded. Spans record
+only while a ``torch.profiler`` window is open: outside one a span costs
+one check of the profiler's state.
 
 Device time counts the card's kernels and copies only: a user-annotated
 range (``Optimizer.step#Adam.step``, a ``record_function`` region) also
@@ -19,11 +26,16 @@ from __future__ import annotations
 import collections
 import contextlib
 import glob
+import itertools
 import json
 import logging
 import math
 import os
+import threading
 import time
+from typing import NamedTuple
+
+import torch
 
 # trace event categories of work on the card
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -31,43 +43,141 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 COLD_BYTES = 128e6
 
 
-class Timer:
-    """Wall-clock timer logging like the reference's counters."""
+# --------------------------------------------------------------------------
+# Spans: the program's layers on the clock of the profiler's events, which
+# kineto gives in Unix-epoch ns, the base of ``time.time_ns``: on an H100
+# every CUDA runtime launch call of a span lies inside it on that clock
+# (``scripts/torch_span_clock.py``). The profiler's state is per thread;
+# autograd's threads take the calling thread's.
+# --------------------------------------------------------------------------
+_profiling = torch.autograd._profiler_enabled
 
-    def __init__(self, label: str, log_fn=logging.info):
-        self.label = label
-        self.log_fn = log_fn
+_RECORDED = []      # Span fields, in the order the spans closed
+_OPEN = {}          # native thread id -> [(id, step, start), ...] open there
+_IDS = itertools.count(1)
+_THREAD = threading.local()     # this thread's native id and open stack
+
+
+class Span(NamedTuple):
+    """A recorded span. Times in Unix-epoch ns, the base of the profiler's
+    events; `id`, `parent` (None for a root) and `step` (the root's id,
+    shared by every span of one decode call or training step) are span
+    ids; `thread` is the native id of the thread it ran on."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    step: int
+    thread: int
+
+
+class _Off:
+    """What :func:`span` returns outside a profiler window."""
+    __slots__ = ()
 
     def __enter__(self):
-        self.t0 = time.time()
-        return self
+        return None
 
     def __exit__(self, *exc):
-        self.elapsed = time.time() - self.t0
-        self.log_fn("{}: {}".format(self.label, self.elapsed))
         return False
+
+
+_OFF = _Off()
+
+
+def _caller(tid: int):
+    """(parent, step) of a span opened on thread `tid` with no span open
+    there: the innermost open span of the thread that opened its span
+    last, which is the thread that called ``backward()`` for a span on
+    autograd's thread; (None, None) where no other thread has one open."""
+    top = None
+    for t, stack in list(_OPEN.items()):
+        if t != tid and stack and (top is None or stack[-1][2] > top[2]):
+            top = stack[-1]
+    return (None, None) if top is None else top[:2]
+
+
+class _On:
+    __slots__ = ("name", "tid", "parent", "stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        mine = _THREAD.__dict__
+        if not mine:        # a thread's first span: its id, once
+            mine["tid"] = threading.get_native_id()
+            mine["stack"] = _OPEN.setdefault(mine["tid"], [])
+        tid = self.tid = mine["tid"]
+        stack = self.stack = mine["stack"]
+        parent, step = stack[-1][:2] if stack else _caller(tid)
+        sid = next(_IDS)
+        self.parent = parent
+        stack.append((sid, sid if step is None else step, time.time_ns()))
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        sid, step, start = self.stack.pop()
+        _RECORDED.append((self.name, start, end, sid, self.parent, step,
+                          self.tid))
+        return False
+
+
+def span(name: str):
+    """A context manager that records `name` over the enclosed code while a
+    ``torch.profiler`` window is open, nested under the span open on this
+    thread (or, on a thread with none, under the one the calling thread
+    has open); outside a window it records nothing and allocates
+    nothing."""
+    if not _profiling():
+        return _OFF
+    return _On(name)
+
+
+def spans() -> list:
+    """Every span recorded so far, in the order they closed."""
+    return [Span(*r) for r in list(_RECORDED)]
+
+
+def _write_spans(path: str, rows) -> None:
+    """Add `rows` to the Chrome trace at `path` as complete events on the
+    host's pid and each span's thread, beside the profiler's own."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    trace.setdefault("traceEvents", []).extend(
+        {"ph": "X", "cat": "span", "name": r.name, "pid": pid,
+         "tid": r.thread, "ts": (r.start_ns - base) / 1e3,
+         "dur": (r.end_ns - r.start_ns) / 1e3,
+         "args": {"id": r.id, "parent": r.parent, "step": r.step}}
+        for r in rows)
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str, enabled: bool = True):
     """``torch.profiler`` trace of the enclosed region, written to
-    ``log_dir/trace_<time>.json`` (Chrome trace format). The caller
-    synchronizes the card inside the region, so that its kernels end in
-    it."""
+    ``log_dir/trace_<time>.json`` (Chrome trace format) with the spans
+    recorded in it. The caller synchronizes the card inside the region, so
+    that its kernels end in it."""
     if not enabled:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    before = len(_RECORDED)
     with profile(activities=activities) as prof:
         yield
     path = os.path.join(log_dir, time.strftime("trace_%Y%m%d_%H%M%S.json"))
     prof.export_chrome_trace(path)
+    _write_spans(path, spans()[before:])
     logging.info("profiler trace written to %s", path)
 
 
@@ -114,8 +224,6 @@ def queued_ms(calls, n: int = 50, tries: int = 3):
     had enqueued the last is paced by the host: it is taken again behind a
     sleep four times as long, up to `tries` windows; None when none was
     queued whole."""
-    import torch
-
     for c in calls:
         c()
     torch.cuda.synchronize()
