@@ -241,11 +241,13 @@ CALIB_ITERS = 80     # batch 2 over 8 frames: 1 phase-1 and 19 phase-2 epochs
 # a calibration step's launches: 4 convs forward and 4 dx passes (the fused
 # prefix block and the tail's three layers), their 4 dW passes, the two
 # entries' pack_cf and its backward; the packed loss needs no unpack
+# (tail_conv_cf_wgmma: every fp32 conv launch, on the TMA and wgmma design)
 PER_STEP = {"tail_conv_cf": 8, "tail_conv_dw_cf": 4, "pack_cf": 2,
             "unpack_cf": 2, "unpack_frames": 0, "fq_uaq": 0, "fq_ada": 0,
             "fq_uaq_bwd": 0, "fq_ada_bwd": 0, "tail_conv_cf_bf16": 0,
             "tail_conv_dw_cf_bf16": 0, "pack_cf_bf16": 0,
-            "unpack_cf_bf16": 0, "unpack_frames_bf16": 0}
+            "unpack_cf_bf16": 0, "unpack_frames_bf16": 0,
+            "tail_conv_cf_wgmma": 8}
 # with fq_impl='pallas' a step's quantize_params adds one grouped
 # fake-quant launch over its seven layers and one backward launch: fq_uaq
 # and fq_uaq_bwd in phase 1, fq_ada and fq_ada_bwd in phase 2
@@ -333,10 +335,12 @@ _CONFIGS = {"hnerv": HNERV_CONFIG, "nerv": NERV_CONFIG,
 # dW passes, one pack_cf and its backward; a decode's two convs, one pack_cf
 # and one unpack_frames
 PNERV_PER_STEP = dict(PER_STEP, tail_conv_cf=4, tail_conv_dw_cf=2, pack_cf=1,
-                      unpack_cf=1)
+                      unpack_cf=1, tail_conv_cf_wgmma=4)
 PER_DECODE = {k: 0 for k in PER_STEP}
-PER_DECODE.update(tail_conv_cf=4, pack_cf=2, unpack_frames=1)
-PNERV_PER_DECODE = dict(PER_DECODE, tail_conv_cf=2, pack_cf=1)
+PER_DECODE.update(tail_conv_cf=4, pack_cf=2, unpack_frames=1,
+                  tail_conv_cf_wgmma=4)
+PNERV_PER_DECODE = dict(PER_DECODE, tail_conv_cf=2, pack_cf=1,
+                        tail_conv_cf_wgmma=2)
 FQ_GROUP = 16        # layers one fake-quant launch takes (MAX_LAYERS)
 # the port's own kernels, by their CUDA function names, in a profile
 PORT_KERNELS = ("tail_conv", "dw_reduce", "pack_cf", "unpack_cf",
@@ -395,6 +399,7 @@ def _bf16(counts: dict) -> dict:
     out = dict(counts)
     for k in BF16_KERNELS:
         out[k + "_bf16"], out[k] = out[k], 0
+    out["tail_conv_cf_wgmma"] = 0
     return out
 
 
@@ -534,7 +539,8 @@ def _conv_extra(tf, p, layer, batch, nbytes, flops):
     return dict(bound_tc_ms=_bound_tc(nbytes, flops),
                 useful_gmac=flops / 2e9,
                 executed_gmac=tf.conv_executed_macs(p, layer, batch) / 1e9,
-                k_splits=tf._conv_split(layer.cout, p.mp, batch, len(steps)))
+                k_splits=tf.conv_f32_geometry(layer.cout, p.mp, batch,
+                                              len(steps))["splits"])
 
 
 def _max_err(got, want):
@@ -1407,8 +1413,8 @@ def _calibrate_phase(torch, tf, cfg, sd, frames_dir, card, work, fq_impl,
         elif name.endswith("_bf16"):
             want = bf16 and name != "unpack_frames_bf16"
         else:
-            want = not bf16 or name in ("tail_conv_cf", "pack_cf",
-                                        "unpack_frames")
+            want = not bf16 or name in ("tail_conv_cf", "tail_conv_cf_wgmma",
+                                        "pack_cf", "unpack_frames")
         assert (n > 0) == want, (name, launches)
     print(f"  calibrate_network --fq_impl {fq_impl}"
           f"{' --compute_dtype bfloat16' if bf16 else ''}: {CALIB_ITERS} "

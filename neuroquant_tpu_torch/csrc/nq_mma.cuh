@@ -1,6 +1,7 @@
-// Tensor-core products and asynchronous copies of the fp32 conv kernels,
-// shared by tail_conv_cf.cu and tail_conv_dw_cf.cu: the product at fp32
-// accuracy (3xTF32) on mma.sync, and cp.async.
+// Tensor-core products and asynchronous copies of the fp32 dW kernel on
+// mma.sync (tail_conv_dw_cf.cu; the fp32 conv, 3xTF32 on TMA and wgmma, is
+// in tail_conv_cf.cu and nq_tma.cuh, its split nq_split_rna): the product
+// at fp32 accuracy (3xTF32) on mma.sync, and cp.async.
 //
 // A TF32 operand keeps 10 mantissa bits, so one TF32 product alone is ~1e-3
 // accurate. Each fp32 operand v is split into big = v with its low 13
@@ -15,8 +16,8 @@
 // the fp32 adders, round to nearest.
 //
 // The library is built with none of these defined. They select variants
-// that scripts/torch_conv_variants.py builds and times beside it, to keep
-// the reasons for the choices above measurable:
+// that scripts/torch_conv_variants.py builds and times beside it (at the dW
+// shapes), to keep the reasons for the choices above measurable:
 //   NQ_SPLIT_RNA  split by two cvt.rna.tf32.f32 (round to nearest) instead
 //                 of the mask: the same error, slower
 //   NQ_ACC_IN_TC  accumulate all three products in the tensor core's
@@ -28,6 +29,11 @@
 //   A (16x8, row): a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   B (8x8, col):  b0 (k=t, n=g)  b1 (k=t+4, n=g)
 //   C (16x8):      c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+//
+// The fp32 conv on wgmma (tail_conv_cf.cu) promotes as the bf16 dW kernel
+// below does: each stage's 12 TF32 products (4 k8 slices, three products
+// each) chain in the tensor core from zero and the stage's fragment joins
+// the running sum by the fp32 adders, once a stage of 32 K rows.
 //
 // The bf16 kernels multiply with wgmma from shared memory (nq_tma.cuh),
 // bf16 operands rounded to nearest even by whoever made them

@@ -1,7 +1,15 @@
-// Hopper building blocks of the bf16 conv kernels (tail_conv_cf.cu,
-// tail_conv_dw_cf.cu): TMA tensor copies into shared memory, mbarriers,
-// warpgroup products (wgmma) from shared memory, and the host-side
-// encoding of the tensor maps. sm_90a only.
+// Hopper building blocks of the conv kernels on TMA (tail_conv_cf.cu in
+// bf16 and fp32, tail_conv_dw_cf.cu in bf16): TMA tensor copies into
+// shared memory, mbarriers, warpgroup products (wgmma; bf16 from shared
+// memory, TF32 with A from registers), and the host-side encoding of the
+// tensor maps. sm_90a only.
+//
+// TF32 (the fp32 conv's 3xTF32): wgmma reads a TF32 operand from shared
+// memory only K-major (no transpose flag): a 128-byte line holds 32 K
+// values of one row, a k8 slice starts 32 bytes further along it, as a
+// bf16 k16 slice does (the fp32 conv's weight rows, TMA-copied K-major).
+// A from registers has mma.m16n8k8's A fragment in each warp of the
+// warpgroup (rows 16 w..16 w + 15 for warp w; the fp32 conv's x).
 //
 // wgmma's shared-memory operands use the 128-byte swizzle: a line of 64
 // bf16 (128 bytes) per row, 8 rows to a 1024-byte atom, the 16-byte chunk
@@ -88,6 +96,17 @@ __device__ __forceinline__ void nq_fence_proxy_async() {
 
 __device__ __forceinline__ void nq_named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a warpgroup's registers a thread, raised or lowered (all its threads)
+template <int kRegs>
+__device__ __forceinline__ void nq_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void nq_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
 }
 
 // ---- TMA ------------------------------------------------------------------
@@ -226,6 +245,103 @@ __device__ __forceinline__ void nq_wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
+// v = hi + lo + (~2^-22 v): hi and lo each a TF32 value rounded to nearest
+// (cvt.rna), held as fp32 bits whose low 13 bits are zero
+__device__ __forceinline__ void nq_split_rna(float v, uint32_t& hi,
+                                             uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// d (+)= A * B over one k8 slice at TF32: A 64 x 8 from registers (the
+// fragment of mma.m16n8k8's A in each warp: a[0] (g, t), a[1] (g + 8, t),
+// a[2] (g, t + 4), a[3] (g + 8, t + 4)), B 8 x N (64, 96, 128) K-major
+// from shared memory, d fp32; scale_d 0 overwrites d
+__device__ __forceinline__ void nq_wgmma_tf32_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void nq_wgmma_tf32_n96(float (&d)[48],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void nq_wgmma_tf32_n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void nq_wgmma_tf32(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  if constexpr (N == 128)
+    nq_wgmma_tf32_n128(d, a, db, scale_d);
+  else if constexpr (N == 96)
+    nq_wgmma_tf32_n96(d, a, db, scale_d);
+  else
+    nq_wgmma_tf32_n64(d, a, db, scale_d);
+}
+
 // ---- tensor maps (host) -------------------------------------------------
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime so that
@@ -256,13 +372,14 @@ inline NqEncodeTiled nq_encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first; `strides` in
-// bytes for dimensions 1..rank-1), boxes of `box` elements, the 128-byte
-// swizzle or none, zeros outside the tensor. False when the driver refuses
-// it.
-inline bool nq_bf16_map(CUtensorMap* map, const void* base, int rank,
-                        const uint64_t* dims, const uint64_t* strides,
-                        const uint32_t* box, bool swizzle = true) {
+// A tensor map of `type` (bf16 or fp32) and `rank` dimensions (innermost
+// first; `strides` in bytes for dimensions 1..rank-1), boxes of `box`
+// elements, the 128-byte swizzle or none, zeros outside the tensor. False
+// when the CUDA driver refuses it.
+inline bool nq_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box,
+                          bool swizzle = true) {
   const NqEncodeTiled encode = nq_encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t d[3], s[2];
@@ -272,7 +389,7 @@ inline bool nq_bf16_map(CUtensorMap* map, const void* base, int rank,
     bx[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  return encode(map, type, (cuuint32_t)rank,
                 const_cast<void*>(base), d, s, bx, es,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -281,24 +398,36 @@ inline bool nq_bf16_map(CUtensorMap* map, const void* base, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+inline bool nq_bf16_map(CUtensorMap* map, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box, bool swizzle = true) {
+  return nq_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                       dims, strides, box, swizzle);
+}
+
 // x (B, C, Mp) as the 3-D map (Mp, C, B) the shifted boxes read, boxes
 // of `width` positions x 4, 8, 16, 32 rows (one map per height: map i
 // holds 4 << i rows), without swizzle: a box lands as rows of `width`
 // values. TMA takes a box's start along the positions only on a 16-byte
 // boundary (an H100 refuses any other with an illegal instruction), so a
-// box starts at the shifted position rounded down to a multiple of 8 and
-// holds 8 to 16 positions more than it serves; the consumers realign the
-// rows (nq_realign16). A start before 0 or a box past Mp reads zeros,
-// and no box reads into the neighbouring frame or past C.
+// box starts at the shifted position rounded down to a multiple of 8 (4
+// in fp32) and holds 8 to 16 (4 to 8) positions more than it serves; the
+// consumers realign the rows (nq_realign16 in bf16). A start before 0 or
+// a box past Mp reads zeros, and no box reads into the neighbouring frame
+// or past C.
 constexpr int NQ_BOX_HEIGHTS = 4;
 
 inline bool nq_x_maps(CUtensorMap* maps, const void* x, int batch, int c,
-                      int mp, int width) {
+                      int mp, int width,
+                      CUtensorMapDataType type =
+                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const uint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const uint64_t dims[3] = {(uint64_t)mp, (uint64_t)c, (uint64_t)batch};
-  const uint64_t strides[2] = {(uint64_t)mp * 2, (uint64_t)c * mp * 2};
+  const uint64_t strides[2] = {(uint64_t)mp * size,
+                               (uint64_t)c * mp * size};
   for (int i = 0; i < NQ_BOX_HEIGHTS; ++i) {
     const uint32_t box[3] = {(uint32_t)width, 4u << i, 1};
-    if (!nq_bf16_map(&maps[i], x, 3, dims, strides, box, false))
+    if (!nq_tensor_map(&maps[i], type, x, 3, dims, strides, box, false))
       return false;
   }
   return true;

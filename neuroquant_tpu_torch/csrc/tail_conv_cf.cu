@@ -16,47 +16,65 @@
 // positions outside [0, Mp) read zero. The K axis is a host-built list of
 // steps of 4 rows, (flat shift, first channel, valid rows): the rows of a
 // step read consecutive channels at one shift, the rows past `valid rows`
-// read zero (their weight rows are zero too). The list covers the dense
-// taps of an f=1 layer or the union of nonzero blocks of a layer packed
-// with f >= 2, and pads to whole stages of 8 steps with empty steps. The dx
-// pass runs on the transposed layer: the same function on another list.
+// carry zero weight rows. The list covers the dense taps of an f=1 layer
+// or the union of nonzero blocks of a layer packed with f >= 2, and pads
+// to whole stages of 8 steps with empty steps. The dx pass runs on the
+// transposed layer: the same function on another list.
 //
-// Bound on the H100: operations at every layer but the head (8.7 / 25.2 /
-// 66.7 GFLOP per frame at HNeRV Bunny-3M; 0.13 / 0.38 / 1.0 ms at the
-// 67 TFLOP/s of the fp32 pipes, a third of that on the tensor cores with
-// three TF32 products per fp32 product at 495 TFLOP/s); the head by bytes
-// (~136 MB, 0.04 ms at 3.35 TB/s).
+// Bound on the H100: operations at every layer but the head, three TF32
+// products per fp32 product at 495 TFLOP/s (8.7 / 25.2 / 66.7 GFLOP of
+// useful work a frame at HNeRV Bunny-3M: 0.053 / 0.145 / 0.404 ms); the
+// head by bytes (~136 MB, 0.041 ms at 3.35 TB/s): 0.64 ms a decode.
 //
-// Design for that bound: an implicit GEMM out[cout, Mp] = W^T[cout, K] *
-// X[K, Mp] whose X operand is gathered by shifts, on the tensor cores at
-// fp32 accuracy (nq_mma.cuh: 3xTF32, mma.sync.m16n8k8).
-//  * A block of 8 warps (2 x 4) owns 128, 96 or 64 output channels x 128
-//    positions; a warp 64, 48 or 32 channels x 32 positions, as 16x8
-//    fragments (cout 176 takes two tiles of 96, cout 48 and 56 one of 64).
-//    A 16-channel fragment row wholly past cout is skipped; the warp grid
-//    puts the two channel halves on the same SM sub-partitions, so the
-//    skipped work is saved on each.
-//  * K is walked in stages of 32 rows through a ring of 3 or 4 stages in
-//    dynamic shared memory (92-106 KB, two blocks per SM). A stage is
-//    brought in by 16-byte cp.async copies: m0 + shift has no alignment, so
-//    an X row is copied from m0 + shift rounded down to a multiple of 4, 33
-//    vectors for 128 positions, and the multiply reads it at column +
-//    (shift & 3); zero-filled outside [0, Mp) and past a step's valid rows.
-//    The weight slab is contiguous. The loads of stage k+2 (k+3) are in
-//    flight while stage k is multiplied; one __syncthreads per stage.
-//  * Row strides of 136 / 72 floats (= 8 mod 32) make every fragment load
-//    hit 32 distinct banks.
-//  * act_in: each thread applies GELU to the values it copied itself, once,
-//    after its copies land and before the stage's barrier.
-//  * Epilogue from the accumulator fragments: bias, GELU'(out_mul), the
-//    border mask read once per thread from the (Mp) mask vector (no
-//    division), GELU for out_y, 8-byte stores that fill 32-byte sectors;
-//    'zy' writes both outputs from the one accumulator.
+// Design for that bound (nq_tma.cuh; a wgmma implicit GEMM, here out^T[Mp,
+// cout] = X^T[Mp, K] * W[K, cout], X gathered by shifts, the bf16
+// instantiation's x boxes at fp32 accuracy):
+//  * A block is one producer warpgroup and two consumer warpgroups, one
+//    block on each SM; its tile is 128 positions x NC channels, NC 64 for
+//    cout <= 64, else 96 or 128, whichever pads cout less (176 -> 192).
+//    Consumer w multiplies the positions 64 w.. with every channel
+//    (m64nNCk8): with the second set of sums the promotion below keeps,
+//    NC / 2 + NC / 2 registers a thread, so the tile stays under bf16's.
+//  * K is walked in stages of 32 rows (8 steps) through a ring of 4, 5 or
+//    6 stages filled by TMA under mbarriers (full: the copies' bytes
+//    landed; wready: the weights split; empty: the stage's products done).
+//    The x rows come as the bf16 kernel's boxes (the host's box plan in
+//    column 3 of the step list), 136 positions per 128 served from m0 +
+//    shift rounded down to 4 (a box starts on 16 bytes), unswizzled; the
+//    weight rows K-major (the host's operand is (cout, K rows), the one
+//    gather it makes either way), NC lines of 32 K values in the 128-byte
+//    swizzle.
+//  * wgmma reads a TF32 operand from shared memory only K-major, and A may
+//    come from registers. So B is the weights: the producer warpgroup
+//    splits each landed value into two TF32 parts rounded to nearest
+//    (cvt.rna: hi, then lo = rna(v - hi)), hi in place and lo beside it
+//    (elementwise, 16 bytes a thread: the swizzle moves nothing inside a
+//    chunk). A is x^T: each consumer thread loads its fragment straight
+//    from the staged rows at column + (shift & 3) (row stride 136 = 8 mod
+//    32: the 32 lanes' loads on 32 banks) and splits it in registers. No
+//    pass before the kernel and no transposition of x.
+//  * 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, ~2^-22 of the
+//    product, dropped), the small products first. The tensor core
+//    truncates as it accumulates (nq_mma.cuh), so the 12 products of one
+//    stage chain from zero (scale-d 0) and the stage's sum is added to the
+//    running sum by the fp32 adders, round to nearest, once its products
+//    are done; the other consumer's products run meanwhile.
+//  * act_in: GELU on each x value before its split.
+//  * Epilogue from the sums in registers: bias, GELU'(out_mul), the border
+//    mask, GELU for out_y, 4-byte stores, a warp's filling 32-byte
+//    sectors; 'zy' writes both outputs from the one sum.
 //  * A launch with too few tiles to fill the card (the prefix's dx pass:
-//    64 tiles, K = 21,200) splits K across blocks; each split writes its raw
-//    partial sums, and a second pass in the same launcher adds them in a
-//    fixed order and applies the epilogue: no atomics, the same bits every
-//    run.
+//    32-64 tiles, K = 21,216) splits K across blocks; each split writes its
+//    raw partial sums, and a second pass in the same launcher adds them in
+//    a fixed order and applies the epilogue: no atomics, the same bits
+//    every run.
+//  * Measured on an NVIDIA H100 (PERF.md): the products alone (no copies,
+//    loads or splits) take 0.62x of L1's time, ~69% of the TF32 peak with
+//    the per-stage promotion; the copies and loads overlap them in part.
+//    A launch of at most 8 K stages and more than 128 channels (a packed
+//    head's dx pass) spends its time filling the ring and in the epilogue,
+//    one block on each SM: 1.6x the mma.sync kernel this design replaced.
+//    Such launches run only in the training steps, which the host paces.
 //
 // The bf16 instantiation (nq_tail_conv_cf_bf16; the TPU kernel's own
 // operand type, `_mxu_cast` and `_entry_and_cast` of the JAX tail): x, the
@@ -118,18 +136,6 @@ namespace {
 
 constexpr int BN = 128;      // positions per block
 constexpr int BK = 32;       // K rows per stage: 8 steps of 4 rows
-constexpr int LDX = BN + 8;  // X stage row stride, floats
-constexpr int THREADS = 256;
-constexpr int WN = 4;        // 8-position fragments per warp (warp: 32)
-
-template <int WM>            // 16-channel fragments per warp
-struct Tile {
-  static constexpr int BM = 32 * WM;        // output channels per block
-  static constexpr int LDW = BM + 8;        // W stage row stride, floats
-  static constexpr int STAGE = BK * LDX + BK * LDW;   // floats per stage
-  static constexpr int STAGES = WM == 2 ? 4 : 3;
-  static constexpr int SMEM_BYTES = STAGES * STAGE * 4;
-};
 
 template <bool kOutMul>
 __device__ __forceinline__ float conv_epilogue(float acc, float bias, float om,
@@ -139,208 +145,239 @@ __device__ __forceinline__ float conv_epilogue(float acc, float bias, float om,
   return z * mask;
 }
 
-template <int WM, bool kOutMul>
-__global__ void __launch_bounds__(THREADS, 2)
-tail_conv_cf_kernel(const float* __restrict__ x, const float* __restrict__ w,
+// ---- fp32: a TMA ring and wgmma at 3xTF32 ---------------------------------
+
+constexpr int STEPS32 = BK / 4;
+constexpr int CONSUMERS32 = 256;      // two consumer warpgroups
+constexpr int THREADS32 = CONSUMERS32 + 128;  // and the producer warpgroup
+constexpr int SEG32 = 136;            // staged positions per 128 served
+constexpr int SROW32 = SEG32 * 4;     // staged row, bytes
+constexpr int XSTG32 = BK * SROW32;   // a stage's x rows: 17 KB
+constexpr int REG_CONSUMER = 232;     // registers a thread (setmaxnreg:
+constexpr int REG_PRODUCER = 40;      // the producer's split needs few)
+
+// NC output channels (64, 96 or 128) x 128 positions a block, one block on
+// each SM; consumer warpgroup w multiplies the positions 64 w.. with every
+// channel (m64nNCk8): NC / 2 fp32 sums and NC / 2 fragment registers a
+// thread. A stage: the staged x rows, then the weight rows K-major (NC
+// lines of the stage's 32 K values) as TMA lands them and rewritten as
+// their TF32 hi part, then their lo part.
+template <int NC>
+struct Tile32 {
+  static constexpr int WBYTES = NC * 128;
+  static constexpr int STAGE = XSTG32 + 2 * WBYTES;
+  static constexpr int STAGES = NC == 128 ? 4 : NC == 96 ? 5 : 6;
+  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE + 8 * 3 * STAGES;
+};
+
+// the tensor maps of one launch, kernel parameters (__grid_constant__)
+struct alignas(64) ConvMaps32 {
+  CUtensorMap x[NQ_BOX_HEIGHTS];   // x (Mp, cin, B), boxes 136 x 4..32 rows
+  CUtensorMap w;                   // w (cout, K rows), boxes NC x 32
+};
+
+template <int NC, bool kOutMul>
+__global__ void __launch_bounds__(THREADS32, 1)
+tail_conv_cf_kernel(const __grid_constant__ ConvMaps32 maps,
                     const float* __restrict__ bias,
                     const float* __restrict__ out_mul,
                     const float* __restrict__ mask,
                     const int4* __restrict__ ksteps, float* __restrict__ out_z,
                     float* __restrict__ out_y, float* __restrict__ part,
-                    int batch, int cin, int cout, int mp, int ktiles,
-                    int splits, int act_in) {
-  using T = Tile<WM>;
-  extern __shared__ __align__(16) float smem[];
+                    int batch, int cout, int mp, int ktiles, int splits,
+                    int act_in) {
+  using T = Tile32<NC>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = nq_smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + T::STAGES * T::STAGE;  // TMA bytes landed
+  const uint32_t wready = full + 8 * T::STAGES;   // weights split
+  const uint32_t empty = wready + 8 * T::STAGES;  // the stage's products done
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
   const int m0 = blockIdx.x * BN;
-  const int co0 = blockIdx.y * T::BM;
+  const int co0 = blockIdx.y * NC;
   const int b = blockIdx.z / splits;
   const int split = blockIdx.z - b * splits;
   const int per = (ktiles + splits - 1) / splits;
   const int kt_begin = split * per;
-  const int nkt = min(ktiles, kt_begin + per) - kt_begin;
-  const float* xb = x + (size_t)b * cin * mp;
-
-  // X staging: a row of a stage holds x[chan][a .. a + 132) with a = m0 +
-  // shift rounded down to a multiple of 4, as 33 aligned 16-byte vectors;
-  // the multiply reads it at column + (shift & 3)
-  constexpr int XV = BN / 4 + 1;               // vectors per X row
-  constexpr int XROUNDS = (BK * XV + THREADS - 1) / THREADS;
-
-  auto load_stage = [&](int stage, int kt) {
-    float* xs = smem + stage * T::STAGE;
-    float* ws = xs + BK * LDX;
-#pragma unroll
-    for (int i = 0; i < XROUNDS; ++i) {
-      const int idx = tid + i * THREADS;
-      if (idx >= BK * XV) break;
-      const int row = idx / XV, v = idx - row * XV;
-      const int4 st = __ldg(&ksteps[kt * (BK / 4) + (row >> 2)]);
-      const int rr = row & 3;                  // shift, chan, rows
-      const int pos = m0 + (st.x & ~3) + 4 * v;
-      const bool valid = rr < st.z && pos >= 0 && pos + 4 <= mp;
-      const float* src = valid ? xb + (size_t)(st.y + rr) * mp + pos : xb;
-      nq_cp_async16(nq_smem_addr(xs + row * LDX + 4 * v), src, valid);
-    }
-    constexpr int VECS = T::BM / 4;            // 16-byte vectors per W row
-#pragma unroll
-    for (int i = 0; i < BK * VECS / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int row = idx / VECS, v = idx - row * VECS;
-      const int co = co0 + v * 4;
-      const bool valid = co < cout;
-      const float* src = valid ? w + (size_t)(kt * BK + row) * cout + co : w;
-      nq_cp_async16(nq_smem_addr(ws + row * T::LDW + v * 4), src, valid);
-    }
+  const int nkt = max(0, min(ktiles, kt_begin + per) - kt_begin);
+  // lane j < 8 reads step j of a stage of the list
+  auto step = [&](int it) {
+    return lane < STEPS32 && it < nkt
+        ? __ldg(&ksteps[(kt_begin + it) * STEPS32 + lane])
+        : make_int4(0, 0, 0, 0);
   };
 
-  float acc[WM][WN][4];
-#pragma unroll
-  for (int i = 0; i < WM; ++i)
-#pragma unroll
-    for (int j = 0; j < WN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      nq_mbar_init(full + 8 * s, 1);
+      nq_mbar_init(wready + 8 * s, 4);
+      nq_mbar_init(empty + 8 * s, CONSUMERS32 / 32);
+    }
+    nq_fence_mbar_init();
+  }
+  __syncthreads();
 
-  bool mt_ok[WM];   // fragment row has a channel below cout (warp-uniform)
+  if (warp >= CONSUMERS32 / 32) {
+    // the producer warpgroup: its first warp keeps the TMA copies of the
+    // next stages in flight (lane j < 8 the box the plan starts at step j,
+    // rows 4j.., 136 positions from m0 + shift rounded down to 4; lane 0
+    // the weight rows, 32 K values x NC channels in the 128-byte swizzle);
+    // all four warps split the landed weights into TF32 hi (in place) and
+    // lo, 16 bytes a thread at a time (the swizzle moves nothing inside a
+    // 16-byte chunk)
+    nq_setmaxnreg_dec<REG_PRODUCER>();
+    const int pt = tid - CONSUMERS32;
+    auto load_stage = [&](int it, int4 st) {
+      const int s = it % T::STAGES;
+      const int kt = kt_begin + it;
+      nq_mbar_wait(empty + 8 * s, ((it / T::STAGES) & 1) ^ 1);
+      if (lane == 0) nq_mbar_expect_tx(full + 8 * s, XSTG32 + T::WBYTES);
+      __syncwarp();
+      const uint32_t xs = base + s * T::STAGE;
+      if (lane < STEPS32 && st.w > 0)
+        nq_tma_load_3d(xs + lane * 4 * SROW32, &maps.x[nq_box_map(st.w)],
+                       (m0 + st.x) & ~3, st.y, b, full + 8 * s);
+      if (lane == 0)
+        nq_tma_load_2d(xs + XSTG32, &maps.w, kt * BK, co0, full + 8 * s);
+    };
+    constexpr int AHEAD = T::STAGES - 1;
+    int4 ahead = make_int4(0, 0, 0, 0);
+    if (pt < 32) {
+      for (int it = 0; it < min(AHEAD, nkt); ++it) load_stage(it, step(it));
+      ahead = step(AHEAD);
+    }
+    for (int it = 0; it < nkt; ++it) {
+      const int s = it % T::STAGES;
+      nq_mbar_wait(full + 8 * s, (it / T::STAGES) & 1);
+      unsigned char* w = smem + s * T::STAGE + XSTG32;
 #pragma unroll
-  for (int i = 0; i < WM; ++i)
-    mt_ok[i] = co0 + (warp_m * WM + i) * 16 < cout;
-
-  // One stage multiplied into the accumulators. `all_rows_t` (a type):
-  // every fragment row of this warp has channels, so the loop body has no
-  // branch and the compiler overlaps one fragment's loads with another's
-  // products (measured on an NVIDIA H100: 6-10% at the 96- and 128-channel
-  // tiles, a loss at the 64-channel tile, which keeps the branch).
-  auto multiply = [&](const float* xs, const float* ws, int offs,
-                      auto all_rows_t) {
-#pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 8) {
-      // rows k0 + t and k0 + t + 4 lie in two steps: their column offsets
-      const int off0 = (offs >> (k0 >> 1)) & 3;
-      const int off1 = (offs >> ((k0 >> 1) + 2)) & 3;
-      uint32_t bb[WN][2], bs[WN][2];
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const float* p = xs + (k0 + t) * LDX + warp_n * (WN * 8) + j * 8 + g;
-        nq_split_tf32(p[off0], bb[j][0], bs[j][0]);
-        nq_split_tf32(p[4 * LDX + off1], bb[j][1], bs[j][1]);
+      for (int c = pt; c < NC * 8; c += 128) {
+        uint4* hp = reinterpret_cast<uint4*>(w + 16 * c);
+        const uint4 v = *hp;
+        uint4 h, l;
+        nq_split_rna(__uint_as_float(v.x), h.x, l.x);
+        nq_split_rna(__uint_as_float(v.y), h.y, l.y);
+        nq_split_rna(__uint_as_float(v.z), h.z, l.z);
+        nq_split_rna(__uint_as_float(v.w), h.w, l.w);
+        *hp = h;
+        *reinterpret_cast<uint4*>(w + T::WBYTES + 16 * c) = l;
       }
-#pragma unroll
-      for (int i = 0; i < WM; ++i) {
-        if constexpr (!decltype(all_rows_t)::value) {
-          if (!mt_ok[i]) continue;
-        }
-        const float* p = ws + (k0 + t) * T::LDW + (warp_m * WM + i) * 16 + g;
-        uint32_t ab[4], as[4];
-        nq_split_tf32(p[0], ab[0], as[0]);
-        nq_split_tf32(p[8], ab[1], as[1]);
-        nq_split_tf32(p[4 * T::LDW], ab[2], as[2]);
-        nq_split_tf32(p[4 * T::LDW + 8], ab[3], as[3]);
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-          nq_mma_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+      nq_fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) nq_mbar_arrive(wready + 8 * s);
+      // the copies of a later stage, once this one's weights are out
+      if (pt < 32 && it + AHEAD < nkt) {
+        const int4 st = ahead;
+        ahead = step(it + AHEAD + 1);
+        load_stage(it + AHEAD, st);
       }
     }
-  };
-  const bool all_rows = WM > 2 && mt_ok[WM - 1];
-
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < nkt) load_stage(s, kt_begin + s);
-    nq_cp_async_commit();
-  }
-
-  for (int it = 0; it < nkt; ++it) {
-    const int stage = it % T::STAGES;
-    // the stage's 8 column offsets (shift & 3), 2 bits each, fetched ahead
-    // of the wait
-    int offs = 0;
-#pragma unroll
-    for (int j = 0; j < BK / 4; ++j)
-      offs |= (__ldg(&ksteps[(kt_begin + it) * (BK / 4) + j].x) & 3)
-              << (2 * j);
-    nq_cp_async_wait<T::STAGES - 2>();
-    float* xs = smem + stage * T::STAGE;
-    const float* ws = xs + BK * LDX;
-    if (act_in) {
-      // this thread's own copies have landed: GELU them once, in place
-#pragma unroll
-      for (int i = 0; i < XROUNDS; ++i) {
-        const int idx = tid + i * THREADS;
-        if (idx >= BK * XV) break;
-        const int row = idx / XV, v = idx - row * XV;
-        float4* p = reinterpret_cast<float4*>(xs + row * LDX + 4 * v);
-        float4 q = *p;
-        q.x = nq_gelu(q.x);
-        q.y = nq_gelu(q.y);
-        q.z = nq_gelu(q.z);
-        q.w = nq_gelu(q.w);
-        *p = q;
-      }
-    }
-    __syncthreads();
-    // the stage multiplied in the previous turn is free: refill it
-    if (it + T::STAGES - 1 < nkt)
-      load_stage((it + T::STAGES - 1) % T::STAGES,
-                 kt_begin + it + T::STAGES - 1);
-    nq_cp_async_commit();
-
-    if (all_rows)
-      multiply(xs, ws, offs, std::true_type{});
-    else
-      multiply(xs, ws, offs, std::false_type{});
-  }
-
-  // epilogue: thread owns rows g, g + 8 of each fragment row and columns
-  // 2t, 2t + 1 of each fragment column
-  const int mcol = m0 + warp_n * (WN * 8) + 2 * t;
-  if (splits > 1) {
-    float* pb = part + ((size_t)split * batch + b) * cout * mp;
-#pragma unroll
-    for (int i = 0; i < WM; ++i)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int co = co0 + (warp_m * WM + i) * 16 + g + 8 * hh;
-        if (co >= cout) continue;
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-          *reinterpret_cast<float2*>(pb + (size_t)co * mp + mcol + j * 8) =
-              make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-      }
     return;
   }
 
-  float2 mk[WN];
+  // consumers: warpgroup wg (positions pn0..pn0 + 63), warp wl of it
+  nq_setmaxnreg_inc<REG_CONSUMER>();
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pn0 = 64 * wg;
+  // A = x^T, this warp's 16 positions x the stage's K rows, read from the
+  // staged rows (row k of position p at k * 136 + p + (shift & 3): the 32
+  // lanes' loads on 32 banks, 136 = 8 mod 32) and split in registers
+  const int apos = pn0 + 16 * wl + g;
+  // no instruction but wgmma defines frag (ptxas serializes the products
+  // otherwise): the first product of each stage overwrites it (scale-d 0)
+  float acc[NC / 2], frag[NC / 2];
 #pragma unroll
-  for (int j = 0; j < WN; ++j)
-    mk[j] = *reinterpret_cast<const float2*>(mask + mcol + j * 8);
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+  uint32_t ah[4][4], al[4][4];
+  int4 next = step(0);
+
+  for (int it = 0; it < nkt; ++it) {
+    const int s = it % T::STAGES;
+    // the shift's residue r = shift mod 4 of each step, 2 bits a step
+    int rr = 0;
 #pragma unroll
-  for (int i = 0; i < WM; ++i)
+    for (int j = 0; j < STEPS32; ++j)
+      rr |= (__shfl_sync(0xffffffffu, next.x, j) & 3) << (2 * j);
+    next = step(it + 1);
+    nq_mbar_wait(full + 8 * s, (it / T::STAGES) & 1);
+    nq_mbar_wait(wready + 8 * s, (it / T::STAGES) & 1);
+    // the previous stage's products are done: its ring stage is free, and
+    // its sum joins the running one by the fp32 adders (round to nearest;
+    // the tensor core truncates as it accumulates)
+    nq_wgmma_wait<0>();
+    if (it > 0) {
+      __syncwarp();
+      if (lane == 0) nq_mbar_arrive(empty + 8 * ((it - 1) % T::STAGES));
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int co = co0 + (warp_m * WM + i) * 16 + g + 8 * hh;
+      for (int i = 0; i < NC / 2; ++i) acc[i] += frag[i];
+    }
+    // this thread's A fragments (the previous products, which read them,
+    // are done): slice q, a[0] (position g, k t), a[1] (g + 8, t), a[2],
+    // a[3] at k t + 4, each value through GELU when act_in
+    const float* stg = reinterpret_cast<const float*>(smem + s * T::STAGE);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 8 * q + t4 + 4 * (e >> 1);
+        const int r = (rr >> (2 * (2 * q + (e >> 1)))) & 3;
+        float v = stg[k * SEG32 + apos + 8 * (e & 1) + r];
+        if (act_in) v = nq_gelu(v);
+        nq_split_rna(v, ah[q][e], al[q][e]);
+      }
+    nq_wgmma_fence();
+    // B = the weight rows (hi, lo), a k8 slice 32 bytes along the lines.
+    // The small products first, while the chained sum is small: a_lo b_hi,
+    // a_hi b_lo, then a_hi b_hi.
+    const uint32_t wb = base + s * T::STAGE + XSTG32;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t db =
+            nq_desc_sw128(wb + (p == 1 ? T::WBYTES : 0) + 32 * q, 16, 1024);
+        nq_wgmma_tf32<NC>(frag, p == 0 ? al[q] : ah[q], db, p > 0 || q > 0);
+      }
+    nq_wgmma_commit();
+  }
+  nq_wgmma_wait<0>();
+  if (nkt > 0) {
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[i] += frag[i];
+  }
+
+  // epilogue from the sums: thread owns positions apos, apos + 8 and the
+  // channels 8 j + 2 t4, + 1; 4-byte stores, a warp's filling 32-byte
+  // sectors. A split writes its raw sums; a split with no K tiles zeros.
+  float mk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mk[h] = mask[m0 + apos + 8 * h];
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = co0 + 8 * j + 2 * t4 + e;
       if (co >= cout) continue;
-      const float bv = bias != nullptr ? bias[co] : 0.f;
-      const size_t row = ((size_t)b * cout + co) * mp;
+      if (splits > 1) {
+        float* pb = part + (((size_t)split * batch + b) * cout + co) * mp + m0;
 #pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const size_t o = row + mcol + j * 8;
-        float2 om = make_float2(0.f, 0.f);
-        if (kOutMul) om = *reinterpret_cast<const float2*>(out_mul + o);
-        const float z0 = conv_epilogue<kOutMul>(acc[i][j][2 * hh], bv, om.x,
-                                                mk[j].x);
-        const float z1 = conv_epilogue<kOutMul>(acc[i][j][2 * hh + 1], bv,
-                                                om.y, mk[j].y);
-        if (out_z != nullptr)
-          *reinterpret_cast<float2*>(out_z + o) = make_float2(z0, z1);
-        if (out_y != nullptr)
-          *reinterpret_cast<float2*>(out_y + o) =
-              make_float2(nq_gelu(z0), nq_gelu(z1));
+        for (int h = 0; h < 2; ++h) pb[apos + 8 * h] = acc[4 * j + 2 * h + e];
+        continue;
+      }
+      const float bv = bias != nullptr ? bias[co] : 0.f;
+      const size_t row = ((size_t)b * cout + co) * mp + m0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t o = row + apos + 8 * h;
+        const float z = conv_epilogue<kOutMul>(
+            acc[4 * j + 2 * h + e], bv, kOutMul ? out_mul[o] : 0.f, mk[h]);
+        if (out_z != nullptr) out_z[o] = z;
+        if (out_y != nullptr) out_y[o] = nq_gelu(z);
       }
     }
 }
@@ -380,14 +417,14 @@ __global__ void tail_conv_cf_finish_kernel(
         make_float4(nq_gelu(z.x), nq_gelu(z.y), nq_gelu(z.z), nq_gelu(z.w));
 }
 
-template <int WM, bool kOutMul>
-cudaError_t launch(const float* x, const float* w, const float* bias,
+template <int NC, bool kOutMul>
+cudaError_t launch(const ConvMaps32& maps, const float* bias,
                    const float* out_mul, const float* mask, const int4* ksteps,
-                   float* out_z, float* out_y, float* part, int batch, int cin,
+                   float* out_z, float* out_y, float* part, int batch,
                    int cout, int mp, int ktiles, int splits, int act_in,
                    cudaStream_t stream) {
-  using T = Tile<WM>;
-  auto kernel = tail_conv_cf_kernel<WM, kOutMul>;
+  using T = Tile32<NC>;
+  auto kernel = tail_conv_cf_kernel<NC, kOutMul>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -395,10 +432,10 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(mp / BN, (cout + T::BM - 1) / T::BM, batch * splits);
-  kernel<<<grid, THREADS, T::SMEM_BYTES, stream>>>(
-      x, w, bias, out_mul, mask, ksteps, out_z, out_y, part, batch, cin, cout,
-      mp, ktiles, splits, act_in);
+  const dim3 grid(mp / BN, (cout + NC - 1) / NC, batch * splits);
+  kernel<<<grid, THREADS32, T::SMEM_BYTES, stream>>>(
+      maps, bias, out_mul, mask, ksteps, out_z, out_y, part, batch, cout, mp,
+      ktiles, splits, act_in);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long total4 = (long)batch * cout * (mp / 4);
@@ -722,18 +759,24 @@ int conv16_mt(int cout) {
   return (cout + 127) / 128 * 128 <= (cout + 63) / 64 * 64 ? 2 : 1;
 }
 
-// output channels per block of the fp32 kernel
-int conv_wm(int cout, int ktiles) {
-  return (cout <= 64 || ktiles <= 8)                   ? 2
-         : (cout <= 96 || (cout > 128 && cout <= 192)) ? 3
-                                                       : 4;
+// output channels per block of the fp32 kernel (conv_f32_tile of
+// ops/tail_fused.py): 64 for cout <= 64, else of 96 and 128 the one that
+// pads cout least, 128 on a tie
+int conv32_nc(int cout) {
+  if (cout <= 64) return 64;
+  return (cout + 95) / 96 * 96 < (cout + 127) / 128 * 128 ? 96 : 128;
 }
 
 }  // namespace
 
-// ksteps: (nsteps, 4) int32 rows (shift, first channel, valid rows, 0),
-// nsteps a multiple of 8; w: (4 * nsteps, cout). out_z / out_y: either or
-// both. part: (splits, B, cout, Mp) scratch when splits > 1, else unused.
+// ksteps: (nsteps, 4) int32 rows (shift, first channel, valid rows, box),
+// nsteps a multiple of 8, column 3 the rows of the TMA box that starts at
+// the step (ops/tail_fused.py, _box_plan); w: (cout, 4 * nsteps), the
+// weight rows K-major (ops/tail_fused.py, conv_w_operand). out_z / out_y:
+// either or both. part: (splits, B, cout, Mp) scratch when splits > 1,
+// else unused. x and w 16-byte aligned, cout a multiple of 4. Returns
+// cudaErrorInvalidValue for what it does not take and
+// cudaErrorNotSupported when the CUDA driver refuses a tensor map.
 extern "C" int nq_tail_conv_cf(const float* x, const float* w,
                                const float* bias, const float* out_mul,
                                const float* mask, const int* ksteps,
@@ -741,32 +784,53 @@ extern "C" int nq_tail_conv_cf(const float* x, const float* w,
                                int batch, int cin, int cout, int mp,
                                int nsteps, int splits, int act_in,
                                void* stream) {
-  if (nsteps < 1 || nsteps % (BK / 4) != 0 || mp % BN != 0 || batch < 1 ||
-      cout < 1 || cout % 4 != 0 || splits < 1 ||
+  auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  if (nsteps < 1 || nsteps % STEPS32 != 0 || mp % BN != 0 || batch < 1 ||
+      cin < 1 || cout < 1 || cout % 4 != 0 || splits < 1 ||
       (splits > 1 && part == nullptr) ||
       (out_z == nullptr && out_y == nullptr) ||
-      (long)batch * splits > 65535)
+      (long)batch * splits > 65535 || misaligned(x) || misaligned(w))
     return (int)cudaErrorInvalidValue;
-  const int ktiles = nsteps / (BK / 4);
+  const int nc = conv32_nc(cout);
+  ConvMaps32 maps;
+  const uint64_t wdims[2] = {(uint64_t)nsteps * 4, (uint64_t)cout};
+  const uint64_t wstride[1] = {(uint64_t)nsteps * 16};
+  const uint32_t wbox[2] = {BK, (uint32_t)nc};
+  if (!nq_x_maps(maps.x, x, batch, cin, mp, SEG32,
+                 CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !nq_tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, 2, wdims,
+                     wstride, wbox))
+    return (int)cudaErrorNotSupported;
+  const int ktiles = nsteps / STEPS32;
   const int4* ks = reinterpret_cast<const int4*>(ksteps);
   const cudaStream_t st = (cudaStream_t)stream;
-  // output channels per block: 64, 96 or 128 (_conv_tile_m of
-  // ops/tail_fused.py): the tile that leaves the fewest fragment rows of
-  // the last tile empty; 64 for a K of at most 8 stages, whose time is the
-  // epilogue's
-  const int wm = conv_wm(cout, ktiles);
-#define NQ_LAUNCH(WM, OM)                                                    \
-  launch<WM, OM>(x, w, bias, out_mul, mask, ks, out_z, out_y, part, batch,   \
-                 cin, cout, mp, ktiles, splits, act_in, st)
+#define NQ_LAUNCH(NC, OM)                                                  \
+  launch<NC, OM>(maps, bias, out_mul, mask, ks, out_z, out_y, part, batch, \
+                 cout, mp, ktiles, splits, act_in, st)
   cudaError_t err;
   if (out_mul != nullptr)
-    err = wm == 2 ? NQ_LAUNCH(2, true)
-                  : wm == 3 ? NQ_LAUNCH(3, true) : NQ_LAUNCH(4, true);
+    err = nc == 128 ? NQ_LAUNCH(128, true)
+          : nc == 96 ? NQ_LAUNCH(96, true) : NQ_LAUNCH(64, true);
   else
-    err = wm == 2 ? NQ_LAUNCH(2, false)
-                  : wm == 3 ? NQ_LAUNCH(3, false) : NQ_LAUNCH(4, false);
+    err = nc == 128 ? NQ_LAUNCH(128, false)
+          : nc == 96 ? NQ_LAUNCH(96, false) : NQ_LAUNCH(64, false);
 #undef NQ_LAUNCH
   return (int)err;
+}
+
+// The launch geometry the fp32 entry uses for `cout`: out[0..3] = output
+// channels and positions per block, ring stages, dynamic shared memory
+// bytes (what ops/tail_fused.py's conv_f32_geometry computes).
+extern "C" int nq_tail_conv_cf_tile(int cout, int* out) {
+  const int nc = conv32_nc(cout);
+  out[0] = nc, out[1] = BN;
+  out[2] = nc == 128 ? Tile32<128>::STAGES
+           : nc == 96 ? Tile32<96>::STAGES : Tile32<64>::STAGES;
+  out[3] = nc == 128 ? Tile32<128>::SMEM_BYTES
+           : nc == 96 ? Tile32<96>::SMEM_BYTES : Tile32<64>::SMEM_BYTES;
+  return 0;
 }
 
 // The bf16 instantiation: x, w, bias, out_mul, out_z, out_y bf16 (bias,

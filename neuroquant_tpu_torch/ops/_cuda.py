@@ -106,8 +106,10 @@ def lib() -> ctypes.CDLL:
         # the same arguments, bf16 x and g
         "nq_tail_conv_dw_cf_bf16": [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                     p],
-        # cout, int[4] / int[3]: the bf16 launchers' tile, stages and shared
-        # memory (ops/tail_fused.conv_bf16_geometry, dw_bf16_geometry)
+        # cout, int[4] / int[3]: the TMA launchers' tile, stages and shared
+        # memory (ops/tail_fused.conv_f32_geometry, conv_bf16_geometry,
+        # dw_bf16_geometry)
+        "nq_tail_conv_cf_tile": [i, p],
         "nq_tail_conv_cf_bf16_tile": [i, p],
         "nq_tail_conv_dw_cf_bf16_tile": [i, p],
         # x, out, parameter block (B, h, w, c, c8, pad, mp, tm, in type,

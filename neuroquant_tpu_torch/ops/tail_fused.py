@@ -66,8 +66,8 @@ union-sparse K axis of a layer packed with f >= 2 (``_union_blocks``): it
 skips the kernel's structurally zero blocks, 4x fewer MACs at the HNeRV
 Bunny head, in the forward, dx and dW alike. The kernels read the K axis as a list of
 steps of 4 rows, each one box of x: consecutive channels at one flat shift
-(``_k_steps``); the bf16 instantiations copy runs of steps as one TMA box
-(column 3 of their lists, ``_box_plan``).
+(``_k_steps``); the kernels on TMA (the fp32 and bf16 conv, the bf16 dW)
+copy runs of steps as one box (column 3 of their lists, ``_box_plan``).
 
 One deliberate difference from ``_tail_fwd_impl``: under a gradient a layer
 followed by a GELU emits the pair (z, gelu(z)) and the next layer, and its
@@ -97,13 +97,15 @@ from neuroquant_tpu_torch.utils.profiling import span
 # kernel launches per wrapper, since the last reset_launch_counts()
 # (fq_uaq, fq_ada and their _bwd: ops/fused_fakequant.py's grouped forward
 # and backward launches, named as that module says)
-# (the bf16 instantiations under the kernel's name + "_bf16")
+# (the bf16 instantiations under the kernel's name + "_bf16"; the fp32
+# tail_conv_cf launches on the TMA and wgmma design also under
+# "tail_conv_cf_wgmma")
 KERNEL_LAUNCHES = {"tail_conv_cf": 0, "tail_conv_dw_cf": 0, "pack_cf": 0,
                    "unpack_cf": 0, "unpack_frames": 0, "fq_uaq": 0,
                    "fq_ada": 0, "fq_uaq_bwd": 0, "fq_ada_bwd": 0,
                    "tail_conv_cf_bf16": 0, "tail_conv_dw_cf_bf16": 0,
                    "pack_cf_bf16": 0, "unpack_cf_bf16": 0,
-                   "unpack_frames_bf16": 0}
+                   "unpack_frames_bf16": 0, "tail_conv_cf_wgmma": 0}
 # the element types the kernels take, with their launchers' type codes
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the layout kernels' (input, output) dtypes: pack_cf may narrow fp32 to
@@ -703,8 +705,8 @@ def pack_cf(x, plan: TailPlan, dtype=None):
 # Kernels 3 and 4: tail_conv_cf and tail_conv_dw_cf
 # --------------------------------------------------------------------------
 K_STEP = 4          # rows of one K step: one flat shift, consecutive channels
-K_STAGE = 32        # K rows per stage of the conv kernel's ring: 8 steps
-CONV_TILE_N = 128   # positions per block of the conv kernel
+K_STAGE = 32        # K rows per stage of the conv kernels' rings: 8 steps
+CONV_TILE_N = 128   # positions per block of the fp32 conv kernel
 DW_TILE_K = 128     # the dW kernel's K rows per block
 DW_STEP = 32        # its positions per stage; chunks align to it
 _SM_SLOTS = 264     # blocks in flight on the H100: 2 on each of 132 SMs
@@ -813,9 +815,9 @@ def _box_plan(steps):
 
 
 @lru_cache(maxsize=64)
-def _conv_steps_bf16_on(blocks, cin: int, taps: int, device: str):
-    """The bf16 conv kernel's list: :func:`_conv_steps` with its box
-    plan."""
+def _conv_boxes_on(blocks, cin: int, taps: int, device: str):
+    """The conv kernels' list (fp32 and bf16): :func:`_conv_steps` with its
+    box plan."""
     return torch.as_tensor(_box_plan(_conv_steps(blocks, cin, taps)[0]),
                            device=device)
 
@@ -855,11 +857,17 @@ def _w_operand(kk, wrow):
 
 
 def conv_w_operand(kk, plan: TailPlan, layer: TailLayer):
-    """The kernel's weight operand: the (K rows, cout) rows of `kk` that the
-    layer's K-step list reads, contiguous. :func:`conv_cf` gathers it on
-    every call unless it is given one made here once."""
+    """The kernel's weight operand: the rows of `kk` that the layer's K-step
+    list reads, contiguous: K-major, (cout, K rows), for the fp32 kernel,
+    (K rows, cout) for the bf16 one. :func:`conv_cf` gathers it on every
+    call unless it is given one made here once; either layout is one
+    gather."""
     _, wrow = _conv_steps_on(_k_blocks(plan, layer), layer.cin, layer.taps,
                              str(kk.device))
+    if kk.dtype is torch.float32:
+        cout = kk.shape[-1]
+        w2 = torch.cat([kk.reshape(-1, cout), kk.new_zeros(1, cout)])
+        return w2.t().index_select(1, wrow)
     return _w_operand(kk, wrow).contiguous()
 
 
@@ -960,13 +968,6 @@ def _tile_m(cout: int) -> int:
     return 96 if cout <= 96 or 128 < cout <= 192 else 128
 
 
-def _conv_tile_m(cout: int, ktiles: int) -> int:
-    """Output channels per block of the conv kernel (its launcher applies
-    the same rule): :func:`_tile_m`, but 64 for a K of at most 8 stages,
-    where the epilogue sets the time (the head's dx pass)."""
-    return 64 if ktiles <= 8 else _tile_m(cout)
-
-
 def _fill_split(tiles: int, work: int, overhead: int, most: int,
                 slots: int = _SM_SLOTS) -> int:
     """Into how many parts to cut each tile's `work` (in stages) so that
@@ -981,23 +982,13 @@ def _fill_split(tiles: int, work: int, overhead: int, most: int,
     return best
 
 
-def _conv_split(cout: int, mp: int, batch: int, ksteps: int) -> int:
-    """Splits of the conv's K axis: 1 unless the launch has fewer tiles than
-    the card holds blocks (the prefix's dx pass), then enough to fill it,
-    each split keeping at least 8 stages."""
-    ktiles = ksteps * K_STEP // K_STAGE
-    tiles = (mp // CONV_TILE_N) * -(-cout // _conv_tile_m(cout, ktiles)) \
-        * batch
-    if tiles >= _SM_SLOTS:
-        return 1
-    return _fill_split(tiles, ktiles, 4, min(16, ktiles // 8))
-
-
 # --------------------------------------------------------------------------
-# Launch geometry of the bf16 conv kernels (TMA ring, wgmma). Their
-# launchers apply the same tile rules (nq_tail_conv_cf_bf16_tile and
+# Launch geometry of the conv kernels on TMA rings and wgmma (the fp32 and
+# bf16 tail_conv_cf, the bf16 tail_conv_dw_cf). Their launchers apply the
+# same tile rules (nq_tail_conv_cf_tile, nq_tail_conv_cf_bf16_tile and
 # nq_tail_conv_dw_cf_bf16_tile report them); the wrappers pass the splits.
-# tests/test_torch_bf16_tiles.py holds them at every main-path shape.
+# tests/test_torch_bf16_tiles.py and tests/test_torch_tail_fused.py hold
+# them at every main-path shape.
 # --------------------------------------------------------------------------
 H100_SMS = 132
 BF16_ROW = 64               # bf16 values in one 128-byte swizzled line
@@ -1008,6 +999,43 @@ BF16_DW_SEG = 80            # its staged x positions per 64
 BF16_DW_RING = 184320       # bytes the dW kernel gives its ring
 SMEM_PER_BLOCK = 232448     # dynamic shared memory a block may use
 SMEM_PER_SM = 233472        # shared memory of an SM (1 KB per block kept)
+F32_SEG = 136               # the fp32 forward's staged x positions per 128
+
+
+def conv_f32_tile(cout: int) -> Tuple[int, int]:
+    """(output channels, positions) per block of the fp32 TMA kernel: 64 x
+    128 for cout <= 64, else of 96 and 128 channels the one that pads cout
+    least (176 -> 192, 848 -> 864), 128 on a tie. Each of its two
+    warpgroups multiplies 64 positions with every channel (m64nNk8): with
+    the second set of sums the 3xTF32 promotion keeps, 64 sums a thread is
+    what a warpgroup holds, so fp32 stays under bf16's tile."""
+    if cout <= 64:
+        return 64, CONV_TILE_N
+    return (96 if _cdiv(cout, 96) * 96 < _cdiv(cout, 128) * 128 else 128,
+            CONV_TILE_N)
+
+
+@lru_cache(maxsize=256)
+def conv_f32_geometry(cout: int, mp: int, batch: int, nsteps: int) -> dict:
+    """The fp32 TMA kernel's launch, one block on each SM. A ring of
+    `stages` stages of K_STAGE rows: the x rows staged by TMA as F32_SEG
+    positions per 128 from the shift rounded down to 4 (a box's start
+    must lie on 16 bytes), the weight rows K-major (128 bytes a channel,
+    swizzled) and their TF32 lo part beside them; 1 KB for alignment,
+    three barriers a stage. The K splits: 1 unless the launch has fewer tiles
+    than the card has SMs (the prefix's dx pass), then enough to fill it,
+    each split keeping at least 8 stages."""
+    bm, bn = conv_f32_tile(cout)
+    stage = K_STAGE * F32_SEG * 4 + 2 * bm * 128
+    stages = {128: 4, 96: 5, 64: 6}[bm]
+    ktiles = nsteps * K_STEP // K_STAGE
+    tiles = _cdiv(mp, bn) * _cdiv(cout, bm) * batch
+    splits = 1 if tiles >= H100_SMS else \
+        _fill_split(tiles, ktiles, 4, min(16, ktiles // 8), slots=H100_SMS)
+    return dict(bm=bm, bn=bn, stages=stages, stage_bytes=stage,
+                smem=1024 + stages * stage + 8 * 3 * stages,
+                blocks_per_sm=1, ktiles=ktiles, splits=splits,
+                grid=(_cdiv(mp, bn), _cdiv(cout, bm), batch * splits))
 
 
 def conv_bf16_tile(cout: int) -> Tuple[int, int]:
@@ -1030,7 +1058,7 @@ def conv_bf16_geometry(cout: int, mp: int, batch: int, nsteps: int) -> dict:
     per warpgroup two buffers of its realigned x rows; the epilogue's fp32
     staging reuses the ring; 1 KB for alignment, the barriers. The K
     splits: 1 unless the launch has fewer tiles than the card holds blocks
-    (the prefix's dx pass), as :func:`_conv_split` counts."""
+    (the prefix's dx pass), as :func:`conv_f32_geometry` counts."""
     bm, bn = conv_bf16_tile(cout)
     mt, pw = bm // BF16_ROW, bn // 2
     blocks = 1 if mt == 2 else 2
@@ -1125,21 +1153,23 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
     dev = str(x.device)
     if w_op is None:
         w_op = conv_w_operand(kk, plan, layer)
-    if dt is torch.float32:
-        steps, _ = _conv_steps_on(blocks, layer.cin, layer.taps, dev)
-        nsteps = int(steps.shape[0])
-        splits = _conv_split(layer.cout, plan.mp, b, nsteps)
+    steps = _conv_boxes_on(blocks, layer.cin, layer.taps, dev)
+    nsteps = int(steps.shape[0])
+    f32 = dt is torch.float32
+    if f32:
+        splits = conv_f32_geometry(layer.cout, plan.mp, b, nsteps)["splits"]
+        aligned = (x, w_op)
     else:
-        steps = _conv_steps_bf16_on(blocks, layer.cin, layer.taps, dev)
-        nsteps = int(steps.shape[0])
         splits = conv_bf16_geometry(layer.cout, plan.mp, b, nsteps)["splits"]
         if layer.cout % 8:
             raise ValueError(f"tail_conv_cf: bf16 cout={layer.cout} is not "
                              "a multiple of 8")
-        for t, name in ((x, "x"), (w_op, "w_op"), (out_mul, "out_mul")):
-            if t is not None:
-                _aligned16(t, f"tail_conv_cf {name}")
-    _check(w_op, "tail_conv_cf w_op", (nsteps * K_STEP, layer.cout), dt)
+        aligned = (x, w_op, out_mul)
+    for t, name in zip(aligned, ("x", "w_op", "out_mul")):
+        if t is not None:
+            _aligned16(t, f"tail_conv_cf {name}")
+    _check(w_op, "tail_conv_cf w_op", (layer.cout, nsteps * K_STEP) if f32
+           else (nsteps * K_STEP, layer.cout), dt)
     shape = (b, layer.cout, plan.mp)
     out_z = torch.empty(shape, dtype=dt, device=x.device) \
         if "z" in emit else None
@@ -1154,12 +1184,13 @@ def conv_cf(x, kk, bias, plan: TailPlan, layer: TailLayer,
         return 0 if t is None else t.data_ptr()
 
     lib = _cuda.lib()
-    fn = lib.nq_tail_conv_cf if dt is torch.float32 else \
-        lib.nq_tail_conv_cf_bf16
+    fn = lib.nq_tail_conv_cf if f32 else lib.nq_tail_conv_cf_bf16
     _launch(_counted("tail_conv_cf", dt), fn, x.data_ptr(),
             w_op.data_ptr(), ptr(bias), ptr(out_mul), mask.data_ptr(),
             steps.data_ptr(), ptr(out_z), ptr(out_y), ptr(part), b,
             layer.cin, layer.cout, plan.mp, nsteps, splits, int(act_in))
+    if f32:
+        KERNEL_LAUNCHES["tail_conv_cf_wgmma"] += 1
     return {"z": out_z, "y": out_y, "zy": (out_z, out_y)}[emit]
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Times of the port's two conv kernels (tail_conv_cf, tail_conv_dw_cf) at
-every shape the HNeRV Bunny-3M main path launches, on one NVIDIA GPU.
+every shape the HNeRV and NeRV Bunny-3M main paths launch, on one NVIDIA
+GPU.
 
   python3 scripts/torch_conv_bench.py [--dtype fp32|bf16] [--root DIR]...
                                       [--check] [--models] [--out FILE]
@@ -13,21 +14,25 @@ and name both. --check also holds every launch against the plain version
 (fp32: CONV_TOL of chip_smoke.py; bf16: phase 19's gate, a conv output
 within one bf16 unit beyond CONV_TOL of the largest, dW and db within 1e-5
 of the largest). Prints one line per shape and root, the card's name and
-power limit first, and writes the rows as JSON to --out.
+power limit first, each beside cuDNN's call of the same function in the
+same dtype (F.conv2d, conv2d_input, conv2d_weight on the unpacked layer,
+TF32 off in fp32: `library_ms`) and the bound (fp32: three TF32 products
+a FLOP at 495 TFLOP/s, the kernels' 3xTF32, or the bytes at 3.35 TB/s),
+then the sums per decode and per step of each model, and writes the rows
+as JSON to --out.
 
 Decode shapes are batch 1 (emit y or z), calibration shapes batch 2:
 forward as the step launches it, the dx pass with its GELU' epilogue, the
 dW pass. A root whose ``conv_cf`` knows no emit='zy' (before the pair was
 added) is timed with the step it ran then: emit z, act_in on the input.
 
---dtype bf16 times the bf16 instantiations at the same HNeRV shapes and at
-PNeRV Bunny-3M's block (104 -> 400 at 320x640) and head (400 -> 16), each
-beside cuDNN's bf16 call of the same function (F.conv2d, conv2d_input,
-conv2d_weight on the unpacked layer) and the bf16 bound (bf16 FLOPs at
-989 TFLOP/s or bf16 bytes at 3.35 TB/s), with the host's microseconds per
-wrapper call (the time to enqueue it, the card's queue not full), and the
-sums per decode (the batch-1 forwards) and per calibration step (the
-batch-2 forwards and dx passes; the dW passes) of each model.
+--dtype bf16 times the bf16 instantiations at the HNeRV shapes and at
+PNeRV Bunny-3M's block (104 -> 400 at 320x640) and head (400 -> 16)
+(in place of NeRV's), against cuDNN's bf16 calls and the bf16 bound (bf16
+FLOPs at 989 TFLOP/s or bf16 bytes at 3.35 TB/s), with the host's
+microseconds per wrapper call (the time to enqueue it, the card's queue
+not full). The sums: per decode (the batch-1 forwards) and per
+calibration step (the batch-2 forwards and dx passes; the dW passes).
 
 --models times what the kernels serve instead of the kernels, each root
 in turns: HNeRV Bunny-3M's decode at batch 1 in fp32 and under the bf16
@@ -52,6 +57,7 @@ import time
 CONV_TOL = 1e-4
 DW_TOL = 1e-5
 PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+PEAK_TF32_FLOP_PER_S = 495e12   # and TF32
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -160,6 +166,29 @@ def _hnerv_layers(tf):
              (37, 640, 1280, 3, 3))]
 
 
+def _nerv_layers(tf):
+    """NeRV Bunny-3M's four kernel-path convs (the fused prefix block 36 ->
+    24 x 16 at 40x80, the tail's 24 -> 96 (f=1), 96 -> 384 (f=2) and head
+    384 -> 48 (f=4) at 160x320), as :func:`_hnerv_layers`."""
+    import os
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.models import tail_plan_for
+
+    cfg = get_config(os.path.join(HERE, "configs", "NeRV",
+                                  "Bunny_1280x640_3M.yaml"))
+    pplan = tf._prefix_plan(40, 80, 3, 36, 384)
+    plan = tail_plan_for("nerv", cfg)[0]
+    return [("nerv", "prefix", pplan, pplan.layers[0], 36, 384, "z", False,
+             (36, 40, 80, 384, 3)),
+            ("nerv", "L0", plan, plan.layers[0], 24, 96, "y", True,
+             (24, 160, 320, 96, 3)),
+            ("nerv", "L1", plan, plan.layers[1], None, None, "y", True,
+             (24, 320, 640, 96, 3)),
+            ("nerv", "head", plan, plan.layers[2], None, None, "z", False,
+             (24, 640, 1280, 3, 3))]
+
+
 def _pnerv_layers(tf):
     """PNeRV Bunny-3M's two tail convs (its post-fusion block 100 -> 400 at
     320x640, f=1, and the head, f=2), as :func:`_hnerv_layers`."""
@@ -180,7 +209,8 @@ def _all_cases(torch, tf, check, dtype):
     has_zy = "zy" in getattr(tf, "_EMITS", ())
     bf16 = dtype == "bf16"
     dt = torch.bfloat16 if bf16 else torch.float32
-    layers = _hnerv_layers(tf) + (_pnerv_layers(tf) if bf16 else [])
+    layers = _hnerv_layers(tf) + (_pnerv_layers(tf) if bf16 else
+                                  _nerv_layers(tf))
     out = []
 
     def rand(*shape):
@@ -253,8 +283,6 @@ def _all_cases(torch, tf, check, dtype):
         add_layer(*spec)
     if not check:
         out = [(n, f, run, None, lib, nb) for n, f, run, _, lib, nb in out]
-    if not bf16:
-        out = [(n, f, run, ref, None, nb) for n, f, run, ref, _, nb in out]
     return out
 
 
@@ -264,8 +292,12 @@ def _cases(torch, tf, check):
     return ([c[:4] for c in _all_cases(torch, tf, check, "fp32")], _close)
 
 
-def _bound_ms(gflop, nbytes):
-    t_ops = gflop * 1e9 / PEAK_BF16_FLOP_PER_S * 1e3
+def _bound_ms(gflop, nbytes, bf16=True):
+    """The least time: bf16 FLOPs at 989 TFLOP/s, or fp32 FLOPs as three
+    TF32 products each at 495 TFLOP/s (the kernels' 3xTF32), against the
+    bytes at 3.35 TB/s."""
+    t_ops = (gflop * 1e9 / PEAK_BF16_FLOP_PER_S if bf16 else
+             3 * gflop * 1e9 / PEAK_TF32_FLOP_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -380,21 +412,21 @@ def main() -> int:
                 if bf16:
                     host.setdefault((ri, name), []).append(
                         _host_us(torch, run))
-                    if name not in lib_ms:
-                        lib_ms[name] = _time_ms(torch, lib, args.iters)
+                if name not in lib_ms:
+                    lib_ms[name] = _time_ms(torch, lib, args.iters)
             times.setdefault(name, []).append(ms)
             line = (f"  [{ri}] {name}: {ms:.4f} ms, {gfl / ms:.2f} TFLOP/s "
                     f"useful")
             row = dict(root=roots[ri], shape=name, ms=ms, useful_gflop=gfl,
                        card=card)
+            bound, by = _bound_ms(gfl, nbytes, bf16)
+            line += (f"; cuDNN {args.dtype} {lib_ms[name]:.4f} ms "
+                     f"({gfl / lib_ms[name]:.2f} TFLOP/s); bound "
+                     f"{bound:.4f} by {by} ({100 * bound / ms:.1f}%)")
+            row.update(library_ms=lib_ms[name], bound_ms=bound, bound_by=by)
             if bf16:
-                bound, by = _bound_ms(gfl, nbytes)
-                line += (f"; cuDNN bf16 {lib_ms[name]:.4f} ms "
-                         f"({gfl / lib_ms[name]:.2f} TFLOP/s); bound "
-                         f"{bound:.4f} by {by}; host "
-                         f"{host[(ri, name)][-1]:.1f} us a call")
-                row.update(library_ms=lib_ms[name], bound_ms=bound,
-                           bound_by=by, host_us=host[(ri, name)][-1])
+                line += f"; host {host[(ri, name)][-1]:.1f} us a call"
+                row.update(host_us=host[(ri, name)][-1])
             if worst is not None:
                 line += (f", error {worst:.3f} of tolerance" if not bf16 else
                          f", error {worst:.3f} (bf16 units or of 1e-5)")
@@ -409,17 +441,15 @@ def main() -> int:
                   + ("" if not bf16 else
                      "; host us " + " ".join(
                          f"{u:.1f}" for u in host[(ri, name)])))
-        if bf16:
-            for turn in range(2):
-                sums = _sums(times, lambda n: times[n][turn])
-                for key, v in sums.items():
-                    print(f"  sum {key}, turn {turn + 1}: {v:.4f} ms")
-                    summary.setdefault(roots[ri], {}).setdefault(
-                        key, []).append(v)
-    if bf16:
-        for key, v in _sums(lib_ms, lambda n: lib_ms[n]).items():
-            print(f"cuDNN bf16 sum {key}: {v:.4f} ms")
-            summary.setdefault("cuDNN bf16", {})[key] = v
+        for turn in range(len(next(iter(times.values()), []))):
+            sums = _sums(times, lambda n: times[n][turn])
+            for key, v in sums.items():
+                print(f"  sum {key}, turn {turn + 1}: {v:.4f} ms")
+                summary.setdefault(roots[ri], {}).setdefault(
+                    key, []).append(v)
+    for key, v in _sums(lib_ms, lambda n: lib_ms[n]).items():
+        print(f"cuDNN {args.dtype} sum {key}: {v:.4f} ms")
+        summary.setdefault(f"cuDNN {args.dtype}", {})[key] = v
     models = []
     if args.models:
         for ri in order:

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Why the two conv kernels multiply the way they do, measured: builds
+"""Why the fp32 dW kernel multiplies the way it does, measured: builds
 ``neuroquant_tpu_torch/csrc`` once as the library builds it and once per
 variant macro of ``csrc/nq_mma.cuh`` (NQ_SPLIT_RNA, NQ_ACC_IN_TC,
-NQ_ONE_TF32), and at every main-path shape of ``torch_conv_bench.py``
-prints each build's time and its largest error as a share of CONV_TOL
-(over 1: the variant fails the tolerance). Needs one NVIDIA GPU and nvcc.
+NQ_ONE_TF32), and at every dW shape of ``torch_conv_bench.py`` prints
+each build's time and its largest error as a share of CONV_TOL (over 1:
+the variant fails the tolerance). Needs one NVIDIA GPU and nvcc. The
+fp32 conv (forward and dx) no longer multiplies through nq_mma.cuh: it
+runs 3xTF32 on wgmma (csrc/tail_conv_cf.cu), and these macros do not
+touch it.
 
   python3 scripts/torch_conv_variants.py [--iters N]
 """
@@ -50,6 +53,8 @@ def main() -> int:
         label = " ".join(flags) or "library build"
         cases, _ = bench._cases(torch, tf, True)
         for name, _, run, ref in cases:
+            if " dW " not in name:
+                continue
             with torch.no_grad():
                 got, want = run(), ref()
                 got = got if isinstance(got, tuple) else (got,)

@@ -120,6 +120,7 @@ def test_tail_conv_cf(dev, small, li, emit, act_in):
     want = tf.conv_cf_ref(x, kks[li], bms[li], plan, layer, emit, act_in)
     torch.cuda.synchronize()
     assert tf.KERNEL_LAUNCHES["tail_conv_cf"] == 1
+    assert tf.KERNEL_LAUNCHES["tail_conv_cf_wgmma"] == 1
     assert len(_tuple(got)) == len(emit)
     _assert_close(got, want)
     w_op = tf.conv_w_operand(kks[li], plan, layer)       # packed beforehand
@@ -166,7 +167,8 @@ def test_tail_conv_kernels_launch_shapes(dev, shape):
     kblocks = tf._k_blocks(plan, layer)
     if shape == "split_k":
         steps = tf._conv_steps(kblocks, layer.cin, layer.taps)[0]
-        assert tf._conv_split(layer.cout, plan.mp, 2, len(steps)) > 1
+        assert tf.conv_f32_geometry(layer.cout, plan.mp, 2,
+                                    len(steps))["splits"] > 1
     _assert_close(tf.conv_cf(x, kk, bias, plan, layer, "zy"),
                   tf.conv_cf_ref(x, kk, bias, plan, layer, "zy",
                                  blocks=kblocks))
@@ -200,8 +202,8 @@ def _bunny_layers(dev):
 
 
 # the K splits of a stage-1 step's dx passes and the position splits of its
-# dW passes at batch 1: the prefix's dx splits K 8 ways (4 at batch 2)
-BUNNY_B1_SPLITS = {"prefix": (8, 2), "L0": (1, 12), "L1": (1, 4),
+# dW passes at batch 1: the prefix's dx splits K 4 ways (2 at batch 2)
+BUNNY_B1_SPLITS = {"prefix": (4, 2), "L0": (1, 12), "L1": (1, 4),
                    "head": (1, 22)}
 
 
@@ -224,7 +226,7 @@ def test_bunny_backward_at_batch_1(dev, name):
     nsteps = len(tf._conv_steps(blocks, lt.cin, lt.taps)[0])
     kblocks = tf._k_blocks(plan, layer)
     nk = tf.K_STEP * (len(tf._k_steps(kblocks, layer.cin, layer.taps)[0]) + 1)
-    assert (tf._conv_split(lt.cout, plan.mp, 1, nsteps),
+    assert (tf.conv_f32_geometry(lt.cout, plan.mp, 1, nsteps)["splits"],
             tf._dw_split(nk, layer.cout, plan.mp)[0]) == \
         BUNNY_B1_SPLITS[name]
     om = x if layer.gelu_in else None
@@ -236,7 +238,64 @@ def test_bunny_backward_at_batch_1(dev, name):
     _assert_close(got, tf.conv_cf_dw_ref(x, g, plan, layer, False, kblocks))
     torch.cuda.synchronize()
     assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
-            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (1, 1)
+            tf.KERNEL_LAUNCHES["tail_conv_cf_wgmma"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == \
+        (1, 1, 1)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("name", list(BUNNY_B1_SPLITS))
+def test_bunny_conv_on_the_wgmma_design(dev, name, batch):
+    """Every fp32 conv pass HNeRV Bunny-3M's cells launch, on the TMA and
+    3xTF32 wgmma design, against the plain version: the forward as the
+    decode (z, y) and the steps (zy) run it and with act_in, and the dx
+    pass with its GELU' epilogue; the prefix's dx splits K, L1's last
+    channel tile is partial (592 = 4 x 128 + 80), the head has 48
+    channels (the 64-channel tile), the head's dx pass has 5 K stages and
+    592 channels. Each launch counts once under tail_conv_cf and once
+    under tail_conv_cf_wgmma."""
+    plan, layer = _bunny_layers(dev)[list(BUNNY_B1_SPLITS).index(name)]
+    gen = torch.Generator(device=dev).manual_seed(41 + batch)
+    mask = tf.border_mask(plan, device=dev)
+    x = torch.randn((batch, layer.cin, plan.mp), generator=gen,
+                    device=dev) * mask
+    g = torch.randn((batch, layer.cout, plan.mp), generator=gen,
+                    device=dev) * mask
+    kk = torch.randn((layer.side, layer.side, layer.cin, layer.cout),
+                     generator=gen, device=dev) * 0.05
+    bias = torch.randn((layer.cout, 1), generator=gen, device=dev) * 0.1
+    blocks = tf._k_blocks(plan, layer)
+    lt = layer.transposed()
+    kt = tf._kk_transpose(kk).contiguous()
+    om = x if layer.gelu_in else None
+    tf.reset_launch_counts()
+    for emit, act_in in (("z", False), ("y", False), ("zy", False),
+                         ("z", True)):
+        _assert_close(tf.conv_cf(x, kk, bias, plan, layer, emit, act_in),
+                      tf.conv_cf_ref(x, kk, bias, plan, layer, emit, act_in,
+                                     blocks=blocks))
+    _assert_close(tf.conv_cf(g, kt, None, plan, lt, out_mul=om),
+                  tf.conv_cf_ref(g, kt, None, plan, lt,
+                                 blocks=tf._k_blocks(plan, lt), out_mul=om))
+    torch.cuda.synchronize()
+    assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
+            tf.KERNEL_LAUNCHES["tail_conv_cf_wgmma"]) == \
+        (5, 5)
+
+
+def test_f32_conv_launch_geometry_is_python_s(dev):
+    """The fp32 launcher's tile, ring and shared memory are what
+    tf.conv_f32_geometry computes."""
+    import ctypes
+
+    from neuroquant_tpu_torch.ops import _cuda
+
+    out = (ctypes.c_int * 4)()
+    for cout in (8, 48, 56, 64, 72, 96, 176, 592, 848):
+        assert _cuda.lib().nq_tail_conv_cf_tile(cout, out) == 0
+        geo = tf.conv_f32_geometry(cout, 4096, 1, 64)
+        assert list(out) == [geo["bm"], geo["bn"], geo["stages"],
+                             geo["smem"]], cout
 
 
 def test_training_step_runs_on_the_kernels(dev, monkeypatch):
@@ -271,8 +330,9 @@ def test_training_step_runs_on_the_kernels(dev, monkeypatch):
     loss_p = loss_fn(plain(img), img, "l2")
     loss_p.backward()
     n = len(tail_plan_for("hnerv", TINY_HNERV)[0].layers) + 1
-    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_dw_cf=n,
-                             pack_cf=2, unpack_cf=2, unpack_frames=1)
+    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_cf_wgmma=2 * n,
+                             tail_conv_dw_cf=n, pack_cf=2, unpack_cf=2,
+                             unpack_frames=1)
     assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
     grads_p = dict(plain.named_parameters())
     for name, prm in kern.named_parameters():
@@ -333,7 +393,9 @@ def test_nerv_bunny_conv_passes(dev, li, batch):
                   tf.conv_cf_dw_ref(x, g, plan, layer, False, blocks))
     torch.cuda.synchronize()
     assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
-            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (3, 1)
+            tf.KERNEL_LAUNCHES["tail_conv_cf_wgmma"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == \
+        (3, 3, 1)
 
 
 def _pnerv_bunny_layers():
@@ -385,7 +447,9 @@ def test_pnerv_bunny_conv_passes(dev, li, batch):
                   tf.conv_cf_dw_ref(x, g, plan, layer, False, blocks))
     torch.cuda.synchronize()
     assert (tf.KERNEL_LAUNCHES["tail_conv_cf"],
-            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == (4, 1)
+            tf.KERNEL_LAUNCHES["tail_conv_cf_wgmma"],
+            tf.KERNEL_LAUNCHES["tail_conv_dw_cf"]) == \
+        (4, 4, 1)
 
 
 def _bunny_passes_bf16(dev, plan, layer, seed, emits):
@@ -475,8 +539,9 @@ def test_nerv_training_step_runs_on_the_kernels(dev, monkeypatch):
     loss_p = loss_fn(plain(idx), img, "l2")
     loss_p.backward()
     n = len(tail_plan_for("nerv", TINY_NERV)[0].layers) + 1
-    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_dw_cf=n,
-                             pack_cf=2, unpack_cf=2, unpack_frames=1)
+    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_cf_wgmma=2 * n,
+                             tail_conv_dw_cf=n, pack_cf=2, unpack_cf=2,
+                             unpack_frames=1)
     assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
     grads_p = dict(plain.named_parameters())
     for name, prm in kern.named_parameters():
@@ -582,7 +647,8 @@ def test_decode_goes_through_the_kernels(dev):
         assert all(wts.w_ops is not None for _, wts in kern._packed.values())
         assert torch.equal(kern.decode(emb), got)        # packed weights kept
     n_layers = len(kern.blocks) - kern.pack_start + 1
-    assert counts == _counts(tail_conv_cf=n_layers + 1, pack_cf=2,
+    assert counts == _counts(tail_conv_cf=n_layers + 1,
+                             tail_conv_cf_wgmma=n_layers + 1, pack_cf=2,
                              unpack_frames=1)
     assert float((got - want).abs().max()) <= 1e-4
 
@@ -834,8 +900,8 @@ def test_calibration_step_runs_on_the_kernels(dev, monkeypatch):
         counts = dict(tf.KERNEL_LAUNCHES)
     loss_p, grads_p = step(plain, None)
     n = len(plan.layers) + 1                 # the tail and the prefix block
-    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_dw_cf=n,
-                             pack_cf=2, unpack_cf=2)
+    assert counts == _counts(tail_conv_cf=2 * n, tail_conv_cf_wgmma=2 * n,
+                             tail_conv_dw_cf=n, pack_cf=2, unpack_cf=2)
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     top = max(float(g.abs().max()) for g in grads_p)
     for a, b in zip(grads_k, grads_p):

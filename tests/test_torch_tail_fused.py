@@ -300,7 +300,8 @@ class TestWrappers:
             "tail_conv_cf", "tail_conv_dw_cf", "pack_cf", "unpack_cf",
             "unpack_frames", "fq_uaq", "fq_ada", "fq_uaq_bwd",
             "fq_ada_bwd", "tail_conv_cf_bf16", "tail_conv_dw_cf_bf16",
-            "pack_cf_bf16", "unpack_cf_bf16", "unpack_frames_bf16"}
+            "pack_cf_bf16", "unpack_cf_bf16", "unpack_frames_bf16",
+            "tail_conv_cf_wgmma"}
         assert not any(ttf.KERNEL_LAUNCHES.values())
 
     def test_other_devices_raise(self, small_case):
@@ -319,3 +320,153 @@ class TestWrappers:
                                    atol=2e-7, rtol=0)
         exact = torch.nn.functional.gelu(torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, exact, atol=1e-6, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# The fp32 conv kernel's launch geometry and index maps (csrc/
+# tail_conv_cf.cu, its TMA ring and 3xTF32 wgmma), emulated in numpy: the
+# kernel runs only on the card, the maps that decide what it copies and
+# multiplies are held here. No JAX in these.
+# --------------------------------------------------------------------------
+def _f32_layers():
+    """(id, plan, layer) of HNeRV and NeRV Bunny-3M's kernel-path convs:
+    the fused prefix blocks (HNeRV 64 -> 848, k5, 40x80; NeRV 36 -> 384,
+    k3), then each tail's layers."""
+    import os
+
+    from neuroquant_tpu_torch.config import get_config
+    from neuroquant_tpu_torch.models import tail_plan_for
+
+    out = []
+    for arch, sub, prefix in (("hnerv", "HNeRV", (5, 64, 848)),
+                              ("nerv", "NeRV", (3, 36, 384)),
+                              ("pnerv", "PNeRV", None)):
+        cfg = get_config(os.path.join(os.path.dirname(__file__), "..",
+                                      "configs", sub,
+                                      "Bunny_1280x640_3M.yaml"))
+        if prefix is not None:
+            pp = ttf._prefix_plan(40, 80, *prefix)
+            out.append((f"{arch}-prefix", pp, pp.layers[0]))
+        plan = tail_plan_for(arch, cfg)[0]
+        out += [(f"{arch}-L{i}", plan, layer)
+                for i, layer in enumerate(plan.layers)]
+    return out
+
+
+F32_LAYERS = _f32_layers()
+
+
+def _f32_pass(plan, layer, which):
+    lay = layer if which == "forward" else layer.transposed()
+    steps = ttf._box_plan(ttf._conv_steps(ttf._k_blocks(plan, lay), lay.cin,
+                                          lay.taps)[0])
+    return lay, steps
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("which", ["forward", "dx"])
+@pytest.mark.parametrize("name,plan,layer", F32_LAYERS,
+                         ids=[n for n, _, _ in F32_LAYERS])
+def test_f32_conv_tiles_cover_and_fit(name, plan, layer, which, batch):
+    """The tile covers cout and Mp once (64 channels for cout <= 64, else
+    96 or 128, whichever pads cout less), the splits cover K in whole
+    stages of at least 8 a split, and the ring and its barriers fit one
+    block on each SM."""
+    lay, steps = _f32_pass(plan, layer, which)
+    geo = ttf.conv_f32_geometry(lay.cout, plan.mp, batch, len(steps))
+    bm, bn = geo["bm"], geo["bn"]
+    gx, gy, gz = geo["grid"]
+    assert bn == 128 and bm in (64, 96, 128)
+    pads = {t: -(-lay.cout // t) * t for t in (96, 128)}
+    assert bm == 64 if lay.cout <= 64 else (
+        gy * bm == min(pads.values()) and (bm == 128 or pads[96] < pads[128]))
+    assert (gy - 1) * bm < lay.cout <= gy * bm
+    assert gx * bn == plan.mp and gz == batch * geo["splits"]
+    kt = geo["ktiles"]
+    assert kt * ttf.K_STAGE == len(steps) * ttf.K_STEP
+    assert geo["splits"] == 1 or (gx * gy * batch < ttf.H100_SMS
+                                  and kt // geo["splits"] >= 8)
+    assert geo["blocks_per_sm"] == 1
+    assert geo["smem"] <= ttf.SMEM_PER_BLOCK
+    assert geo["stage_bytes"] % 1024 == 0
+    assert geo["stage_bytes"] == (ttf.K_STAGE * ttf.F32_SEG * 4
+                                  + 2 * bm * ttf.K_STAGE * 4)
+    assert geo["stages"] >= 4
+    # TMA: a staged row of 16-byte multiples, each box of 4 rows lands on
+    # 128 bytes, the realigned reads stay inside the staged row
+    assert ttf.F32_SEG * 4 % 16 == 0 and 4 * ttf.F32_SEG * 4 % 128 == 0
+    assert 3 + ttf.CONV_TILE_N <= ttf.F32_SEG
+    # every stage of 8 steps is covered by its boxes once, 32 rows
+    for k0 in range(0, len(steps), 8):
+        rows = steps[k0:k0 + 8, 3]
+        assert rows.sum() == ttf.K_STAGE
+        cover = np.zeros(8, int)
+        for j in np.nonzero(rows)[0]:
+            cover[j:j + rows[j] // ttf.K_STEP] += 1
+        assert (cover == 1).all()
+
+
+def test_f32_conv_splits_at_bunny():
+    """Only the prefix's dx pass splits K: 4 ways at batch 1, 2 at batch 2
+    (32 and 64 tiles of 128 positions x 64 channels, K = 21,216 rows); the
+    other main-path passes have a tile per SM or more."""
+    plan, layer = F32_LAYERS[0][1:]
+    lt = layer.transposed()
+    _, steps = _f32_pass(plan, layer, "dx")
+    assert len(steps) * ttf.K_STEP == 21216 and lt.cout == 64
+    assert [ttf.conv_f32_geometry(64, plan.mp, b, len(steps))["splits"]
+            for b in (1, 2)] == [4, 2]
+    for name, plan, layer in F32_LAYERS[1:4]:
+        for which in ("forward", "dx"):
+            lay, steps = _f32_pass(plan, layer, which)
+            assert ttf.conv_f32_geometry(lay.cout, plan.mp, 1,
+                                         len(steps))["splits"] == 1, name
+
+
+@pytest.mark.parametrize("r", range(4))
+def test_f32_conv_fragment_loads_hit_32_banks(r):
+    """Each warp's load of one A fragment element (x^T, read straight from
+    the staged x rows at row k, position + (shift & 3)) touches 32 distinct
+    banks for every shift residue r: the staged row of F32_SEG = 136 floats
+    is 8 mod 32, so the 8 positions g and the 4 rows t4 of a warp's lanes
+    fall on 32 banks."""
+    seg = ttf.F32_SEG
+    assert seg % 32 == 8
+    for wg in range(2):
+        for wl in range(4):
+            apos = 64 * wg + 16 * wl
+            for q in range(4):
+                for e in range(4):
+                    banks = {((8 * q + t4 + 4 * (e >> 1)) * seg + apos + g
+                              + 8 * (e & 1) + r) % 32
+                             for g in range(8) for t4 in range(4)}
+                    assert len(banks) == 32, (wg, wl, q, e)
+
+
+def test_f32_conv_takes_every_bunny_pass():
+    """Every fp32 conv pass of HNeRV, NeRV and PNeRV Bunny-3M, at batch 1
+    and 2, is one the TMA launcher takes (whole stages of 8 steps, Mp a
+    multiple of the 128-position tile, cout a multiple of 4, at most 65535
+    blocks along z), and its weight operand is the (K rows, cout) rows of
+    the kernel, K-major."""
+    for name, plan, layer in F32_LAYERS:
+        for which in ("forward", "dx"):
+            lay, steps = _f32_pass(plan, layer, which)
+            assert len(steps) % 8 == 0 and plan.mp % ttf.CONV_TILE_N == 0
+            assert lay.cout % 4 == 0, (name, which, lay.cout)
+            for batch in (1, 2):
+                geo = ttf.conv_f32_geometry(lay.cout, plan.mp, batch,
+                                            len(steps))
+                assert geo["grid"][2] <= 65535
+    plan, _ = ttf.plan_geometry(6, 10, [(3, 8, 16, 2), (3, 4, 44, 2)],
+                                (3, 11, 3), tm=128)
+    layer = plan.layers[2]
+    kk = torch.randn(layer.side, layer.side, layer.cin, layer.cout)
+    _, wrow = ttf._conv_steps(ttf._k_blocks(plan, layer), layer.cin,
+                              layer.taps)
+    want = ttf._w_operand(kk, torch.as_tensor(wrow))
+    got = ttf.conv_w_operand(kk, plan, layer)
+    assert got.shape == (layer.cout, len(wrow))
+    assert torch.equal(got, want.t())
+    assert torch.equal(ttf.conv_w_operand(kk.bfloat16(), plan, layer),
+                       want.bfloat16())

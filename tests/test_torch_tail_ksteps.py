@@ -251,11 +251,17 @@ def test_tiles_and_splits_fill_the_card():
     the dW chunks are whole stages that cover every position."""
     assert [ttf._tile_m(c) for c in (48, 56, 64, 176, 592, 848)] == [
         64, 64, 64, 96, 128, 128]
-    assert ttf._conv_tile_m(592, 5) == 64 and ttf._conv_tile_m(592, 50) == 128
-    s = ttf._conv_split(64, 4096, 2, 21200 // ttf.K_STEP)
-    assert s > 1 and 64 * s <= ttf._SM_SLOTS
-    assert ttf._conv_split(848, 4096, 1, 1600 // ttf.K_STEP) == 1
-    assert ttf._conv_split(592, 53248, 1, 1584 // ttf.K_STEP) == 1
+    assert [ttf.conv_f32_tile(c)[0] for c in (48, 56, 64, 96, 176, 592,
+                                              848)] == [64, 64, 64, 96, 96,
+                                                        128, 96]
+
+    def splits(cout, mp, batch, rows):
+        return ttf.conv_f32_geometry(cout, mp, batch,
+                                     rows // ttf.K_STEP)["splits"]
+    s = splits(64, 4096, 2, 21216)
+    assert s > 1 and 64 * s <= ttf.H100_SMS
+    assert splits(848, 4096, 1, 1600) == 1
+    assert splits(592, 53248, 1, 1600) == 1
     for nk, cout, positions in ((1604, 848, 8192), (1404, 176, 106496),
                                 (1588, 592, 106496), (1336, 48, 106496),
                                 (40, 16, 512)):
