@@ -111,13 +111,31 @@ def module(kind: str, name: str):
 # ---------------------------------------------------------------------------
 # inputs from the seed
 # ---------------------------------------------------------------------------
-def seeded_state_dict(model, seed: int, device) -> dict:
-    """Weights for `model` drawn on `device` from `seed` in one call: every
-    conv and linear weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    torch's default init; the other parameters (layer norms, layer scales)
-    keep the values the model's constructor gives them. Returns a state
-    dict in the model's names, the weights both the program and the
-    reference get."""
+def seeded_state_dict(model, seed: int, device):
+    """Weights for `model` drawn on `device` from `seed`, the weights both
+    the program and the reference get: (a state dict in the model's names,
+    the sorted names kept at the constructor's values).
+
+    One generator on `device`, seeded with `seed`, draws in three calls,
+    in this order:
+
+    1. each module's weight that is 4-D (a conv) or a linear's, and that
+       module's bias, in module order: U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+       torch's default init, fan_in the weight's elements an output row;
+    2. every other parameter of two or more dimensions, more than one of
+       them over 1, a factor (PNeRV1's KFc ``w_L``, ``w_R``): N(0, 2 /
+       fan_out), kaiming normal, fan-out, as the published KFc init states,
+       fan_out of the shape without its leading 1s, the first dimension
+       times the third and later ones;
+    3. every other parameter of two or more dimensions, a vector (KFc's
+       rank-1 bias factors ``b_h``, ``b_w``, ``b_c``, zero in the
+       published init): U(-1/sqrt(n), 1/sqrt(n)), n its length, so that
+       the bias term they make is not zero.
+
+    Step 1 is the whole draw of a model without such parameters (HNeRV,
+    NeRV). What is left, one-dimensional (norms' affine parameters, layer
+    scales), keeps the constructor's values. Refused where any value is not
+    finite."""
     sd = {k: v.detach().to(device, copy=True)
           for k, v in model.state_dict().items()}
     drawn = []
@@ -132,15 +150,45 @@ def seeded_state_dict(model, seed: int, device) -> dict:
         drawn.append((pre + "weight", bound))
         if isinstance(getattr(m, "bias", None), torch.nn.Parameter):
             drawn.append((pre + "bias", bound))
-    total = sum(sd[k].numel() for k, _ in drawn)
+    done = {k for k, _ in drawn}
+    rest = [(k, p.shape) for k, p in model.named_parameters()
+            if k not in done and p.dim() >= 2]
+    factors = [(k, math.sqrt(2.0 / _fan_out(s))) for k, s in rest
+               if sum(n > 1 for n in s) > 1]
+    vectors = [(k, 1.0 / math.sqrt(math.prod(s))) for k, s in rest
+               if sum(n > 1 for n in s) <= 1]
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    u = torch.rand(total, generator=gen, device=device) * 2.0 - 1.0
-    at = 0
-    for k, bound in drawn:
-        n = sd[k].numel()
-        sd[k] = (u[at:at + n] * bound).reshape(sd[k].shape).contiguous()
-        at += n
-    return sd
+    for group, draw in ((drawn, _uniform), (factors, torch.randn),
+                        (vectors, _uniform)):
+        if not group:
+            continue
+        total = sum(sd[k].numel() for k, _ in group)
+        u = draw(total, generator=gen, device=device)
+        at = 0
+        for k, scale in group:
+            n = sd[k].numel()
+            sd[k] = (u[at:at + n] * scale).reshape(sd[k].shape).contiguous()
+            at += n
+    bad = [k for k, v in sd.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    if bad:
+        raise Refused(f"weights not finite after the seeded draw: {bad}")
+    done |= {k for k, _ in factors + vectors}
+    return sd, sorted(k for k in sd if k not in done)
+
+
+def _uniform(n: int, generator, device):
+    """n draws of U(-1, 1)."""
+    return torch.rand(n, generator=generator, device=device) * 2.0 - 1.0
+
+
+def _fan_out(shape) -> int:
+    """Kaiming's fan-out of `shape` without its leading 1s: the first
+    dimension times the third and later ones."""
+    s = list(shape)
+    while len(s) > 2 and s[0] == 1:
+        s.pop(0)
+    return s[0] * math.prod(s[2:])
 
 
 def synthetic_frames(n: int, seed: int, device, size=(720, 1280),
@@ -236,7 +284,8 @@ class Trace:
     activity only: the host's operators are left out, since recording them
     doubles a host-bound step. After ``stop`` it holds the card's intervals
     (kernels, copies and memsets) and the host's CUDA runtime calls, which
-    label the card's idle gaps."""
+    label the card's idle gaps, each with its correlation id, which joins
+    an operation to the call that launched it (0: none)."""
 
     def __init__(self, enabled: bool):
         self.enabled = enabled
@@ -244,6 +293,9 @@ class Trace:
         self.wall_s = None
         self.device_events = []     # (name, start_ns, end_ns, is_kernel)
         self.host_events = []       # (name, start_ns, end_ns)
+        self.device_corr = []       # the correlation id of each device event
+        self.host_corr = []         # the correlation id of each host event
+        self._starts = None         # launch_starts(), once worked out
 
     def start(self):
         if not self.enabled:
@@ -271,9 +323,24 @@ class Trace:
                 is_kernel = not name.startswith(("Memcpy", "Memset"))
                 self.device_events.append((name, start, start + dur,
                                            is_kernel))
+                self.device_corr.append(e.correlation_id())
             else:
                 self.host_events.append((name, start, start + dur))
+                self.host_corr.append(e.correlation_id())
         self.prof = None
+
+    def launch_starts(self) -> list:
+        """For each device event, the start of the host's runtime or driver
+        call that launched it, joined by their correlation id (the earliest
+        call with the id); None where no traced call has its id."""
+        if self._starts is None:
+            first = {}
+            for (_, s, _), c in zip(self.host_events, self.host_corr):
+                if c and (c not in first or s < first[c]):
+                    first[c] = s
+            self._starts = [first.get(c) if c else None
+                            for c in self.device_corr]
+        return self._starts
 
     def busy_s(self) -> float:
         """The union of the card's intervals, in seconds."""

@@ -52,6 +52,16 @@ def _names(spec, keys):
     return [f"{ln}/{k}" for ln in spec.layer_names for k in keys]
 
 
+def quant_prefixes(arch: str, cfg) -> list:
+    """The quantized convs' state-dict prefixes in calibration order: the
+    architecture's reference module's ``quant_prefixes`` where it defines
+    one, else HNeRV's and NeRV's (``reference/common.py``)."""
+    from nqbench.reference import common
+
+    ref = core.module("reference", arch)
+    return getattr(ref, "quant_prefixes", common.quant_prefixes)(cfg)
+
+
 def setup(cell):
     from neuroquant_tpu_torch.quantization import init_quant_state, make_spec
 
@@ -204,7 +214,7 @@ def _reference_steps(st, cell, phase, start, tf32, rows_used=None,
 
     ref = core.module("reference", cell.arch)
     t = cell.traffic
-    prefixes = common.quant_prefixes(st.cfg)
+    prefixes = quant_prefixes(cell.arch, st.cfg)
     bits = [int(x) for x in t["precision"]]
     keys = ("w_delta", "b_delta") if phase == 1 else ("w_alpha", "b_alpha")
     mode = "uaq" if phase == 1 else "adaround"
@@ -269,7 +279,7 @@ def judge_run(st, cell, control=False):
     if st.dev.type == "cuda":
         torch.cuda.empty_cache()
     lim = cell.limits
-    prefixes = common.quant_prefixes(st.cfg)
+    prefixes = quant_prefixes(cell.arch, st.cfg)
     bits = [int(x) for x in cell.traffic["precision"]]
     n1 = st.epochs1 * st.steps_per_epoch
     with common.fp32_exact():

@@ -29,7 +29,8 @@ def model_cfg(cell) -> dict:
 
 def build(cell, dev):
     """(model, cfg, sd): the program's model for the cell's configuration
-    with the benchmark's weights from the seed, and those weights."""
+    with the benchmark's weights from the seed
+    (``core.seeded_state_dict``), and those weights."""
     from neuroquant_tpu_torch import models
     from neuroquant_tpu_torch.config import validate_config
 
@@ -37,7 +38,7 @@ def build(cell, dev):
     cls, cfg_cls = cell.config["classes"]
     with torch.device(dev):
         model = getattr(models, cls)(getattr(models, cfg_cls).from_cfg(cfg))
-    sd = core.seeded_state_dict(model, cell.seed, dev)
+    sd, _ = core.seeded_state_dict(model, cell.seed, dev)
     model.load_state_dict(sd)
     return model, cfg, sd
 

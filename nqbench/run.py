@@ -36,7 +36,7 @@ os.environ.setdefault("USE_FLAX", "0")
 
 import torch  # noqa: E402
 
-from nqbench import core  # noqa: E402
+from nqbench import core, span_split  # noqa: E402
 
 
 def run_cell(cell, t_start: float) -> dict:
@@ -85,7 +85,8 @@ def run_cell(cell, t_start: float) -> dict:
         window.update(traced_steps=out["traced_steps"],
                       traced_seconds=trace.wall_s,
                       traced_over_timed=(trace.wall_s / out["traced_steps"])
-                      / (out["wall_s"] / out["steps"]))
+                      / (out["wall_s"] / out["steps"]),
+                      **span_split.card_window(ctx))
     device = {"platform": "gpu" if cuda else "cpu",
               "kind": torch.cuda.get_device_name(cell.device) if cuda
               else "cpu",

@@ -1,6 +1,8 @@
 """The plain reference against the program at a tiny size on the CPU, and
 the work counts against the useful MACs of HNeRV's tail at Bunny-3M."""
 
+import types
+
 import pytest
 import torch
 
@@ -117,6 +119,19 @@ def test_fake_quant(built, mode):
                  * g).sum(), a)[0]
             assert torch.allclose(got.permute(3, 0, 1, 2), want, atol=1e-6,
                                   rtol=1e-5)
+
+
+def test_calibration_order_from_the_reference(monkeypatch):
+    """The calibration driver takes the quantized layers' order from the
+    architecture's reference where it defines one: HNeRV's and NeRV's
+    references define none, so theirs is ``common``'s."""
+    calib = core.module("drivers", "calib")
+    cfg = tiny.CONFIGS["tiny-hnerv"]
+    for arch in ("hnerv", "nerv"):
+        assert calib.quant_prefixes(arch, cfg) == common.quant_prefixes(cfg)
+    own = types.SimpleNamespace(quant_prefixes=lambda c: ["dec_exc", "h"])
+    monkeypatch.setattr(core, "module", lambda kind, name: own)
+    assert calib.quant_prefixes("pnerv1", cfg) == ["dec_exc", "h"]
 
 
 def test_adam_and_schedule():

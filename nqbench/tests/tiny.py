@@ -29,12 +29,25 @@ TINY_NERV = dict(
     dec_kernels=[3, 3, 3], dec_strides=[5, 4, 4], dec_norm="none",
     dec_acts="gelu", out_bias="tanh", loss="l2", epoch=4, workers=0,
     eval_freq=2, batch_size=1, learning_rate=0.002)
+# PNeRV at the same geometry: the (1, 2) embedding, x10 in the excitation
+# block to the KFc grid (10, 20), kfc_strides [2, 2, 2] up to 80x160
+TINY_PNERV = dict(
+    crop_h=80, crop_w=160, diff_enc=False, enc_channel=12, emd_channel=8,
+    enc_strides=[5, 4, 4], kfc_h_w_c=[10, 20, 10], kfc_strides=[2, 2, 2],
+    dec_norm="none", dec_acts="gelu", loss="l2", epoch=2, workers=0,
+    eval_freq=2, batch_size=2, learning_rate=0.002)
 CONFIGS = {
     "tiny-hnerv": dict(TINY_HNERV, arch="hnerv",
                        classes=["HNeRV", "HNeRVConfig"], reduced=[],
                        source="tests"),
     "tiny-nerv": dict(TINY_NERV, arch="nerv", classes=["NeRV", "NeRVConfig"],
                       reduced=[], source="tests"),
+    "tiny-pnerv1": dict(TINY_PNERV, arch="pnerv1",
+                        classes=["PNeRV1", "PNeRVConfig"], reduced=[],
+                        source="tests"),
+    "tiny-pnerv2": dict(TINY_PNERV, arch="pnerv2",
+                        classes=["PNeRV2", "PNeRVConfig"], reduced=[],
+                        source="tests"),
 }
 
 
